@@ -1,0 +1,76 @@
+"""The paper's contribution on PyTorch: FPMs, the geometric partitioner of
+[16], DFPA, and the calibrated heterogeneous-cluster simulator.
+
+Three model representations back the partitioners, as in the reference:
+
+* **scalar** (``fpm.py``) — one ``SpeedModel`` object per processor;
+* **host bank** (``modelbank.py``) — ``ModelBank``, all ``p`` models as
+  padded numpy arrays;
+* **device bank** (``modelbank_torch.py``) — ``TorchModelBank``, the same
+  padded layout as torch tensors on the card, where the ``t*`` bisection,
+  the integer completion and the observation fold-in run.
+
+The entry point is the ``Scheduler`` facade (``scheduler.py``) over a
+``SpeedStore`` (``speedstore.py``), backend and device resolved once.
+``convert.py`` carries the reference package's banks and checkpoints over.
+"""
+
+from .convert import bank_from_arrays
+from .executor import (
+    BatchedSimulatedExecutor,
+    CallableExecutor,
+    Executor,
+    RoundLog,
+    SimulatedExecutor,
+)
+from .fpm import AnalyticModel, ConstantModel, PiecewiseLinearFPM, SpeedModel, imbalance
+from .modelbank import ModelBank
+from .modelbank_torch import TorchModelBank, fetch_partition
+from .partition import cpm_partition, partition_continuous, partition_units
+from .scheduler import Partition, Policy, Scheduler
+from .simulator import (
+    HCL_SPECS,
+    NodeSpec,
+    make_hcl_time_fn_batch,
+    make_hcl_time_fns,
+    matmul_app_time_1d,
+    speed_fn_1d,
+    speed_fn_1d_batch,
+    time_fn_1d,
+    time_fn_1d_batch,
+)
+from .speedstore import SpeedStore, sample_analytic_points
+
+__all__ = [
+    "AnalyticModel",
+    "BatchedSimulatedExecutor",
+    "CallableExecutor",
+    "ConstantModel",
+    "Executor",
+    "HCL_SPECS",
+    "ModelBank",
+    "NodeSpec",
+    "Partition",
+    "PiecewiseLinearFPM",
+    "Policy",
+    "RoundLog",
+    "Scheduler",
+    "SimulatedExecutor",
+    "SpeedModel",
+    "SpeedStore",
+    "TorchModelBank",
+    "bank_from_arrays",
+    "cpm_partition",
+    "fetch_partition",
+    "imbalance",
+    "make_hcl_time_fn_batch",
+    "make_hcl_time_fns",
+    "matmul_app_time_1d",
+    "partition_continuous",
+    "partition_units",
+    "sample_analytic_points",
+    "speed_fn_1d",
+    "speed_fn_1d_batch",
+    "time_fn_1d",
+    "time_fn_1d_batch",
+]

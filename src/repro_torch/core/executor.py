@@ -1,0 +1,197 @@
+"""Executor protocol: how DFPA runs a distribution and observes times.
+
+The paper's step 4 executes ``d_i`` computation units on every processor in
+parallel and gathers the times.  ``Executor.run(d) -> times`` abstracts it,
+so one DFPA loop drives:
+
+* ``SimulatedExecutor`` / ``BatchedSimulatedExecutor`` — the cluster
+  simulator (benchmarks, tests);
+* ``CallableExecutor`` — real per-processor callables, such as the
+  ``matmul_update`` kernel on row panels, timed by the clock of the device
+  they run on.
+
+``run`` returns per-processor execution times for one parallel round; the
+round's wall-clock cost is ``max(times)`` plus the collective overhead the
+executor models.  The fleet, 2-D, delayed and trace executors belong to
+later slices of the port.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass, field
+from typing import Callable, List, Protocol, Sequence, Set
+
+import numpy as np
+import torch
+
+from .modelbank_torch import resolve_device
+
+__all__ = [
+    "Executor",
+    "SimulatedExecutor",
+    "BatchedSimulatedExecutor",
+    "CallableExecutor",
+    "RoundLog",
+]
+
+
+@dataclass
+class RoundLog:
+    """One DFPA round: the distribution sent out and the times gathered."""
+
+    d: List[int]
+    times: List[float]
+    wall_cost: float  # max(times) + modelled collective overhead
+
+
+class Executor(Protocol):
+    @property
+    def num_procs(self) -> int: ...
+
+    def run(self, d: Sequence[int]) -> List[float]:
+        """Execute ``d[i]`` units on processor ``i`` in parallel; return times."""
+        ...
+
+    def round_cost(self, times: Sequence[float]) -> float:
+        """Wall-clock cost of one parallel round (incl. collectives)."""
+        ...
+
+
+@dataclass
+class SimulatedExecutor:
+    """Drives DFPA against ground-truth time functions ``time_fns[i](x)``.
+
+    ``alpha + beta * p`` models the paper's gather of ``p`` times and scatter
+    of ``p`` allocations; ``noise`` optionally perturbs observations
+    (multiplicative, reproducible via the numpy Generator ``rng``).
+    """
+
+    time_fns: Sequence[Callable[[float], float]]
+    alpha: float = 1e-4  # collective latency (s)
+    beta: float = 1e-6  # per-rank cost (s)
+    noise: float = 0.0
+    rng: object = None  # numpy Generator when noise > 0
+    logs: List[RoundLog] = field(default_factory=list)
+
+    @property
+    def num_procs(self) -> int:
+        return len(self.time_fns)
+
+    def run(self, d: Sequence[int]) -> List[float]:
+        times = []
+        for i, di in enumerate(d):
+            t = float(self.time_fns[i](float(di))) if di > 0 else 0.0
+            if self.noise > 0.0 and self.rng is not None and di > 0:
+                t *= 1.0 + self.noise * float(self.rng.standard_normal())
+                t = max(t, 1e-12)
+            times.append(t)
+        self.logs.append(RoundLog(list(map(int, d)), times, self.round_cost(times)))
+        return times
+
+    def round_cost(self, times: Sequence[float]) -> float:
+        return max(times) + self.alpha + self.beta * self.num_procs
+
+    @property
+    def total_cost(self) -> float:
+        return sum(l.wall_cost for l in self.logs)
+
+
+@dataclass
+class BatchedSimulatedExecutor:
+    """Fleet-scale simulator: ONE vector-valued time function for all ``p``
+    processors (e.g. ``simulator.time_fn_1d_batch``), so a round costs one
+    array op.  Mirrors ``SimulatedExecutor``'s overhead and noise model."""
+
+    time_fn_batch: Callable  # x[p] -> t[p], 0 where x <= 0
+    p: int
+    alpha: float = 1e-4
+    beta: float = 1e-6
+    noise: float = 0.0
+    rng: object = None
+    logs: List[RoundLog] = field(default_factory=list)
+
+    @property
+    def num_procs(self) -> int:
+        return self.p
+
+    def run(self, d: Sequence[int]) -> List[float]:
+        x = np.asarray(d, dtype=np.float64)
+        t = np.asarray(self.time_fn_batch(x), dtype=np.float64)
+        t = np.where(x > 0, t, 0.0)
+        if self.noise > 0.0 and self.rng is not None:
+            jitter = 1.0 + self.noise * self.rng.standard_normal(self.p)
+            t = np.where(x > 0, np.maximum(t * jitter, 1e-12), 0.0)
+        times = [float(v) for v in t]
+        self.logs.append(RoundLog(list(map(int, d)), times, self.round_cost(times)))
+        return times
+
+    def round_cost(self, times: Sequence[float]) -> float:
+        return max(times) + self.alpha + self.beta * self.num_procs
+
+    @property
+    def total_cost(self) -> float:
+        return sum(l.wall_cost for l in self.logs)
+
+
+@dataclass
+class CallableExecutor:
+    """Times real per-processor work ``fns[i](d_i)`` on ``device``.
+
+    On a CUDA device the callables only enqueue kernels, so a host clock
+    around them measures the launch, not the work.  Each processor's time is
+    therefore read from the device's own clock: a CUDA event recorded on the
+    current stream before the callable and one after it, the end event
+    synchronized, ``elapsed_time / 1e3`` seconds.  On the CPU
+    (``device="cpu"``) the host clock is the device clock.
+
+    Each processor runs once untimed before its first timed run (the
+    warm-up: first-use set-up such as building a kernel is not round time).
+    On a single host the "parallel" round runs sequentially and is costed as
+    ``max(times)`` — the quantity the paper's parallel rounds expose.
+    """
+
+    fns: Sequence[Callable[[int], None]]
+    device: object = "cuda"
+    logs: List[RoundLog] = field(default_factory=list)
+    warmed: Set[int] = field(default_factory=set, init=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    @property
+    def num_procs(self) -> int:
+        return len(self.fns)
+
+    def _timed(self, i: int, di: int) -> float:
+        if self.device.type != "cuda":
+            t0 = _time.perf_counter()
+            self.fns[i](di)
+            return _time.perf_counter() - t0
+        stream = torch.cuda.current_stream(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        self.fns[i](di)
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    def run(self, d: Sequence[int]) -> List[float]:
+        d = [int(v) for v in d]
+        cold = [i for i, di in enumerate(d) if di > 0 and i not in self.warmed]
+        for i in cold:
+            self.fns[i](d[i])
+            self.warmed.add(i)
+        if cold and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        times = [self._timed(i, di) if di > 0 else 0.0 for i, di in enumerate(d)]
+        self.logs.append(RoundLog(d, times, self.round_cost(times)))
+        return times
+
+    def round_cost(self, times: Sequence[float]) -> float:
+        return max(times)
+
+    @property
+    def total_cost(self) -> float:
+        return sum(l.wall_cost for l in self.logs)
