@@ -3,30 +3,55 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs six phases, each printing one
-JSON line, and fails (non-zero exit, no result line) at the first fault:
+``nvcc`` into ``build/repro_torch/``, then runs seven phases, each printing
+JSON lines and its seconds, and fails (non-zero exit, no result line) at
+the first fault:
 
   1. ``device``     — the card's name, power limit, capability (must be 9.0)
                       and the software versions;
-  2. ``build``      — the kernels' build: seconds and the ``ptxas -v``
-                      register / spill / shared-memory report;
-  3. ``kernels``    — ``matmul_update``'s CUDA kernel against its plain
-                      PyTorch version on the card, on the reference's test
-                      shapes and two ragged ones at the reference's
-                      tolerances, the indivisible-shape refusal, and times at
-                      the main path's panel shape and at 1024x8192x8192;
+  2. ``build``      — the three kernels' build (``matmul_update``,
+                      ``flash_attention``, ``rglru_scan``): seconds and the
+                      ``ptxas -v`` register / spill / shared-memory report;
+  3. ``kernels``    — each CUDA kernel against its plain PyTorch version on
+                      the card: ``matmul_update`` on the reference's test
+                      shapes and two ragged ones, and the indivisible-shape
+                      refusal; ``flash_attention`` on the reference's
+                      ``FLASH_CASES`` x float32 (2e-5) / bfloat16 (2e-2) plus
+                      a window whose first key tile is fully masked for some
+                      rows and ragged lengths; ``rglru_scan`` on
+                      ``RGLRU_CASES`` at 1e-5 plus ``h0`` and ragged cases.
+                      Times at the main paths' shapes, beside the plain
+                      version's, one PyTorch call's and the bound; at the
+                      serve shape flash is held at atol 2e-3, rtol 2e-2,
+                      and a plain version whose window is one 64-key tile
+                      short must fail that check;
   4. ``bank``       — the device bank (float64) against the host numpy bank
                       at p=10^5 (threshold completion) and p=10^4 (greedy),
                       contract: bit-identical allocations and t*;
   5. ``hcl_golden`` — ``Scheduler(backend="torch", device="cuda").autotune``
                       on the HCL simulator reproduces tests/golden/dfpa_hcl.json;
-  6. ``dfpa``       — the main path: the paper's DFPA loop balancing
+  6. ``dfpa``       — the paper's main path: the DFPA loop balancing
                       ``matmul_update`` row panels across eight "processors"
                       that share the card and repeat their panel r_i times,
                       timed by the card's clock.  It must converge at eps=0.1,
                       launch the kernel exactly as often as the rounds say,
                       and the final distribution, measured again, must stay
-                      within 2*eps.
+                      within 2*eps;
+  7. ``serve``      — the model stack's main path: recurrentgemma-2b at its
+                      published width and depth (random weights, seed 0)
+                      served by ``ServeEngine.generate`` — a 4096-token
+                      prompt for a batch of 4, then 32 greedy tokens.  One
+                      ``generate`` must launch ``flash_attention`` exactly 8
+                      times and ``rglru_scan`` 18 times; two give identical
+                      tokens; prefill(4096) + one decode step agree with the
+                      full forward over 4097 tokens (rel 0.05); the kernels'
+                      inputs captured from a real prefill agree with the plain
+                      versions (flash as at the serve shape); and the
+                      smoke-width model in float32 gives the CPU's tokens
+                      (plain versions) on the card (kernels).  Times come
+                      from CUDA events around ``generate``: prefill is one
+                      of a single token, a decode step the rest of one of
+                      32 tokens over 31.
 
 Then it prints the ``kernels`` summary line, the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
@@ -63,9 +88,22 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.modelbank_torch import numpy_sum_block, np_order_sum  # noqa: E402
 from repro_torch.core.partition import _partition_units_bank  # noqa: E402
-from repro_torch.kernels import matmul_update  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.kernels import flash_attention, matmul_update, ops, rglru_scan  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.matmul_update import matmul_update_cuda  # noqa: E402
-from repro_torch.kernels.ref import matmul_update_ref  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru import rglru_scan_cuda  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    LanguageModel,
+    apply_lm,
+    decode_step,
+    init_cache,
+    init_lm,
+    lm_logits,
+    prefill,
+)
+from repro_torch.runtime import ServeEngine  # noqa: E402
 
 # the H100 SXM's published dense peaks and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -88,6 +126,38 @@ DFPA_UNITS = DFPA_N // DFPA_UNIT_ROWS
 DFPA_BLOCKS = dict(bm=32, bn=256, bk=512)
 DFPA_REPEATS = [1, 1, 2, 2, 3, 3, 4, 4]
 DFPA_EPS = 0.1
+
+# the reference's FLASH_CASES and RGLRU_CASES (tests/test_kernels.py), as data
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# at the serve shape (bf16, up to 2048 visible keys a row) outputs average
+# many values and are small: atol 2e-3, rtol 2e-2 (see _check_serve_flash)
+SERVE_FLASH_TOL = (2e-3, 2e-2)
+FLASH_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs, blocks)
+    (1, 2, 2, 128, 128, 64, dict(causal=True), 64),
+    (2, 4, 2, 128, 128, 64, dict(causal=True), 64),  # GQA
+    (2, 4, 1, 128, 128, 32, dict(causal=True), 64),  # MQA
+    (1, 2, 2, 128, 128, 64, dict(causal=True, window=32), 64),  # sliding window
+    (1, 2, 2, 128, 128, 64, dict(causal=True, softcap=30.0), 64),  # gemma softcap
+    (1, 2, 2, 128, 128, 64, dict(causal=False), 64),  # encoder
+    (1, 2, 2, 64, 256, 64, dict(causal=True), 64),  # right-aligned queries
+    # the window's first key tile fully masked for most rows of a query tile
+    (1, 2, 1, 256, 256, 64, dict(causal=True, window=40), None),
+    # ragged lengths no block divides, at the model's head_dim and heads
+    (2, 10, 1, 333, 333, 256, dict(causal=True, window=100, scale=0.0625), None),
+]
+RGLRU_CASES = [  # (B, S, D, bs, bd, with_h0)
+    (1, 128, 128, 64, 128, False),
+    (2, 256, 512, 128, 256, False),
+    (3, 512, 256, 256, 128, False),
+    (2, 256, 512, 128, 256, True),  # an initial state, as the model's cache carries
+    (2, 77, 130, None, None, True),  # ragged
+]
+
+# the serving path: recurrentgemma-2b at full width and depth
+SERVE_ARCH = "recurrentgemma-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
+SERVE_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18}  # one per local / rec layer
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 2, 24, 8
 
 
 def emit(obj) -> None:
@@ -219,7 +289,198 @@ def phase_kernels() -> dict:
     for rows in (DFPA_UNIT_ROWS, DFPA_UNIT_ROWS * 31):  # the smallest and the slowest's panel
         _timing(rows, DFPA_N, DFPA_N, DFPA_BLOCKS, torch.bfloat16)
     _timing(1024, 8192, 8192, dict(bm=256, bn=256, bk=512), torch.bfloat16)
-    return main
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_CASES:
+            _flash_parity(*case, dtype)
+    for case in RGLRU_CASES:
+        _rglru_parity(*case)
+    flash_row = _flash_timing()
+    rglru_row = _rglru_timing()
+    return {"matmul_update": main, "flash_attention": flash_row, "rglru_scan": rglru_row}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _close(got, want, tol) -> tuple:
+    """``|got - want| <= tol + tol |want|`` everywhere (the reference's
+    atol = rtol tests), and the largest absolute error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return bool((err <= tol + tol * want.abs()).all()), float(err.max())
+
+
+def _flash_fp32(q, k, v, *, causal, window, softcap, scale) -> tuple:
+    """Attention on the same inputs in fp32 throughout (logits, weights w
+    and values): its output, and ``sqrt(sum_j w_j^2 v_j^2)`` for every
+    output element, the size of the rounding error that a weighted sum of
+    bf16 terms may carry.  One query head at a time."""
+    B, H, Sq, D = q.shape
+    Sk, G = k.shape[2], H // k.shape[1]
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    terms = torch.empty_like(out)
+    for h in range(H):
+        logits = torch.einsum("bqd,bkd->bqk", q[:, h].float(), k[:, h // G].float()) * scale
+        if softcap > 0:
+            logits = softcap * torch.tanh(logits / softcap)
+        w = torch.softmax(torch.where(mask, logits, -2e38), dim=-1)
+        vf = v[:, h // G].float()
+        out[:, h] = w @ vf
+        terms[:, h] = ((w * w) @ (vf * vf)).sqrt()
+    return out, terms
+
+
+def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
+    """The kernel's output at the serve shape against its plain version:
+    ``|got - want| <= atol + rtol (|want| + terms)`` with SERVE_FLASH_TOL.
+    The ``terms`` part covers rows that sum few keys whose values cancel
+    (bf16 weights err relative to the terms, not to their sum); rows over
+    many keys are held near atol.  The check's own power: the plain version
+    with the window one 64-key tile short (a kernel that drops a tile) must
+    fail it.  Also reports, by query-row band, the kernel's and the plain
+    version's largest error against attention in fp32 throughout."""
+    atol, rtol = SERVE_FLASH_TOL
+    kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
+    exact, terms = _flash_fp32(q, k, v, **kw)
+    got = got.float()
+    want = flash_attention_ref(q, k, v, **kw).float()
+
+    def within(out) -> tuple:
+        err = (out.float() - want).abs()
+        return bool((err <= atol + rtol * (want.abs() + terms)).all()), float(err.max())
+
+    ok, max_err = within(got)
+    bands = {}
+    Sq = q.shape[2]
+    for lo, hi in ((0, 64), (64, kw["window"]), (kw["window"], Sq)):
+        if lo < hi <= Sq:
+            bands[f"rows {lo}-{hi}"] = {
+                "kernel": float((got[:, :, lo:hi] - exact[:, :, lo:hi]).abs().max()),
+                "plain": float((want[:, :, lo:hi] - exact[:, :, lo:hi]).abs().max()),
+            }
+    if not ok:
+        raise SystemExit(f"chip_smoke: flash_attention disagrees with its plain version {what}: {bands}")
+    passed, fault_err = within(flash_attention_ref(q, k, v, **dict(kw, window=kw["window"] - 64)))
+    if passed:
+        raise SystemExit(f"chip_smoke: the flash check {what} cannot tell a window one tile short")
+    return {
+        "max_abs_err": max_err, "tol": f"atol {atol} + rtol {rtol} (|want| + sqrt(sum w^2 v^2))",
+        "window_one_tile_short_max_abs_err": fault_err, "max_abs_err_vs_fp32": bands,
+    }
+
+
+def _flash_operands(B, H, Kv, Sq, Sk, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    def rand(shape, scale):
+        return (scale * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+    return rand((B, H, Sq, D), 0.3), rand((B, Kv, Sk, D), 0.3), rand((B, Kv, Sk, D), 1.0)
+
+
+def _flash_parity(B, H, Kv, Sq, Sk, D, kwargs, blocks, dtype) -> float:
+    q, k, v = _flash_operands(B, H, Kv, Sq, Sk, D, dtype, seed=Sq + D)
+    want = flash_attention_ref(q, k, v, **kwargs)
+    got = flash_attention(q, k, v, impl="cuda", bq=blocks, bk=blocks, **kwargs)
+    torch.cuda.synchronize()
+    ok, max_err = _close(got, want, FLASH_TOL[dtype])
+    emit({
+        "phase": "kernels", "kernel": "flash_attention", "case": [B, H, Kv, Sq, Sk, D], "kwargs": kwargs,
+        "blocks": blocks, "dtype": _dtype_name(dtype), "max_abs_err": max_err,
+        "tol": f"atol = rtol = {FLASH_TOL[dtype]}", "ok": ok,
+    })
+    if not ok:
+        raise SystemExit(f"chip_smoke: flash_attention disagrees with its plain version at {(B, H, Kv, Sq, Sk, D, kwargs)}")
+    return max_err
+
+
+def _rglru_operands(B, S, D, with_h0, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    log_a = -torch.nn.functional.softplus(torch.randn((B, S, D), generator=g, device="cuda"))
+    b = 0.1 * torch.randn((B, S, D), generator=g, device="cuda")
+    h0 = torch.randn((B, D), generator=g, device="cuda") if with_h0 else None
+    return log_a, b, h0
+
+
+def _rglru_parity(B, S, D, bs, bd, with_h0) -> float:
+    log_a, b, h0 = _rglru_operands(B, S, D, with_h0, seed=S + D)
+    want = rglru_scan_ref(log_a, b, h0)
+    got = rglru_scan(log_a, b, h0, impl="cuda", bs=bs, bd=bd)
+    torch.cuda.synchronize()
+    ok, max_err = _close(got, want, 1e-5)
+    emit({
+        "phase": "kernels", "kernel": "rglru_scan", "case": [B, S, D], "blocks": [bs, bd], "h0": with_h0,
+        "dtype": "float32", "max_abs_err": max_err, "tol": "atol = rtol = 1e-5", "ok": ok,
+    })
+    if not ok:
+        raise SystemExit(f"chip_smoke: rglru_scan disagrees with its plain version at {(B, S, D, with_h0)}")
+    return max_err
+
+
+def _bound_ms(ops_count: float, op_dtype, nbytes: float) -> tuple:
+    t_ops = ops_count / PEAK_FLOPS[op_dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flash_timing() -> dict:
+    """flash_attention at the serve path's shape: B=4, H=10, Kv=1,
+    Sq=Sk=4096, D=256, bf16, causal, window 2048."""
+    cfg = get_config(SERVE_ARCH)
+    B, H, Kv, S, D, W = SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT, cfg.head_dim, cfg.window
+    kw = dict(causal=True, window=W, scale=cfg.query_scale)
+    q, k, v = _flash_operands(B, H, Kv, S, S, D, torch.bfloat16, seed=7)
+    got = flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw)
+    check = _check_serve_flash(got, q, k, v, dict(kw, softcap=0.0), "at the serve shape")
+    del got
+    ms = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 5)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=kw["scale"], enable_gqa=True), 10)  # yardstick only
+    pairs = int(mask.sum())  # this run's visible (query, key) pairs per (b, h)
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * Kv * S * D)  # q, k, v read once, o written once
+    bound_ms, bound_by = _bound_ms(4.0 * D * pairs * B * H, torch.bfloat16, nbytes)
+    row = {
+        "shape": [B, H, Kv, S, S, D], "dtype": "bfloat16", "window": W, "visible_pairs_per_head": pairs,
+        **check, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "scaled_dot_product_attention(bool mask, enable_gqa=True)",
+        "bound_ms": bound_ms, "bound_by": bound_by, "tflops": 4.0 * D * pairs * B * H / (ms * 1e-3) / 1e12,
+    }
+    emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
+    return row
+
+
+def _rglru_timing() -> dict:
+    """rglru_scan at the serve path's shape: B=4, S=4096, D=2560, fp32, h0."""
+    cfg = get_config(SERVE_ARCH)
+    B, S, D = SERVE_BATCH, SERVE_PROMPT, cfg.d_rnn
+    log_a, b, h0 = _rglru_operands(B, S, D, True, seed=8)
+    got = rglru_scan(log_a, b, h0, impl="cuda", bs=None, bd=None)
+    want = rglru_scan_ref(log_a, b, h0)
+    torch.cuda.synchronize()
+    ok, max_err = _close(got, want, 1e-5)
+    if not ok:
+        raise SystemExit("chip_smoke: rglru_scan disagrees with its plain version at the serve shape")
+    ms = cuda_ms(lambda: rglru_scan(log_a, b, h0, impl="cuda", bs=None, bd=None), 20)
+    plain_ms = cuda_ms(lambda: rglru_scan_ref(log_a, b, h0), 3)
+    nbytes = 4 * (3 * B * S * D + B * D)  # log_a, b read once, h written once, h0 read once
+    bound_ms, bound_by = _bound_ms(3.0 * B * S * D, torch.float32, nbytes)  # exp, multiply, add
+    row = {
+        "shape": [B, S, D], "dtype": "float32", "h0": True, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library": "none: no single PyTorch call computes a linear recurrence",
+        "bound_ms": bound_ms, "bound_by": bound_by, "gbps": nbytes / (ms * 1e-3) / 1e9,
+    }
+    emit({"phase": "kernels", "kernel": "rglru_scan", "timing": row})
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -405,23 +666,198 @@ def phase_dfpa() -> tuple:
     return launches
 
 
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+class _Capture:
+    """Records the inputs of the last ``ops.flash_attention`` and
+    ``ops.rglru_scan`` call (the model calls them through ``ops``) while
+    active, and passes every call on unchanged."""
+
+    def __init__(self):
+        self.seen = {}
+        self._orig = (ops.flash_attention, ops.rglru_scan)
+
+    def __enter__(self):
+        fa, rg = self._orig
+
+        def flash(q, k, v, **kw):
+            self.seen["flash_attention"] = (q.clone(), k.clone(), v.clone(), kw)
+            return fa(q, k, v, **kw)
+
+        def scan(log_a, b, h0=None, **kw):
+            self.seen["rglru_scan"] = (log_a.clone(), b.clone(), None if h0 is None else h0.clone(), kw)
+            return rg(log_a, b, h0, **kw)
+
+        ops.flash_attention, ops.rglru_scan = flash, scan
+        return self
+
+    def __exit__(self, *exc):
+        ops.flash_attention, ops.rglru_scan = self._orig
+        return False
+
+
+def _serve_full(out: dict) -> dict:
+    cfg = get_config(SERVE_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, g, "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    eng = ServeEngine(cfg, model, batch=SERVE_BATCH, seq_budget=SERVE_PROMPT + SERVE_NEW, device="cuda")
+    gp = torch.Generator(device="cuda").manual_seed(1)
+    seq = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1), generator=gp, device="cuda")
+    prompt = seq[:, :SERVE_PROMPT]
+
+    def timed_generate(new):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        toks = eng.generate(prompt, new)
+        end.record()
+        end.synchronize()
+        return toks, start.elapsed_time(end)
+
+    # the main path: one generate, the kernels' counts read around it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = rglru_scan_cuda.launches = matmul_update_cuda.launches = 0
+    tokens, ms = timed_generate(SERVE_NEW)
+    launches = {
+        "flash_attention": flash_attention_cuda.launches, "rglru_scan": rglru_scan_cuda.launches,
+        "matmul_update": matmul_update_cuda.launches,
+    }
+    out["launches"] = launches
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    # two more generates, then three of one token (prefill and its argmax):
+    # a decode step's time is the difference over the other new tokens
+    gen_ms = [ms]
+    for _ in range(2):
+        again, ms = timed_generate(SERVE_NEW)
+        gen_ms.append(ms)
+        if not torch.equal(again, tokens):
+            raise SystemExit("chip_smoke: two generate calls gave different tokens")
+    prefill_ms = []
+    for _ in range(3):
+        first, ms = timed_generate(1)
+        prefill_ms.append(ms)
+        if not torch.equal(first[:, 0], tokens[:, 0]):
+            raise SystemExit("chip_smoke: generate of one token differs from the first of 32")
+    out["generate_ms_runs"] = gen_ms
+    out["prefill_ms_runs"] = prefill_ms
+    out["prefill_ms"] = float(np.median(prefill_ms))
+    out["decode_ms_per_token"] = (float(np.median(gen_ms)) - out["prefill_ms"]) / (SERVE_NEW - 1)
+    out["tok_per_s"] = SERVE_BATCH * SERVE_NEW / (float(np.median(gen_ms)) / 1e3)
+    out["prefill_tok_per_s"] = SERVE_BATCH * SERVE_PROMPT / (out["prefill_ms"] / 1e3)
+    out["decode_tok_per_s"] = SERVE_BATCH / (out["decode_ms_per_token"] / 1e3)
+    out["tokens_identical"] = True
+    out["sample"] = tokens[0, :8].tolist()
+    if launches["flash_attention"] != SERVE_LAUNCHES["flash_attention"] or launches["rglru_scan"] != SERVE_LAUNCHES["rglru_scan"]:
+        raise SystemExit(f"chip_smoke: one generate launched {launches}, expected {SERVE_LAUNCHES}")
+
+    with torch.inference_mode():
+        # prefill(4096) + decode_step against the full forward over 4097 tokens
+        hid, _, _ = apply_lm(model, cfg, seq, torch.arange(SERVE_PROMPT + 1, device="cuda"))
+        full = lm_logits(model, cfg, hid[:, -1])
+        del hid
+        caches = init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, cfg.dtype, "cuda")
+        with _Capture() as cap:
+            _, caches = prefill(model, cfg, prompt, caches)
+        step, _ = decode_step(model, cfg, seq[:, SERVE_PROMPT:], SERVE_PROMPT, caches)
+        del caches
+        out["decode_vs_full_rel"] = _rel(step, full)
+        if not out["decode_vs_full_rel"] < 0.05:
+            raise SystemExit(f"chip_smoke: prefill + decode differs from the full forward (rel {out['decode_vs_full_rel']})")
+
+        # the kernels' inputs from that prefill (the last local and the last
+        # rec layer), kernel against plain version on the card
+        q, k, v, kw = cap.seen["flash_attention"]
+        check = _check_serve_flash(flash_attention(q, k, v, impl="cuda", **kw), q, k, v, kw, "on the prefill's own inputs")
+        out["captured_flash"] = {"shape": list(q.shape), "dtype": _dtype_name(q.dtype), **check}
+        log_a, b, h0, kw = cap.seen["rglru_scan"]
+        ok2, err2 = _close(rglru_scan(log_a, b, h0, impl="cuda", **kw), rglru_scan_ref(log_a, b, h0), 1e-5)
+        out["captured_rglru"] = {"shape": list(log_a.shape), "h0": h0 is not None, "max_abs_err": err2, "ok": ok2}
+        if not ok2:
+            raise SystemExit("chip_smoke: rglru_scan disagrees with its plain version on the prefill's own inputs")
+    return out
+
+
+def _serve_smoke(out: dict) -> None:
+    """The smoke-width model in float32: the card (kernels) gives the CPU's
+    tokens (plain versions), logits within rel 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["tf32"] = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
+    cfg = get_smoke_config(SERVE_ARCH).replace(dtype=torch.float32)
+    cpu_model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_model = LanguageModel.from_state_dict(cfg, {n: t.to("cuda") for n, t in cpu_model.state_dict().items()})
+    prompt = torch.randint(0, cfg.vocab_size, (SMOKE_BATCH, SMOKE_PROMPT), generator=torch.Generator().manual_seed(1))
+    budget = SMOKE_PROMPT + SMOKE_NEW
+    want = ServeEngine(cfg, cpu_model, batch=SMOKE_BATCH, seq_budget=budget, device="cpu").generate(prompt, SMOKE_NEW)
+    before = (flash_attention_cuda.launches, rglru_scan_cuda.launches)
+    got = ServeEngine(cfg, gpu_model, batch=SMOKE_BATCH, seq_budget=budget, device="cuda").generate(prompt, SMOKE_NEW)
+    launched = (flash_attention_cuda.launches - before[0], rglru_scan_cuda.launches - before[1])
+    with torch.inference_mode():
+        rels = []
+        for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+            toks = prompt.to(dev)
+            hid, _, _ = apply_lm(model, cfg, toks, torch.arange(SMOKE_PROMPT, device=dev))
+            rels.append(lm_logits(model, cfg, hid).cpu())
+    rel = _rel(rels[1], rels[0])
+    out["smoke"] = {
+        "tokens_equal": bool(torch.equal(got.cpu(), want)), "logits_rel": rel,
+        "launches_flash_rglru": list(launched), "tokens": got[0].tolist(),
+    }
+    if not out["smoke"]["tokens_equal"] or not rel < 1e-4 or min(launched) < 1:
+        raise SystemExit(f"chip_smoke: the smoke model on the card differs from the CPU: {out['smoke']}")
+
+
+def phase_serve() -> dict:
+    out = {"phase": "serve", "arch": SERVE_ARCH, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW}
+    try:
+        _serve_full(out)
+        _serve_smoke(out)
+    finally:
+        emit(out)
+    return out
+
+
 def main() -> int:
-    smi = phase_device()
-    phase_build()
-    main_timing = phase_kernels()
-    phase_bank()
-    phase_hcl_golden()
-    launches = phase_dfpa()
+    seconds = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": name, "seconds": seconds[name]})
+        return result
+
+    smi = run("device", phase_device)
+    run("build", phase_build)
+    timings = run("kernels", phase_kernels)
+    run("bank", phase_bank)
+    run("hcl_golden", phase_hcl_golden)
+    dfpa_launches = run("dfpa", phase_dfpa)
+    serve = run("serve", phase_serve)
+    launches = {"matmul_update": dfpa_launches, **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
+    sources = {
+        "matmul_update": "src/repro/kernels/matmul_update.py:49",
+        "flash_attention": "src/repro/kernels/flash_attention.py:93",
+        "rglru_scan": "src/repro/kernels/rglru.py:48",
+    }
     emit({"kernels": [{
-        "name": "matmul_update", "route": "cuda",
-        "source": "src/repro_torch/csrc/matmul_update.cu",
-        "replaces": "src/repro/kernels/matmul_update.py:49",
-        "launches": launches, "max_abs_err": main_timing["max_abs_err"],
-        "ms": main_timing["ms"], "plain_ms": main_timing["plain_ms"],
-        "bound_ms": main_timing["bound_ms"], "bound_by": main_timing["bound_by"],
-        "library_ms": main_timing["library_ms"],
-        "shape": main_timing["shape"], "dtype": main_timing["dtype"],
-    }]})
+        "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+        "replaces": sources[name], "launches": launches[name], "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": row["shape"], "dtype": row["dtype"],
+    } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -47,7 +47,7 @@ class Built:
     def ptxas_lines(self) -> List[str]:
         return [
             ln.strip() for ln in self.log.splitlines()
-            if "registers" in ln or "spill" in ln or "smem" in ln
+            if "registers" in ln or "spill" in ln or "smem" in ln or "entry function" in ln
         ]
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no JAX
-and nothing of the reference package, and the smoke script refuses to run
+"""The port stands alone: ``repro_torch`` (every module, the model stack
+and its serving path included) and ``chip_smoke.py`` import no JAX and
+nothing of the reference package, and the smoke script refuses to run
 without a CUDA device."""
 
 import os
@@ -26,6 +27,9 @@ def _env():
 def test_import_leaves_jax_and_reference_unloaded():
     probe = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch._build\n"
+        "import repro_torch.configs, repro_torch.nn, repro_torch.models, repro_torch.runtime\n"
+        "import repro_torch.launch.serve, repro_torch.kernels.flash_attention, repro_torch.kernels.rglru\n"
+        "import repro_torch.configs.recurrentgemma_2b, repro_torch.nn.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

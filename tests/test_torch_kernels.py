@@ -8,21 +8,37 @@ case whose blocks clip to the shape, at the reference's tolerances
 ``rtol 2e-2``).  Inputs are made from a seed with numpy and rounded to
 bfloat16 the same way on both sides.
 
-The CUDA kernel is held against the plain version on the card by
+``flash_attention_ref`` meets ``flash_attention_pallas`` (interpret mode,
+64-row blocks) on the reference's ``FLASH_CASES`` x ``FLASH_DTYPES``
+(2e-5 float32, 2e-2 bfloat16) and ``rglru_scan_ref`` meets
+``rglru_scan_pallas`` on ``RGLRU_CASES`` at 1e-5; the ``h0`` cases, which
+the Pallas kernel cannot take, meet the reference's own ``rglru_scan_ref``
+and the reference model's ``_rglru_scan``, and so does ``_log_depth_scan`` here: a
+third plain version of the recurrence, the log-depth form of the
+reference model's associative scan.
+
+The CUDA kernels are held against the plain versions on the card by
 ``tests/test_torch_kernels_cuda.py`` (which imports no JAX, so it runs on
 the machine with the card) and by ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.matmul_update import matmul_update_pallas
+from repro.kernels.rglru import rglru_scan_pallas
+from repro.models.recurrent import _rglru_scan as jax_model_scan
 
-from repro_torch.kernels import matmul_update
+from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.matmul_update import matmul_update_cuda
-from repro_torch.kernels.ref import matmul_update_ref
+from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
+from repro_torch.kernels.rglru import rglru_scan_cuda
 
 MATMUL_DTYPES = [("float32", 2e-4), ("bfloat16", 5e-2)]
 MATMUL_SHAPES = [
@@ -95,3 +111,122 @@ def test_plain_version_takes_cpu_tensors_only(impl):
     with pytest.raises(ValueError, match="takes CPU tensors"):
         matmul_update(c, c, c, impl=impl)
     assert matmul_update_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the RG-LRU scan (the model stack's kernels)
+# ---------------------------------------------------------------------------
+
+FLASH_DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2)]
+FLASH_CASES = [
+    (1, 2, 2, 128, 128, 64, dict(causal=True)),
+    (2, 4, 2, 128, 128, 64, dict(causal=True)),  # GQA
+    (2, 4, 1, 128, 128, 32, dict(causal=True)),  # MQA
+    (1, 2, 2, 128, 128, 64, dict(causal=True, window=32)),  # sliding window
+    (1, 2, 2, 128, 128, 64, dict(causal=True, softcap=30.0)),  # gemma softcap
+    (1, 2, 2, 128, 128, 64, dict(causal=False)),  # encoder
+    (1, 2, 2, 64, 256, 64, dict(causal=True)),  # right-aligned queries
+]
+RGLRU_CASES = [
+    (1, 128, 128, 64, 128),
+    (2, 256, 512, 128, 256),
+    (3, 512, 256, 256, 128),
+]
+
+
+def _flash_inputs(B, H, Kv, Sq, Sk, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (
+        0.3 * rng.standard_normal((B, H, Sq, D), dtype=np.float32),
+        0.3 * rng.standard_normal((B, Kv, Sk, D), dtype=np.float32),
+        rng.standard_normal((B, Kv, Sk, D), dtype=np.float32),
+    )
+
+
+def _rglru_inputs(B, S, D, seed=0):
+    rng = np.random.default_rng(seed)
+    log_a = -np.logaddexp(rng.standard_normal((B, S, D), dtype=np.float32), 0.0).astype(np.float32)
+    return log_a, 0.1 * rng.standard_normal((B, S, D), dtype=np.float32), rng.standard_normal((B, D), dtype=np.float32)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,D,kwargs", FLASH_CASES)
+def test_plain_flash_attention_matches_reference_kernel(B, H, Kv, Sq, Sk, D, kwargs, dtype, tol):
+    q, k, v = _flash_inputs(B, H, Kv, Sq, Sk, D)
+    want = flash_attention_pallas(
+        *(jnp.asarray(x, _JNP[dtype]) for x in (q, k, v)), bq=64, bk=64, interpret=True, **kwargs
+    )
+    qt, kt, vt = (torch.from_numpy(x).to(_TORCH[dtype]) for x in (q, k, v))
+    got = flash_attention(qt, kt, vt, bq=64, bk=64, **kwargs)  # CPU tensors: the plain version
+    assert got.dtype == _TORCH[dtype] and torch.equal(got, flash_attention_ref(qt, kt, vt, **kwargs))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,D,bs,bd", RGLRU_CASES)
+def test_plain_rglru_scan_matches_reference_kernel(B, S, D, bs, bd):
+    log_a, b, _ = _rglru_inputs(B, S, D)
+    want = rglru_scan_pallas(jnp.asarray(log_a), jnp.asarray(b), bs=bs, bd=bd, interpret=True)
+    got = rglru_scan(torch.from_numpy(log_a), torch.from_numpy(b), bs=bs, bd=bd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _log_depth_scan(log_a, b, h0):
+    """h_t = exp(log_a_t) * h_{t-1} + b_t along axis 1 (fp32), as a
+    log-depth scan over (decay, input) pairs: after the step of stride
+    ``k``, element ``t`` holds the combination of ``t-2k+1 .. t``."""
+    la, bb = log_a, b
+    S = la.shape[1]
+    k = 1
+    while k < S:
+        bb = torch.cat([bb[:, :k], torch.exp(la[:, k:]) * bb[:, :-k] + bb[:, k:]], dim=1)
+        la = torch.cat([la[:, :k], la[:, :-k] + la[:, k:]], dim=1)
+        k *= 2
+    return bb + torch.exp(la) * h0[:, None]
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 256, 128), (3, 77, 40)])
+def test_rglru_scan_with_h0_matches_reference_and_model_scan(B, S, D):
+    log_a, b, h0 = _rglru_inputs(B, S, D, seed=1)
+    args = tuple(jnp.asarray(x) for x in (log_a, b, h0))
+    want_ref = np.asarray(jax.jit(jref.rglru_scan_ref)(*args))
+    want_model = np.asarray(jax.jit(jax_model_scan)(*args))
+    la, bt, h0t = (torch.from_numpy(x) for x in (log_a, b, h0))
+    for got in (rglru_scan(la, bt, h0t, bs=None, bd=None), rglru_scan_ref(la, bt, h0t), _log_depth_scan(la, bt, h0t)):
+        np.testing.assert_allclose(got.numpy(), want_ref, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want_model, atol=1e-5, rtol=1e-5)
+
+
+def test_model_kernel_block_rules_raise_like_reference():
+    q = np.zeros((1, 1, 96, 16), np.float32)
+    with pytest.raises(ValueError, match="not divisible") as want:
+        flash_attention_pallas(jnp.asarray(q), jnp.asarray(q), jnp.asarray(q), bq=64, bk=64, interpret=True)
+    with pytest.raises(ValueError, match="not divisible") as got:
+        flash_attention(*(torch.from_numpy(q),) * 3, bq=64, bk=64)
+    assert str(got.value) == str(want.value)
+    la = np.zeros((1, 96, 64), np.float32)
+    with pytest.raises(ValueError, match="not divisible") as want:
+        rglru_scan_pallas(jnp.asarray(la), jnp.asarray(la), bs=64, bd=64, interpret=True)
+    with pytest.raises(ValueError, match="not divisible") as got:
+        rglru_scan(torch.from_numpy(la), torch.from_numpy(la), bs=64, bd=64)
+    assert str(got.value) == str(want.value)
+
+
+def test_model_kernels_dispatch_cpu_tensors_to_plain_versions():
+    q = torch.full((1, 2, 8, 4), 0.1)
+    la = torch.full((1, 8, 4), -1.0)
+    before = (flash_attention_cuda.launches, rglru_scan_cuda.launches)
+    assert flash_attention(q, q, q, causal=True).shape == (1, 2, 8, 4)
+    assert torch.equal(flash_attention(q, q, q, impl="ref"), flash_attention_ref(q, q, q))
+    assert torch.equal(rglru_scan(la, torch.ones_like(la), impl="ref"), rglru_scan_ref(la, torch.ones_like(la)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rglru_scan(la, la, impl="cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        rglru_scan(la, la, impl="pallas")
+    meta = torch.zeros(1, 2, 8, 4, device="meta")
+    with pytest.raises(ValueError, match="takes CPU tensors"):
+        flash_attention(meta, meta, meta)
+    with pytest.raises(ValueError, match="takes CPU tensors"):
+        rglru_scan(meta[0], meta[0], impl="ref")
+    assert (flash_attention_cuda.launches, rglru_scan_cuda.launches) == before

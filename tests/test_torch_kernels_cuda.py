@@ -1,4 +1,4 @@
-"""The CUDA ``matmul_update`` against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device.  This file
 imports no JAX and nothing of the reference, so it runs on the machine with
@@ -6,19 +6,29 @@ the card:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Cases: the reference's ``MATMUL_SHAPES`` x float32/bfloat16 plus two ragged
-shapes (the default blocks clipped to the shape; and K, N not multiples of
-8, the plain-tile path), at the reference's tolerances ``atol * sqrt(K)``
-(2e-4 float32, 5e-2 bfloat16), ``rtol 2e-2``.
+Cases and tolerances are the reference's (``tests/test_kernels.py``):
+
+* ``matmul_update``: ``MATMUL_SHAPES`` x float32/bfloat16 plus two ragged
+  shapes (the default blocks clipped to the shape; and K, N not multiples
+  of 8, the plain-tile path), ``atol * sqrt(K)`` (2e-4 float32, 5e-2
+  bfloat16), ``rtol 2e-2``;
+* ``flash_attention``: ``FLASH_CASES`` x float32 (2e-5) / bfloat16 (2e-2),
+  plus a window whose first key tile is fully masked for some rows, ragged
+  lengths no block divides, a head_dim the tensor-core path does not take,
+  and strided (transposed) operands;
+* ``rglru_scan``: ``RGLRU_CASES`` at 1e-5, plus an ``h0`` case and a
+  ragged one.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import matmul_update
+from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.matmul_update import matmul_update_cuda
-from repro_torch.kernels.ref import matmul_update_ref
+from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
+from repro_torch.kernels.rglru import rglru_scan_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +41,29 @@ MATMUL_SHAPES = [
     (100, 96, 40, 256, 256, 512),
     (72, 90, 36, 256, 256, 512),
 ]
+FLASH_DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+FLASH_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs, blocks)
+    (1, 2, 2, 128, 128, 64, dict(causal=True), 64),
+    (2, 4, 2, 128, 128, 64, dict(causal=True), 64),  # GQA
+    (2, 4, 1, 128, 128, 32, dict(causal=True), 64),  # MQA
+    (1, 2, 2, 128, 128, 64, dict(causal=True, window=32), 64),  # sliding window
+    (1, 2, 2, 128, 128, 64, dict(causal=True, softcap=30.0), 64),  # gemma softcap
+    (1, 2, 2, 128, 128, 64, dict(causal=False), 64),  # encoder
+    (1, 2, 2, 64, 256, 64, dict(causal=True), 64),  # right-aligned queries
+    # beyond the reference's cases: the window's first key tile fully
+    # masked for most rows of a query tile; ragged lengths; D=256 (the
+    # model's); D=48 (the plain-row path in bf16); MQA over ten heads
+    (1, 2, 1, 256, 256, 64, dict(causal=True, window=40), None),
+    (2, 3, 1, 97, 161, 64, dict(causal=True, window=50), None),
+    (1, 10, 1, 130, 130, 256, dict(causal=True, window=70, scale=0.0625), None),
+    (1, 2, 1, 77, 77, 48, dict(causal=True, softcap=20.0), None),
+]
+RGLRU_CASES = [  # (B, S, D, bs, bd)
+    (1, 128, 128, 64, 128),
+    (2, 256, 512, 128, 256),
+    (3, 512, 256, 256, 128),
+    (2, 77, 130, None, None),  # ragged, no block rule
+]
 
 
 @pytest.fixture
@@ -40,14 +73,15 @@ def card():
     return torch.device("cuda")
 
 
+def _randn(rng, shape, scale=1.0):
+    return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32))
+
+
 @pytest.mark.parametrize("dtype,atol", MATMUL_DTYPES)
 @pytest.mark.parametrize("M,N,K,bm,bn,bk", MATMUL_SHAPES)
 def test_kernel_matches_plain_on_card(card, M, N, K, bm, bn, bk, dtype, atol):
     rng = np.random.default_rng(0)
-    c, a, b = (
-        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card, dtype)
-        for shape in ((M, N), (M, K), (K, N))
-    )
+    c, a, b = (_randn(rng, shape).to(card, dtype) for shape in ((M, N), (M, K), (K, N)))
     want = matmul_update_ref(c, a, b)
     before = matmul_update_cuda.launches
     got = matmul_update(c, a, b, bm=bm, bn=bn, bk=bk)
@@ -66,3 +100,70 @@ def test_kernel_refuses_what_it_does_not_take(card):
         matmul_update(c, c.t(), c)
     with pytest.raises(ValueError, match="not divisible"):
         matmul_update(torch.zeros(100, 64, device=card), torch.zeros(100, 64, device=card), c, bm=64)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,D,kwargs,blocks", FLASH_CASES)
+def test_flash_attention_matches_plain_on_card(card, B, H, Kv, Sq, Sk, D, kwargs, blocks, dtype, tol):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, H, Sq, D), 0.3).to(card, dtype)
+    k = _randn(rng, (B, Kv, Sk, D), 0.3).to(card, dtype)
+    v = _randn(rng, (B, Kv, Sk, D)).to(card, dtype)
+    want = flash_attention_ref(q, k, v, **kwargs)
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, bq=blocks, bk=blocks, **kwargs)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_reads_strided_operands(card):
+    # the model's call: (B, S, H, D) tensors as transposed (B, H, S, D) views
+    rng = np.random.default_rng(1)
+    B, S, H, D = 2, 100, 4, 64
+    q = _randn(rng, (B, S, H, D), 0.3).to(card, torch.bfloat16)
+    k = _randn(rng, (B, S, 1, D), 0.3).to(card, torch.bfloat16)
+    v = _randn(rng, (B, S, 1, D)).to(card, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    got = flash_attention(qt, kt, vt, causal=True, window=30, bq=None, bk=None)
+    want = flash_attention_ref(qt.contiguous(), kt.contiguous(), vt.contiguous(), causal=True, window=30)
+    torch.cuda.synchronize()
+    assert got.stride() == qt.stride()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,D,bs,bd", RGLRU_CASES)
+def test_rglru_scan_matches_plain_on_card(card, B, S, D, bs, bd, with_h0):
+    rng = np.random.default_rng(0)
+    log_a = -torch.nn.functional.softplus(_randn(rng, (B, S, D))).to(card)
+    b = (0.1 * _randn(rng, (B, S, D))).to(card)
+    h0 = _randn(rng, (B, D)).to(card) if with_h0 else None
+    want = rglru_scan_ref(log_a, b, h0)
+    before = rglru_scan_cuda.launches
+    got = rglru_scan(log_a, b, h0, bs=bs, bd=bd)
+    torch.cuda.synchronize()
+    assert rglru_scan_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_model_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros(1, 2, 64, 64, device=card, dtype=torch.bfloat16)
+    la = torch.zeros(1, 64, 64, device=card)
+    with pytest.raises(ValueError, match="takes CPU tensors"):
+        flash_attention(q, q, q, impl="ref")
+    with pytest.raises(ValueError, match="takes CPU tensors"):
+        rglru_scan(la, la, impl="ref")
+    before = (flash_attention_cuda.launches, rglru_scan_cuda.launches)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError, match="not divisible"):
+        flash_attention(q, q, q, bq=48)
+    with pytest.raises(TypeError):
+        rglru_scan(la, la.double())
+    with pytest.raises(ValueError, match="not divisible"):
+        rglru_scan(la, la, bs=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(la.transpose(1, 2), la)
+    assert (flash_attention_cuda.launches, rglru_scan_cuda.launches) == before
