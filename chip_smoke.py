@@ -11,12 +11,21 @@ the first fault:
                       and the software versions;
   2. ``build``      — the three kernels' build (``matmul_update``,
                       ``flash_attention``, ``rglru_scan``): seconds and the
-                      ``ptxas -v`` register / spill / shared-memory report;
+                      ``ptxas -v`` register / spill / shared-memory report,
+                      plus the dynamic shared memory of ``matmul_update``'s
+                      wgmma kernel;
   3. ``kernels``    — each CUDA kernel against its plain PyTorch version on
                       the card: ``matmul_update`` on the reference's test
-                      shapes and two ragged ones, and the indivisible-shape
-                      refusal; ``flash_attention`` on the reference's
-                      ``FLASH_CASES`` x float32 (2e-5) / bfloat16 (2e-2) plus
+                      shapes, two ragged ones and two larger ones on the
+                      ``"wgmma"`` route, each launched twice on the same inputs
+                      (the two results bit-identical), and the
+                      indivisible-shape refusal; at the three DFPA panels
+                      (32, 992, 2048 rows) it is timed beside ``addmm_`` and
+                      must take the ``"wgmma"`` route, and at 2048 rows a
+                      plain version that drops the last 64-deep slice of K
+                      must fail the same check; ``flash_attention`` on the
+                      reference's ``FLASH_CASES`` x float32 (2e-5) /
+                      bfloat16 (2e-2) plus
                       a window whose first key tile is fully masked for some
                       rows and ragged lengths; ``rglru_scan`` on
                       ``RGLRU_CASES`` at 1e-5 plus ``h0`` and ragged cases.
@@ -24,7 +33,8 @@ the first fault:
                       version's, one PyTorch call's and the bound; at the
                       serve shape flash is held at atol 2e-3, rtol 2e-2,
                       and a plain version whose window is one 64-key tile
-                      short must fail that check;
+                      short must fail that check; causal attention with
+                      Sq > Sk must raise ``ValueError``;
   4. ``bank``       — the device bank (float64) against the host numpy bank
                       at p=10^5 (threshold completion) and p=10^4 (greedy),
                       contract: bit-identical allocations and t*;
@@ -35,8 +45,8 @@ the first fault:
                       that share the card and repeat their panel r_i times,
                       timed by the card's clock.  It must converge at eps=0.1,
                       launch the kernel exactly as often as the rounds say,
-                      and the final distribution, measured again, must stay
-                      within 2*eps;
+                      every launch on the ``"wgmma"`` route, and the final
+                      distribution, measured again, must stay within 2*eps;
   7. ``serve``      — the model stack's main path: recurrentgemma-2b at its
                       published width and depth (random weights, seed 0)
                       served by ``ServeEngine.generate`` — a 4096-token
@@ -91,7 +101,11 @@ from repro_torch.core.partition import _partition_units_bank  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention, matmul_update, ops, rglru_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.matmul_update import matmul_update_cuda  # noqa: E402
+from repro_torch.kernels.matmul_update import (  # noqa: E402
+    matmul_update_cuda,
+    matmul_update_route,
+    wgmma_smem_bytes,
+)
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rglru import rglru_scan_cuda  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
@@ -114,8 +128,10 @@ MATMUL_CASES = [  # (M, N, K, bm, bn, bk): the reference's cases, then ragged on
     (256, 512, 384, 128, 256, 128),
     (512, 256, 1024, 256, 256, 512),
     (128, 1024, 256, 64, 512, 256),
-    (100, 96, 40, 256, 256, 512),  # blocks clip to the shape; tensor-core path
-    (72, 90, 36, 256, 256, 512),  # K, N not multiples of 8; plain-tile path
+    (100, 96, 40, 256, 256, 512),  # blocks clip to the shape; wgmma route
+    (72, 90, 36, 256, 256, 512),  # K, N not multiples of 8; "tile" route
+    (1024, 4096, 256, 1024, 4096, 256),  # wgmma route, 512 blocks
+    (1000, 4000, 200, 1000, 4000, 200),  # wgmma route, ragged M, N and K
 ]
 ATOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # times sqrt(K); rtol 2e-2
 
@@ -226,6 +242,7 @@ def phase_build() -> None:
             "library": str(built.path.relative_to(ROOT)), "seconds": built.seconds,
             "ptxas": built.ptxas_lines(),
         })
+    emit({"phase": "build", "matmul_update_wgmma_dynamic_smem_bytes": wgmma_smem_bytes()})
 
 
 def _operands(M, N, K, dtype, seed):
@@ -236,38 +253,70 @@ def _operands(M, N, K, dtype, seed):
     )
 
 
-def _check_parity(M, N, K, blocks, dtype, seed=0) -> float:
+def _within(got, want, K, dtype) -> tuple:
+    """The reference's check, ``|got - want| <= atol sqrt(K) + 2e-2 |want|``,
+    and the largest absolute error."""
+    err = (got.float() - want).abs()
+    return bool((err <= ATOL[dtype] * float(np.sqrt(K)) + 2e-2 * want.abs()).all()), float(err.max())
+
+
+def _check_parity(M, N, K, blocks, dtype, seed=0, planted_fault=False) -> float:
+    """The kernel against its plain version, launched twice on the same
+    inputs (bit-identical results), through the route the wrapper picks.
+    With ``planted_fault`` a plain version that drops the last 64-deep
+    slice of K (a lost pipeline stage) must fail the same check."""
     c, a, b = _operands(M, N, K, dtype, seed)
     want = matmul_update_ref(c, a, b).float()
+    fault = matmul_update_ref(c, a[:, : K - 64], b[: K - 64]).float() if planted_fault else None
+    again = c.clone()
+    before = dict(matmul_update_cuda.launches_by_route)
     got = matmul_update(c, a, b, impl="cuda", **blocks)
+    matmul_update(again, a, b, impl="cuda", **blocks)
     torch.cuda.synchronize()
-    err = (got.float() - want).abs()
-    atol = ATOL[dtype] * float(np.sqrt(K))
-    ok = bool((err <= atol + 2e-2 * want.abs()).all())
-    max_err = float(err.max())
-    emit({
+    routes = {r: n - before[r] for r, n in matmul_update_cuda.launches_by_route.items()}
+    route = matmul_update_route(M, N, K, dtype, (c.data_ptr(), a.data_ptr(), b.data_ptr()))
+    ok, max_err = _within(got, want, K, dtype)
+    row = {
         "phase": "kernels", "case": [M, N, K], "blocks": [blocks["bm"], blocks["bn"], blocks["bk"]],
-        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max_err,
-        "tol": f"atol {ATOL[dtype]}*sqrt(K), rtol 2e-2", "ok": ok,
-    })
+        "dtype": _dtype_name(dtype), "route": route, "launches_by_route": routes,
+        "max_abs_err": max_err,
+        "tol": f"atol {ATOL[dtype]}*sqrt(K), rtol 2e-2", "ok": ok, "repeat_bit_identical": torch.equal(got, again),
+    }
+    if planted_fault:
+        row["k_slice_dropped_passes"], row["k_slice_dropped_max_abs_err"] = _within(got, fault, K, dtype)
+    emit(row)
     if not ok:
         raise SystemExit(f"chip_smoke: matmul_update disagrees with its plain version at {(M, N, K)}")
+    if not row["repeat_bit_identical"]:
+        raise SystemExit(f"chip_smoke: two matmul_update launches on the same inputs differ at {(M, N, K)}")
+    if routes != {r: 2 * (r == route) for r in routes}:
+        raise SystemExit(f"chip_smoke: matmul_update at {(M, N, K)} launched {routes}, not twice on {route!r}")
+    if planted_fault and row["k_slice_dropped_passes"]:
+        raise SystemExit("chip_smoke: the matmul_update check cannot tell a dropped 64-deep K slice")
     return max_err
 
 
-def _timing(M, N, K, blocks, dtype) -> dict:
-    max_err = _check_parity(M, N, K, blocks, dtype, seed=1)
+def _timing(M, N, K, blocks, dtype, planted_fault=False) -> dict:
+    """Parity, then times at a main-path shape (bf16, aligned): every timed
+    launch must take the ``"wgmma"`` route."""
+    max_err = _check_parity(M, N, K, blocks, dtype, seed=1, planted_fault=planted_fault)
     c, a, b = _operands(M, N, K, dtype, 2)
     reps = 20
+    before = dict(matmul_update_cuda.launches_by_route)
     ms = cuda_ms(lambda: matmul_update(c, a, b, impl="cuda", **blocks), reps)
+    routes = {r: n - before[r] for r, n in matmul_update_cuda.launches_by_route.items()}
+    if routes["tile"] or not routes["wgmma"]:
+        raise SystemExit(f"chip_smoke: matmul_update timed at {(M, N, K)} launched {routes}, not all 'wgmma'")
     plain_ms = cuda_ms(lambda: matmul_update_ref(c, a, b), reps)
     library_ms = cuda_ms(lambda: c.addmm_(a, b), reps)  # yardstick only
     bound_ms, bound_by = bound(M, N, K, dtype)
     row = {
-        "shape": [M, N, K], "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "shape": [M, N, K], "dtype": _dtype_name(dtype), "max_abs_err": max_err,
+        "route": "wgmma",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "ratio_to_library": ms / library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "tflops": 2.0 * M * N * K / (ms * 1e-3) / 1e12,
+        "gbps": torch.finfo(dtype).bits // 8 * (M * K + K * N + 2 * M * N) / (ms * 1e-3) / 1e9,
     }
     emit({"phase": "kernels", "timing": row})
     return row
@@ -285,10 +334,11 @@ def phase_kernels() -> dict:
     else:
         raise SystemExit("chip_smoke: an indivisible shape did not raise ValueError")
     even_rows = DFPA_UNIT_ROWS * (DFPA_UNITS // len(DFPA_REPEATS))
-    main = _timing(even_rows, DFPA_N, DFPA_N, DFPA_BLOCKS, torch.bfloat16)
+    main = _timing(even_rows, DFPA_N, DFPA_N, DFPA_BLOCKS, torch.bfloat16, planted_fault=True)
     for rows in (DFPA_UNIT_ROWS, DFPA_UNIT_ROWS * 31):  # the smallest and the slowest's panel
         _timing(rows, DFPA_N, DFPA_N, DFPA_BLOCKS, torch.bfloat16)
     _timing(1024, 8192, 8192, dict(bm=256, bn=256, bk=512), torch.bfloat16)
+    _flash_refuses_rows_without_keys()
     for dtype in (torch.float32, torch.bfloat16):
         for case in FLASH_CASES:
             _flash_parity(*case, dtype)
@@ -421,6 +471,21 @@ def _rglru_parity(B, S, D, bs, bd, with_h0) -> float:
     if not ok:
         raise SystemExit(f"chip_smoke: rglru_scan disagrees with its plain version at {(B, S, D, with_h0)}")
     return max_err
+
+
+def _flash_refuses_rows_without_keys() -> None:
+    """Causal attention with Sq > Sk raises ``ValueError`` on the card
+    before any launch."""
+    q, k, v = _flash_operands(1, 2, 1, 128, 64, 64, torch.bfloat16, seed=3)
+    before = flash_attention_cuda.launches
+    try:
+        flash_attention(q, k, v, causal=True, bq=None, bk=None)
+    except ValueError as exc:
+        emit({"phase": "kernels", "kernel": "flash_attention", "causal_sq_gt_sk_raises": str(exc)})
+    else:
+        raise SystemExit("chip_smoke: causal flash_attention with Sq > Sk did not raise ValueError")
+    if flash_attention_cuda.launches != before:
+        raise SystemExit("chip_smoke: the refused flash_attention call launched the kernel")
 
 
 def _bound_ms(ops_count: float, op_dtype, nbytes: float) -> tuple:
@@ -628,11 +693,13 @@ def phase_dfpa() -> tuple:
         setattr(store, name, timed(name, getattr(store, name)))
     sched = Scheduler(store, backend="torch", device="cuda")
     matmul_update_cuda.launches = 0
+    matmul_update_cuda.launches_by_route = dict.fromkeys(matmul_update_cuda.launches_by_route, 0)
     t0 = time.perf_counter()
     res = sched.autotune(executor, DFPA_UNITS, DFPA_EPS, min_units=1)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = matmul_update_cuda.launches
+    routes = dict(matmul_update_cuda.launches_by_route)
 
     history = res.diagnostics["history"]
     expected = sum(r for r in DFPA_REPEATS) + sum(
@@ -648,7 +715,7 @@ def phase_dfpa() -> tuple:
         "converged": res.converged, "final_imbalance": res.imbalance,
         "allocations": res.allocations,
         "rounds": [{"d": d, "imbalance": imbalance(t), "times_ms": [v * 1e3 for v in t]} for d, t in history],
-        "launches": launches, "expected_launches": expected, "wall_s": wall_s,
+        "launches": launches, "launches_by_route": routes, "expected_launches": expected, "wall_s": wall_s,
         "round_ms_sum": sum(max(t) for _, t in history) * 1e3,
         "fold_in_ms": overhead_ms["fold_in"], "partition_units_ms": overhead_ms["partition_units"],
         "overhead_ms_sum": sum(overhead_ms["fold_in"]) + sum(overhead_ms["partition_units"]),
@@ -661,9 +728,11 @@ def phase_dfpa() -> tuple:
         raise SystemExit("chip_smoke: DFPA did not converge on the card")
     if launches != expected:
         raise SystemExit(f"chip_smoke: {launches} kernel launches, the rounds account for {expected}")
+    if routes != {"tile": 0, "wgmma": launches}:
+        raise SystemExit(f"chip_smoke: the DFPA panels launched {routes}, not every one on 'wgmma'")
     if median_imb > 2 * DFPA_EPS:
         raise SystemExit(f"chip_smoke: the final distribution re-measures at imbalance {median_imb}")
-    return launches
+    return launches, routes
 
 
 # ---------------------------------------------------------------------------
@@ -843,7 +912,7 @@ def main() -> int:
     timings = run("kernels", phase_kernels)
     run("bank", phase_bank)
     run("hcl_golden", phase_hcl_golden)
-    dfpa_launches = run("dfpa", phase_dfpa)
+    dfpa_launches, dfpa_routes = run("dfpa", phase_dfpa)
     serve = run("serve", phase_serve)
     launches = {"matmul_update": dfpa_launches, **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
     sources = {
@@ -857,6 +926,7 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"], "dtype": row["dtype"],
+        **({"launches_by_route": dfpa_routes} if name == "matmul_update" else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

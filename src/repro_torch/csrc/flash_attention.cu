@@ -30,8 +30,10 @@
 // window + 1, last query] are never visited (the TPU kernel's block skip).
 // A masked logit contributes exactly 0 to l and acc (not exp(−2e38 − m)),
 // so rows of a tile that see none of its keys — the window's first tiles —
-// keep no terms, whatever order tiles are visited in; a row that sees no key
-// at all gets 0.  wgmma, TMA and warp specialisation are later work.
+// keep no terms, whatever order tiles are visited in.  A row that sees no
+// key at all (causal with Sq > Sk) would get 0, but ops.flash_attention
+// refuses that shape before dispatch.  wgmma, TMA and warp specialisation
+// are later work.
 //
 // float32 inputs, bf16 with D not one of 16/32/64/128/256, and operands not
 // 16-byte aligned run a plain kernel with the same contract: one warp per

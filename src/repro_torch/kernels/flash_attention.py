@@ -6,10 +6,12 @@ and replaces the reference's ``flash_attention_pallas``
 ``ref.flash_attention_ref`` computes: GQA/MQA, the default scale ``1/sqrt(D)``,
 optional tanh softcap, causal and sliding-window masks with queries
 right-aligned to the keys, fp32 running max, sum and accumulator, the
-weights cast to ``v``'s dtype before the second product.  One case differs:
-a query row that sees no key at all (causal with ``Sq > Sk``) gets zeros,
-where the plain version averages every value (softmax over -2e38 logits);
-the model never asks for such a row.
+weights cast to ``v``'s dtype before the second product.  Causal attention
+with ``Sq > Sk`` is refused with ``ValueError`` on every device by
+``ops.flash_attention`` (:func:`check_causal`, before it dispatches): its
+first query rows see no key, and the reference gives them no single answer
+(its plain version averages every value, its Pallas kernel the values of
+the tiles it visits).  The model never asks for such a row.
 
 Layouts: ``q (B, H, Sq, D)``, ``k``/``v (B, Kv, Sk, D)``, float32 or
 bfloat16, any strides with the last dim contiguous (the model passes
@@ -35,7 +37,7 @@ import torch
 
 from .. import _build
 
-__all__ = ["check_blocks", "flash_attention_cuda"]
+__all__ = ["check_blocks", "check_causal", "flash_attention_cuda"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,6 +51,13 @@ def check_blocks(Sq: int, Sk: int, bq: Optional[int] = 256, bk: Optional[int] = 
     bk = min(bk if bk is not None else Sk, Sk)
     if Sq % bq or Sk % bk:
         raise ValueError(f"seq ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
+
+
+def check_causal(Sq: int, Sk: int, causal: bool) -> None:
+    """Refuse causal attention with more queries than keys (rows that see
+    no key), on every device."""
+    if causal and Sq > Sk:
+        raise ValueError(f"causal attention with Sq {Sq} > Sk {Sk}: the first {Sq - Sk} query rows see no key")
 
 
 def check_operands(q, k, v):
@@ -93,7 +102,9 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v`` on the card, launched on the
     current stream without synchronising; returns a new tensor.  Raises on
-    anything the kernel does not take, and when the launch is refused."""
+    anything the kernel does not take, and when the launch is refused.
+    Causal rows without keys are refused by ``ops.flash_attention``, which
+    calls this after :func:`check_causal`."""
     tensors = (q, k, v)
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("flash_attention_cuda needs CUDA tensors")

@@ -5,26 +5,34 @@ and replaces the reference's ``matmul_update_pallas``
 (``src/repro/kernels/matmul_update.py:49``).  The wrapper keeps the
 reference's block rule — blocks default to 256x256x512, are clipped to the
 shape, and a shape they do not divide raises ``ValueError`` — although the
-CUDA kernel tiles the shape its own way and masks ragged edges.  ``C`` is
+CUDA kernels tile the shape their own way and mask ragged edges.  ``C`` is
 updated in place (the Pallas kernel aliases ``C`` in->out).
 
-``matmul_update_cuda.launches`` counts the kernel's launches; the wrapper
-increments it where it launches the kernel and nowhere else, and a caller
-may set it to 0 to count one stretch of work.
+Two routes, chosen by shape and alignment in :func:`matmul_update_route`:
+``"wgmma"`` (bf16 with N and K multiples of 8 and every operand 16-byte
+aligned: TMA loads into an mbarrier ring feeding ``wgmma``, 64x128 output
+tiles) and ``"tile"`` (everything else: a plain FMA tile kernel with the
+same contract).
+
+``matmul_update_cuda.launches`` counts the kernel's launches and
+``matmul_update_cuda.launches_by_route`` the same launches by route; the
+wrapper increments both where it launches the kernel and nowhere else, and
+a caller may reset them to count one stretch of work.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from .. import _build
 
-__all__ = ["check_blocks", "matmul_update_cuda"]
+__all__ = ["check_blocks", "matmul_update_cuda", "matmul_update_route", "wgmma_smem_bytes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"tile": 0, "wgmma": 1}
 
 
 def check_blocks(
@@ -38,6 +46,21 @@ def check_blocks(
     if M % bm or N % bn or K % bk:
         raise ValueError(f"shape ({M},{N},{K}) not divisible by blocks ({bm},{bn},{bk})")
     return bm, bn, bk
+
+
+def matmul_update_route(M: int, N: int, K: int, dtype, ptrs: Sequence[int]) -> str:
+    """``"wgmma"`` for bf16 with N and K multiples of 8 and every pointer
+    in ``ptrs`` (C, A, B) 16-byte aligned, which TMA and ``wgmma`` need;
+    ``"tile"`` for everything else (float32 among it)."""
+    if dtype == torch.bfloat16 and N % 8 == 0 and K % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "tile"
+
+
+def wgmma_smem_bytes() -> int:
+    """Dynamic shared memory the ``"wgmma"`` kernel asks for (from the
+    built library; the card's machine only)."""
+    return _lib().matmul_update_wgmma_smem()
 
 
 def _check_operands(c, a, b) -> Tuple[int, int, int]:
@@ -69,10 +92,12 @@ def _lib() -> ctypes.CDLL:
     fn = lib.matmul_update
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.matmul_update_wgmma_smem.argtypes = []
+    lib.matmul_update_wgmma_smem.restype = ctypes.c_int
     return lib
 
 
@@ -82,16 +107,19 @@ def matmul_update_cuda(c, a, b, *, bm: int = 256, bn: int = 256, bk: int = 512):
     does not take, and when the launch is refused."""
     M, N, K = _check_operands(c, a, b)
     check_blocks(M, N, K, bm, bn, bk)
+    route = matmul_update_route(M, N, K, c.dtype, (c.data_ptr(), a.data_ptr(), b.data_ptr()))
     fn = _lib().matmul_update
     with torch.cuda.device(c.device):
         err = fn(
-            c.data_ptr(), a.data_ptr(), b.data_ptr(), M, N, K, _DTYPES[c.dtype],
+            c.data_ptr(), a.data_ptr(), b.data_ptr(), M, N, K, _DTYPES[c.dtype], _ROUTES[route],
             torch.cuda.current_stream(c.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"matmul_update launch failed with CUDA error {err}")
+        raise RuntimeError(f"matmul_update launch ({route} route) failed with CUDA error {err}")
     matmul_update_cuda.launches += 1
+    matmul_update_cuda.launches_by_route[route] += 1
     return c
 
 
 matmul_update_cuda.launches = 0
+matmul_update_cuda.launches_by_route = dict.fromkeys(_ROUTES, 0)

@@ -48,8 +48,10 @@ def flash_attention(
     bq: Optional[int] = 256, bk: Optional[int] = 256,
 ):
     """Attention ``q (B,H,Sq,D)`` over ``k``/``v (B,Kv,Sk,D)``; returns a new
-    tensor of ``q``'s shape (see ``kernels/flash_attention.py``)."""
+    tensor of ``q``'s shape (see ``kernels/flash_attention.py``).  Raises
+    ``ValueError`` for ``causal`` with ``Sq > Sk`` before any dispatch."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    _fa.check_causal(q.shape[-2], k.shape[-2], causal)
     if _use_kernel("flash_attention", impl, q):
         return flash_attention_cuda(q, k, v, bq=bq, bk=bk, **kw)
     _fa.check_operands(q, k, v)

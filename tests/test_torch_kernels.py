@@ -17,6 +17,14 @@ and the reference model's ``_rglru_scan``, and so does ``_log_depth_scan`` here:
 third plain version of the recurrence, the log-depth form of the
 reference model's associative scan.
 
+Which route ``matmul_update`` takes on the card (``"wgmma"`` or ``"tile"``)
+depends on shape, dtype and pointer alignment alone, so it is tested here:
+the DFPA panels and the reference's aligned bf16 cases go ``"wgmma"``,
+and so does every panel the DFPA loop can give a processor; float32, N or
+K not a multiple of 8 and a misaligned operand go ``"tile"``.
+``ops.flash_attention`` refuses causal attention with ``Sq > Sk`` (rows
+that see no key) before any dispatch.
+
 The CUDA kernels are held against the plain versions on the card by
 ``tests/test_torch_kernels_cuda.py`` (which imports no JAX, so it runs on
 the machine with the card) and by ``chip_smoke.py``.
@@ -36,7 +44,7 @@ from repro.models.recurrent import _rglru_scan as jax_model_scan
 
 from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.matmul_update import matmul_update_cuda
+from repro_torch.kernels.matmul_update import matmul_update_cuda, matmul_update_route
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
 from repro_torch.kernels.rglru import rglru_scan_cuda
 
@@ -111,6 +119,54 @@ def test_plain_version_takes_cpu_tensors_only(impl):
     with pytest.raises(ValueError, match="takes CPU tensors"):
         matmul_update(c, c, c, impl=impl)
     assert matmul_update_cuda.launches == before
+
+
+# The route each shape takes on the card, decided by shape, dtype and pointer
+# alignment alone (CPU tensors stand in for the card's: torch aligns both).
+
+DFPA_PANELS = [(rows, 16384, 16384) for rows in (32, 992, 2048)]
+
+
+def _ptrs(*tensors):
+    return tuple(t.data_ptr() for t in tensors)
+
+
+@pytest.mark.parametrize("M,N,K", DFPA_PANELS + [s[:3] for s in MATMUL_SHAPES])
+def test_aligned_bf16_takes_the_wgmma_route(M, N, K):
+    c, a, b = (torch.zeros(8, 8, dtype=torch.bfloat16) for _ in range(3))
+    assert matmul_update_route(M, N, K, torch.bfloat16, _ptrs(c, a, b)) == "wgmma"
+
+
+@pytest.mark.parametrize("M,N,K,dtype,offset,why", [
+    (2048, 16384, 16384, torch.float32, 0, "float32"),
+    (72, 90, 36, torch.bfloat16, 0, "N, K not multiples of 8"),
+    (64, 96, 36, torch.bfloat16, 0, "K not a multiple of 8"),
+    (64, 90, 64, torch.bfloat16, 0, "N not a multiple of 8"),
+    (32, 16384, 16384, torch.bfloat16, 1, "A not 16-byte aligned"),
+])
+def test_what_tma_cannot_take_goes_to_the_tile_route(M, N, K, dtype, offset, why):
+    base = torch.zeros(64, dtype=dtype)
+    a = base[offset:]  # one element in: 2 or 4 bytes off the allocation's alignment
+    ptrs = (base.data_ptr(), a.data_ptr(), base.data_ptr())
+    assert (ptrs[1] % 16 == 0) == (offset == 0)
+    assert matmul_update_route(M, N, K, dtype, ptrs) == "tile", why
+
+
+def test_every_dfpa_panel_takes_the_wgmma_route():
+    # M = 32 * units rows of a 16384-wide bf16 panel, for every allocation
+    # the DFPA loop over 512 units can give one processor.
+    c, a, b = (torch.zeros(8, 8, dtype=torch.bfloat16) for _ in range(3))
+    for units in range(1, 513):
+        assert matmul_update_route(32 * units, 16384, 16384, torch.bfloat16, _ptrs(c, a, b)) == "wgmma", units
+
+
+def test_cpu_launch_counts_stay_put_on_every_route():
+    before = (matmul_update_cuda.launches, dict(matmul_update_cuda.launches_by_route))
+    assert set(before[1]) == {"wgmma", "tile"}
+    for dtype in (torch.float32, torch.bfloat16):
+        c, a, b = (torch.from_numpy(v).to(dtype) for v in _inputs(64, 64, 64))
+        matmul_update(c, a, b)
+    assert (matmul_update_cuda.launches, matmul_update_cuda.launches_by_route) == before
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +265,23 @@ def test_model_kernel_block_rules_raise_like_reference():
     with pytest.raises(ValueError, match="not divisible") as got:
         rglru_scan(torch.from_numpy(la), torch.from_numpy(la), bs=64, bd=64)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref", "cuda"])
+def test_flash_attention_refuses_causal_rows_without_keys(impl):
+    # Causal with Sq > Sk leaves the first Sq - Sk query rows no key; the
+    # reference has no single answer for them, so the port refuses the shape
+    # before any dispatch, whatever the device or impl.
+    q, kv = torch.zeros(1, 2, 96, 16), torch.zeros(1, 1, 64, 16)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="Sq 96 > Sk 64"):
+        flash_attention(q, kv, kv, impl=impl, causal=True, bq=None, bk=None)
+    with pytest.raises(ValueError, match="Sq 96 > Sk 64"):
+        flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"), impl=impl, causal=True)
+    assert flash_attention_cuda.launches == before
+    if impl != "cuda":  # not causal, or Sq <= Sk: served as before
+        assert flash_attention(q, kv, kv, impl=impl, causal=False, bq=None, bk=None).shape == q.shape
+        assert flash_attention(kv, q[:, :1], q[:, :1], impl=impl, causal=True, bq=None, bk=None).shape == kv.shape
 
 
 def test_model_kernels_dispatch_cpu_tensors_to_plain_versions():

@@ -10,12 +10,15 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
 
 * ``matmul_update``: ``MATMUL_SHAPES`` x float32/bfloat16 plus two ragged
   shapes (the default blocks clipped to the shape; and K, N not multiples
-  of 8, the plain-tile path), ``atol * sqrt(K)`` (2e-4 float32, 5e-2
-  bfloat16), ``rtol 2e-2``;
+  of 8, the "tile" route) and two larger ones on the "wgmma" route,
+  ``atol * sqrt(K)`` (2e-4 float32, 5e-2 bfloat16), ``rtol 2e-2``; the
+  three DFPA panels on the "wgmma" route, two launches bit-identical, and
+  at 2048 rows a plain version that drops the last 64-deep K slice must
+  fail the same check;
 * ``flash_attention``: ``FLASH_CASES`` x float32 (2e-5) / bfloat16 (2e-2),
   plus a window whose first key tile is fully masked for some rows, ragged
   lengths no block divides, a head_dim the tensor-core path does not take,
-  and strided (transposed) operands;
+  and strided (transposed) operands; causal with ``Sq > Sk`` refused;
 * ``rglru_scan``: ``RGLRU_CASES`` at 1e-5, plus an ``h0`` case and a
   ragged one.
 """
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.matmul_update import matmul_update_cuda
+from repro_torch.kernels.matmul_update import matmul_update_cuda, matmul_update_route
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
 from repro_torch.kernels.rglru import rglru_scan_cuda
 
@@ -40,7 +43,10 @@ MATMUL_SHAPES = [
     (128, 1024, 256, 64, 512, 256),
     (100, 96, 40, 256, 256, 512),
     (72, 90, 36, 256, 256, 512),
+    (1024, 4096, 256, 1024, 4096, 256),  # "wgmma" route, 512 blocks
+    (1000, 4000, 200, 1000, 4000, 200),  # "wgmma" route, ragged M, N and K
 ]
+DFPA_PANELS = [(rows, 16384, 16384) for rows in (32, 992, 2048)]
 FLASH_DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
 FLASH_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs, blocks)
     (1, 2, 2, 128, 128, 64, dict(causal=True), 64),
@@ -88,6 +94,31 @@ def test_kernel_matches_plain_on_card(card, M, N, K, bm, bn, bk, dtype, atol):
     torch.cuda.synchronize()
     assert got is c and matmul_update_cuda.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=atol * np.sqrt(K), rtol=2e-2)
+
+
+def _within(got, want, K):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= 5e-2 * np.sqrt(K) + 2e-2 * want.float().abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("M,N,K", DFPA_PANELS)
+def test_dfpa_panels_take_wgmma_and_repeat_bit_identically(card, M, N, K):
+    g = torch.Generator(device=card).manual_seed(M)
+    c, a, b = (torch.randn(s, generator=g, device=card).to(torch.bfloat16) for s in ((M, N), (M, K), (K, N)))
+    want = matmul_update_ref(c, a, b)
+    fault = matmul_update_ref(c, a[:, : K - 64], b[: K - 64]) if M == 2048 else None
+    again = c.clone()
+    before = dict(matmul_update_cuda.launches_by_route)
+    matmul_update(c, a, b, bm=32, bn=256, bk=512)
+    matmul_update(again, a, b, bm=32, bn=256, bk=512)
+    torch.cuda.synchronize()
+    assert matmul_update_route(M, N, K, torch.bfloat16, (c.data_ptr(), a.data_ptr(), b.data_ptr())) == "wgmma"
+    assert matmul_update_cuda.launches_by_route["wgmma"] == before["wgmma"] + 2
+    assert matmul_update_cuda.launches_by_route["tile"] == before["tile"]
+    assert torch.equal(c, again)
+    assert _within(c, want, K)[0]
+    if fault is not None:  # the check's power: a lost 64-deep pipeline stage fails it
+        assert not _within(c, fault, K)[0]
 
 
 def test_kernel_refuses_what_it_does_not_take(card):
@@ -146,6 +177,15 @@ def test_rglru_scan_matches_plain_on_card(card, B, S, D, bs, bd, with_h0):
     torch.cuda.synchronize()
     assert rglru_scan_cuda.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_flash_attention_refuses_causal_rows_without_keys_on_card(card):
+    q = torch.zeros(1, 2, 96, 64, device=card, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 64, 64, device=card, dtype=torch.bfloat16)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="Sq 96 > Sk 64"):
+        flash_attention(q, kv, kv, causal=True, bq=None, bk=None)
+    assert flash_attention_cuda.launches == before
 
 
 def test_model_kernels_refuse_what_they_do_not_take(card):

@@ -5,7 +5,9 @@ recurrentgemma smoke config in float32, weights carried over from the
 reference's ``init_tree``, prompts made from a seed with numpy: the port
 must produce exactly the reference engine's tokens.  The prompt (24
 tokens) runs past the window (8), so the ring buffer wraps during prefill
-and decode.  Also the ``launch/serve.py`` CLI, on the CPU.
+and decode.  A budget equal to the window, which the prompt and the new
+tokens run past, gives the reference's tokens too.  Also the
+``launch/serve.py`` CLI, on the CPU.
 """
 
 import jax
@@ -29,13 +31,13 @@ ARCH = "recurrentgemma-2b"
 B, PROMPT, NEW = 2, 24, 8
 
 
-def _engines(seed):
+def _engines(seed, seq_budget=PROMPT + NEW):
     jcfg = ref_smoke_config(ARCH).replace(dtype=jnp.float32)
     cfg = get_smoke_config(ARCH).replace(dtype=torch.float32)
     params = jax.jit(lambda k: ref_init_tree(k, ref_lm_spec(jcfg)))(jax.random.PRNGKey(seed))
     model = LanguageModel.from_state_dict(cfg, params_from_reference(jax.tree_util.tree_map(np.asarray, params), cfg))
-    ref = RefServeEngine(jcfg, params, batch=B, seq_budget=PROMPT + NEW)
-    port = ServeEngine(cfg, model, batch=B, seq_budget=PROMPT + NEW, device="cpu")
+    ref = RefServeEngine(jcfg, params, batch=B, seq_budget=seq_budget)
+    port = ServeEngine(cfg, model, batch=B, seq_budget=seq_budget, device="cpu")
     return ref, port, cfg
 
 
@@ -50,6 +52,17 @@ def test_generate_gives_the_reference_tokens(seed):
     assert torch.equal(port.generate(torch.from_numpy(prompt), NEW), got)  # deterministic
 
 
+def test_generate_past_the_budget_gives_the_reference_tokens():
+    # The prompt plus the new tokens (24 + 8) run past a budget equal to the
+    # window (8): the reference serves it, and so must the port.
+    cfg = get_smoke_config(ARCH)
+    ref, port, cfg = _engines(0, seq_budget=cfg.window)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, PROMPT))
+    want = np.asarray(ref.generate(jnp.asarray(prompt, jnp.int32), NEW))
+    got = port.generate(torch.from_numpy(prompt), NEW)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_engine_refuses_what_it_does_not_serve():
     cfg = get_smoke_config(ARCH)
     model = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -57,8 +70,7 @@ def test_engine_refuses_what_it_does_not_serve():
     prompt = torch.zeros((2, 12), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="greedy"):
         eng.generate(prompt, 4, greedy=False)
-    with pytest.raises(ValueError, match="budget"):
-        eng.generate(prompt, 5)
+    assert tuple(eng.generate(prompt, 5).shape) == (2, 5)  # 12 + 5 past the budget of 16, as the reference
     with pytest.raises(ValueError, match="batch"):
         eng.generate(prompt[:1], 4)
     with pytest.raises(ValueError, match="parameters lie on"):
