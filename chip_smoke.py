@@ -12,8 +12,8 @@ the first fault:
   2. ``build``      — the three kernels' build (``matmul_update``,
                       ``flash_attention``, ``rglru_scan``): seconds and the
                       ``ptxas -v`` register / spill / shared-memory report,
-                      plus the dynamic shared memory of ``matmul_update``'s
-                      wgmma kernel;
+                      plus the dynamic shared memory of the wgmma kernels
+                      and the scan's chunk length;
   3. ``kernels``    — each CUDA kernel against its plain PyTorch version on
                       the card: ``matmul_update`` on the reference's test
                       shapes, two ragged ones and two larger ones on the
@@ -27,14 +27,22 @@ the first fault:
                       reference's ``FLASH_CASES`` x float32 (2e-5) /
                       bfloat16 (2e-2) plus
                       a window whose first key tile is fully masked for some
-                      rows and ragged lengths; ``rglru_scan`` on
-                      ``RGLRU_CASES`` at 1e-5 plus ``h0`` and ragged cases.
+                      rows, ragged lengths and head_dim 256 cases (an odd
+                      group count, softcap, GQA), each launched twice
+                      (bit-identical) on the route the wrapper picks;
+                      ``rglru_scan`` on ``RGLRU_CASES`` at 1e-5 plus
+                      ``h0``, ragged, shorter-than-a-chunk and long cases,
+                      each launched twice (bit-identical) on ``"chunked"``.
                       Times at the main paths' shapes, beside the plain
-                      version's, one PyTorch call's and the bound; at the
-                      serve shape flash is held at atol 2e-3, rtol 2e-2,
-                      and a plain version whose window is one 64-key tile
-                      short must fail that check; causal attention with
-                      Sq > Sk must raise ``ValueError``;
+                      version's, one PyTorch call's and the bound, and for
+                      flash and the scan the route each replaced
+                      (``"mma"``, ``"serial"``: "before") in the same run;
+                      at the serve shape flash is held at atol 2e-3, rtol
+                      2e-2, and a plain version whose window is one 64-key
+                      tile short must fail that check; the scan is held at
+                      1e-5, and a plain version that loses the carry at the
+                      chunk boundary in mid-sequence must fail it; causal
+                      attention with Sq > Sk must raise ``ValueError``;
   4. ``bank``       — the device bank (float64) against the host numpy bank
                       at p=10^5 (threshold completion) and p=10^4 (greedy),
                       contract: bit-identical allocations and t*;
@@ -52,7 +60,8 @@ the first fault:
                       served by ``ServeEngine.generate`` — a 4096-token
                       prompt for a batch of 4, then 32 greedy tokens.  One
                       ``generate`` must launch ``flash_attention`` exactly 8
-                      times and ``rglru_scan`` 18 times; two give identical
+                      times, all on ``"wgmma"``, and ``rglru_scan`` 18
+                      times, all on ``"chunked"``; two give identical
                       tokens; prefill(4096) + one decode step agree with the
                       full forward over 4097 tokens (rel 0.05); the kernels'
                       inputs captured from a real prefill agree with the plain
@@ -60,10 +69,12 @@ the first fault:
                       smoke-width model in float32 gives the CPU's tokens
                       (plain versions) on the card (kernels).  Times come
                       from CUDA events around ``generate``: prefill is one
-                      of a single token, a decode step the rest of one of
-                      32 tokens over 31.
+                      of a single token (printed beside the 385.1 ms it took
+                      before this redesign), a decode step the rest of one
+                      of 32 tokens over 31.
 
-Then it prints the ``kernels`` summary line, the card's name and power limit
+Then it prints the ``kernels`` summary line (with each kernel's launches by
+route on its main path), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -100,14 +111,18 @@ from repro_torch.core.modelbank_torch import numpy_sum_block, np_order_sum  # no
 from repro_torch.core.partition import _partition_units_bank  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention, matmul_update, ops, rglru_scan  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda,
+    flash_attention_route,
+)
+from repro_torch.kernels.flash_attention import wgmma_smem_bytes as flash_wgmma_smem_bytes  # noqa: E402
 from repro_torch.kernels.matmul_update import (  # noqa: E402
     matmul_update_cuda,
     matmul_update_route,
     wgmma_smem_bytes,
 )
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref  # noqa: E402
-from repro_torch.kernels.rglru import rglru_scan_cuda  # noqa: E402
+from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     LanguageModel,
     apply_lm,
@@ -160,6 +175,11 @@ FLASH_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs, blocks)
     (1, 2, 1, 256, 256, 64, dict(causal=True, window=40), None),
     # ragged lengths no block divides, at the model's head_dim and heads
     (2, 10, 1, 333, 333, 256, dict(causal=True, window=100, scale=0.0625), None),
+    # the "wgmma" route at head_dim 256: an odd group count, softcap, GQA
+    # with lengths no 128-row or 64-key tile divides
+    (2, 3, 1, 200, 200, 256, dict(causal=True), None),
+    (1, 2, 1, 190, 190, 256, dict(causal=True, softcap=30.0), None),
+    (1, 4, 2, 97, 161, 256, dict(causal=True, window=50), None),
 ]
 RGLRU_CASES = [  # (B, S, D, bs, bd, with_h0)
     (1, 128, 128, 64, 128, False),
@@ -167,12 +187,16 @@ RGLRU_CASES = [  # (B, S, D, bs, bd, with_h0)
     (3, 512, 256, 256, 128, False),
     (2, 256, 512, 128, 256, True),  # an initial state, as the model's cache carries
     (2, 77, 130, None, None, True),  # ragged
+    (3, 50, 200, None, None, True),  # S below one 64-step chunk
+    (3, 130, 300, None, None, True),  # B * D not a multiple of the 128-channel tile
+    (2, 4096, 64, None, None, True),  # a long sequence at a narrow D
 ]
 
 # the serving path: recurrentgemma-2b at full width and depth
 SERVE_ARCH = "recurrentgemma-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
 SERVE_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18}  # one per local / rec layer
+PREFILL_MS_BEFORE = 385.1  # the serve phase's prefill on the H100 before the flash and scan redesign (PERF.md §5)
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 2, 24, 8
 
 
@@ -242,7 +266,11 @@ def phase_build() -> None:
             "library": str(built.path.relative_to(ROOT)), "seconds": built.seconds,
             "ptxas": built.ptxas_lines(),
         })
-    emit({"phase": "build", "matmul_update_wgmma_dynamic_smem_bytes": wgmma_smem_bytes()})
+    emit({
+        "phase": "build", "matmul_update_wgmma_dynamic_smem_bytes": wgmma_smem_bytes(),
+        "flash_attention_wgmma_dynamic_smem_bytes": {D: flash_wgmma_smem_bytes(D) for D in (64, 128, 256)},
+        "rglru_scan_chunk_steps": chunk_steps(),
+    })
 
 
 def _operands(M, N, K, dtype, seed):
@@ -435,18 +463,30 @@ def _flash_operands(B, H, Kv, Sq, Sk, D, dtype, seed):
 
 
 def _flash_parity(B, H, Kv, Sq, Sk, D, kwargs, blocks, dtype) -> float:
+    """The kernel against its plain version, launched twice on the same
+    inputs (bit-identical results), on the route the wrapper picks."""
     q, k, v = _flash_operands(B, H, Kv, Sq, Sk, D, dtype, seed=Sq + D)
     want = flash_attention_ref(q, k, v, **kwargs)
+    before = dict(flash_attention_cuda.launches_by_route)
     got = flash_attention(q, k, v, impl="cuda", bq=blocks, bk=blocks, **kwargs)
+    again = flash_attention(q, k, v, impl="cuda", bq=blocks, bk=blocks, **kwargs)
     torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    ts = (q, k, v, got)
+    route = flash_attention_route(D, dtype, [t.data_ptr() for t in ts], [s for t in ts for s in t.stride()[:3]])
     ok, max_err = _close(got, want, FLASH_TOL[dtype])
     emit({
         "phase": "kernels", "kernel": "flash_attention", "case": [B, H, Kv, Sq, Sk, D], "kwargs": kwargs,
-        "blocks": blocks, "dtype": _dtype_name(dtype), "max_abs_err": max_err,
-        "tol": f"atol = rtol = {FLASH_TOL[dtype]}", "ok": ok,
+        "blocks": blocks, "dtype": _dtype_name(dtype), "route": route, "launches_by_route": routes,
+        "max_abs_err": max_err, "tol": f"atol = rtol = {FLASH_TOL[dtype]}", "ok": ok,
+        "repeat_bit_identical": torch.equal(got, again),
     })
     if not ok:
         raise SystemExit(f"chip_smoke: flash_attention disagrees with its plain version at {(B, H, Kv, Sq, Sk, D, kwargs)}")
+    if not torch.equal(got, again):
+        raise SystemExit(f"chip_smoke: two flash_attention launches on the same inputs differ at {(B, H, Kv, Sq, Sk, D)}")
+    if routes != {r: 2 * (r == route) for r in routes}:
+        raise SystemExit(f"chip_smoke: flash_attention at {(B, H, Kv, Sq, Sk, D)} launched {routes}, not twice on {route!r}")
     return max_err
 
 
@@ -459,17 +499,27 @@ def _rglru_operands(B, S, D, with_h0, seed):
 
 
 def _rglru_parity(B, S, D, bs, bd, with_h0) -> float:
+    """The kernel against its plain version, launched twice on the same
+    inputs (bit-identical results), on the ``"chunked"`` route."""
     log_a, b, h0 = _rglru_operands(B, S, D, with_h0, seed=S + D)
     want = rglru_scan_ref(log_a, b, h0)
+    before = dict(rglru_scan_cuda.launches_by_route)
     got = rglru_scan(log_a, b, h0, impl="cuda", bs=bs, bd=bd)
+    again = rglru_scan(log_a, b, h0, impl="cuda", bs=bs, bd=bd)
     torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in rglru_scan_cuda.launches_by_route.items()}
     ok, max_err = _close(got, want, 1e-5)
     emit({
         "phase": "kernels", "kernel": "rglru_scan", "case": [B, S, D], "blocks": [bs, bd], "h0": with_h0,
-        "dtype": "float32", "max_abs_err": max_err, "tol": "atol = rtol = 1e-5", "ok": ok,
+        "dtype": "float32", "launches_by_route": routes, "max_abs_err": max_err, "tol": "atol = rtol = 1e-5",
+        "ok": ok, "repeat_bit_identical": torch.equal(got, again),
     })
     if not ok:
         raise SystemExit(f"chip_smoke: rglru_scan disagrees with its plain version at {(B, S, D, with_h0)}")
+    if not torch.equal(got, again):
+        raise SystemExit(f"chip_smoke: two rglru_scan launches on the same inputs differ at {(B, S, D)}")
+    if routes != {"chunked": 2, "serial": 0}:
+        raise SystemExit(f"chip_smoke: rglru_scan at {(B, S, D)} launched {routes}, not twice on 'chunked'")
     return max_err
 
 
@@ -494,17 +544,34 @@ def _bound_ms(ops_count: float, op_dtype, nbytes: float) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _routes_timed(wrapper, route, fn, reps) -> float:
+    """``cuda_ms`` of ``fn``, failing unless every launch it made went
+    through ``route``."""
+    before = dict(wrapper.launches_by_route)
+    ms = cuda_ms(fn, reps)
+    routes = {r: n - before[r] for r, n in wrapper.launches_by_route.items()}
+    if any(n for r, n in routes.items() if r != route) or not routes[route]:
+        raise SystemExit(f"chip_smoke: timing the {route!r} route launched {routes}")
+    return ms
+
+
 def _flash_timing() -> dict:
     """flash_attention at the serve path's shape: B=4, H=10, Kv=1,
-    Sq=Sk=4096, D=256, bf16, causal, window 2048."""
+    Sq=Sk=4096, D=256, bf16, causal, window 2048.  The ``"wgmma"`` route,
+    then the ``"mma"`` route it replaced ("before"), in the same run."""
     cfg = get_config(SERVE_ARCH)
     B, H, Kv, S, D, W = SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT, cfg.head_dim, cfg.window
     kw = dict(causal=True, window=W, scale=cfg.query_scale)
     q, k, v = _flash_operands(B, H, Kv, S, S, D, torch.bfloat16, seed=7)
     got = flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw)
+    again = flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw)
     check = _check_serve_flash(got, q, k, v, dict(kw, softcap=0.0), "at the serve shape")
-    del got
-    ms = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw), 20)
+    if not torch.equal(got, again):
+        raise SystemExit("chip_smoke: two flash_attention launches at the serve shape differ")
+    del got, again
+    launch = lambda route: lambda: flash_attention_cuda(q, k, v, bq=None, bk=None, route=route, **kw)  # noqa: E731
+    ms = _routes_timed(flash_attention_cuda, "wgmma", launch("wgmma"), 20)
+    before_ms = _routes_timed(flash_attention_cuda, "mma", launch("mma"), 20)
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 5)
     pos = torch.arange(S, device="cuda")
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
@@ -515,34 +582,54 @@ def _flash_timing() -> dict:
     bound_ms, bound_by = _bound_ms(4.0 * D * pairs * B * H, torch.bfloat16, nbytes)
     row = {
         "shape": [B, H, Kv, S, S, D], "dtype": "bfloat16", "window": W, "visible_pairs_per_head": pairs,
-        **check, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        **check, "repeat_bit_identical": True, "route": "wgmma", "ms": ms, "before_route": "mma",
+        "before_ms": before_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library": "scaled_dot_product_attention(bool mask, enable_gqa=True)",
         "bound_ms": bound_ms, "bound_by": bound_by, "tflops": 4.0 * D * pairs * B * H / (ms * 1e-3) / 1e12,
+        "before_tflops": 4.0 * D * pairs * B * H / (before_ms * 1e-3) / 1e12,
     }
     emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
     return row
 
 
 def _rglru_timing() -> dict:
-    """rglru_scan at the serve path's shape: B=4, S=4096, D=2560, fp32, h0."""
+    """rglru_scan at the serve path's shape: B=4, S=4096, D=2560, fp32, h0.
+    The ``"chunked"`` route, then the ``"serial"`` route it replaced
+    ("before"), in the same run.  The check's own power: the plain version
+    with the carry reset to zero at the chunk boundary in mid-sequence (a
+    kernel that loses one carry) must fail it."""
     cfg = get_config(SERVE_ARCH)
     B, S, D = SERVE_BATCH, SERVE_PROMPT, cfg.d_rnn
     log_a, b, h0 = _rglru_operands(B, S, D, True, seed=8)
     got = rglru_scan(log_a, b, h0, impl="cuda", bs=None, bd=None)
+    again = rglru_scan(log_a, b, h0, impl="cuda", bs=None, bd=None)
     want = rglru_scan_ref(log_a, b, h0)
     torch.cuda.synchronize()
     ok, max_err = _close(got, want, 1e-5)
     if not ok:
         raise SystemExit("chip_smoke: rglru_scan disagrees with its plain version at the serve shape")
-    ms = cuda_ms(lambda: rglru_scan(log_a, b, h0, impl="cuda", bs=None, bd=None), 20)
+    if not torch.equal(got, again):
+        raise SystemExit("chip_smoke: two rglru_scan launches at the serve shape differ")
+    t = chunk_steps() * (S // chunk_steps() // 2)  # a chunk boundary in mid-sequence
+    fault = torch.cat([want[:, :t], rglru_scan_ref(log_a[:, t:], b[:, t:], None)], dim=1)
+    fault_passes, fault_err = _close(got, fault, 1e-5)
+    if fault_passes:
+        raise SystemExit("chip_smoke: the rglru_scan check cannot tell a carry lost at a chunk boundary")
+    del got, again, fault
+    launch = lambda route: lambda: rglru_scan_cuda(log_a, b, h0, bs=None, bd=None, route=route)  # noqa: E731
+    ms = _routes_timed(rglru_scan_cuda, "chunked", launch("chunked"), 20)
+    before_ms = _routes_timed(rglru_scan_cuda, "serial", launch("serial"), 20)
     plain_ms = cuda_ms(lambda: rglru_scan_ref(log_a, b, h0), 3)
     nbytes = 4 * (3 * B * S * D + B * D)  # log_a, b read once, h written once, h0 read once
     bound_ms, bound_by = _bound_ms(3.0 * B * S * D, torch.float32, nbytes)  # exp, multiply, add
     row = {
         "shape": [B, S, D], "dtype": "float32", "h0": True, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "repeat_bit_identical": True, "carry_lost_at_step": t, "carry_lost_max_abs_err": fault_err,
+        "route": "chunked", "ms": ms, "before_route": "serial", "before_ms": before_ms,
+        "plain_ms": plain_ms, "library_ms": None,
         "library": "none: no single PyTorch call computes a linear recurrence",
         "bound_ms": bound_ms, "bound_by": bound_by, "gbps": nbytes / (ms * 1e-3) / 1e9,
+        "before_gbps": nbytes / (before_ms * 1e-3) / 1e9,
     }
     emit({"phase": "kernels", "kernel": "rglru_scan", "timing": row})
     return row
@@ -797,12 +884,18 @@ def _serve_full(out: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = rglru_scan_cuda.launches = matmul_update_cuda.launches = 0
+    for wrapper in (flash_attention_cuda, rglru_scan_cuda):
+        wrapper.launches_by_route = dict.fromkeys(wrapper.launches_by_route, 0)
     tokens, ms = timed_generate(SERVE_NEW)
     launches = {
         "flash_attention": flash_attention_cuda.launches, "rglru_scan": rglru_scan_cuda.launches,
         "matmul_update": matmul_update_cuda.launches,
     }
     out["launches"] = launches
+    out["launches_by_route"] = {
+        "flash_attention": dict(flash_attention_cuda.launches_by_route),
+        "rglru_scan": dict(rglru_scan_cuda.launches_by_route),
+    }
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     # two more generates, then three of one token (prefill and its argmax):
     # a decode step's time is the difference over the other new tokens
@@ -821,6 +914,7 @@ def _serve_full(out: dict) -> dict:
     out["generate_ms_runs"] = gen_ms
     out["prefill_ms_runs"] = prefill_ms
     out["prefill_ms"] = float(np.median(prefill_ms))
+    out["prefill_ms_before_redesign"] = PREFILL_MS_BEFORE
     out["decode_ms_per_token"] = (float(np.median(gen_ms)) - out["prefill_ms"]) / (SERVE_NEW - 1)
     out["tok_per_s"] = SERVE_BATCH * SERVE_NEW / (float(np.median(gen_ms)) / 1e3)
     out["prefill_tok_per_s"] = SERVE_BATCH * SERVE_PROMPT / (out["prefill_ms"] / 1e3)
@@ -829,6 +923,10 @@ def _serve_full(out: dict) -> dict:
     out["sample"] = tokens[0, :8].tolist()
     if launches["flash_attention"] != SERVE_LAUNCHES["flash_attention"] or launches["rglru_scan"] != SERVE_LAUNCHES["rglru_scan"]:
         raise SystemExit(f"chip_smoke: one generate launched {launches}, expected {SERVE_LAUNCHES}")
+    if out["launches_by_route"]["flash_attention"]["wgmma"] != SERVE_LAUNCHES["flash_attention"]:
+        raise SystemExit(f"chip_smoke: one generate's flash launches went {out['launches_by_route']}, not all 'wgmma'")
+    if out["launches_by_route"]["rglru_scan"]["chunked"] != SERVE_LAUNCHES["rglru_scan"]:
+        raise SystemExit(f"chip_smoke: one generate's scans went {out['launches_by_route']}, not all 'chunked'")
 
     with torch.inference_mode():
         # prefill(4096) + decode_step against the full forward over 4097 tokens
@@ -915,6 +1013,7 @@ def main() -> int:
     dfpa_launches, dfpa_routes = run("dfpa", phase_dfpa)
     serve = run("serve", phase_serve)
     launches = {"matmul_update": dfpa_launches, **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
+    routes = {"matmul_update": dfpa_routes, **serve["launches_by_route"]}
     sources = {
         "matmul_update": "src/repro/kernels/matmul_update.py:49",
         "flash_attention": "src/repro/kernels/flash_attention.py:93",
@@ -926,7 +1025,8 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"], "dtype": row["dtype"],
-        **({"launches_by_route": dfpa_routes} if name == "matmul_update" else {}),
+        "launches_by_route": routes[name], "kernel_route": row["route"],
+        **({"before_ms": row["before_ms"], "before_route": row["before_route"]} if "before_ms" in row else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

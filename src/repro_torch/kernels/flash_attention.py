@@ -23,23 +23,35 @@ Blocks: ``bq``/``bk`` keep the reference's rule for callers that pass them
 ``ValueError``.  ``None`` skips the rule: the kernel tiles its own way and
 masks ragged edges, so any length runs (the model's call).
 
-``flash_attention_cuda.launches`` counts the kernel's launches; the wrapper
-increments it where it launches the kernel and nowhere else.
+Routes, chosen from the operands by :func:`flash_attention_route` before
+the launch: ``"wgmma"`` (bf16, head_dim 64, 128 or 256, every pointer
+16-byte aligned and every ``(b, h, s)`` stride a positive multiple of 8
+elements: TMA loads into an mbarrier ring feeding ``wgmma``, 128 query
+rows a block), ``"mma"`` (other aligned bf16 head dims of 16 or 32:
+``mma.sync``, 64 rows a block) and ``"rows"`` (everything else, float32
+among it: one warp per query row).  ``route=`` names one instead (a
+measurement's choice); a route the operands do not allow raises, and no
+route falls back to another at run time.
+
+``flash_attention_cuda.launches`` counts the kernel's launches and
+``flash_attention_cuda.launches_by_route`` the same launches by route; the
+wrapper increments both where it launches the kernel and nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
 
-__all__ = ["check_blocks", "check_causal", "flash_attention_cuda"]
+__all__ = ["ROUTES", "check_blocks", "check_causal", "flash_attention_cuda", "flash_attention_route", "wgmma_smem_bytes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("rows", "mma", "wgmma")  # in the C entry's numbering
 
 
 def check_blocks(Sq: int, Sk: int, bq: Optional[int] = 256, bk: Optional[int] = 256) -> None:
@@ -74,6 +86,31 @@ def check_operands(q, k, v):
     return B, H, Kv, Sq, Sk, D
 
 
+def _allowed(D: int, dtype, ptrs: Sequence[int], strides: Sequence[int]) -> Tuple[str, ...]:
+    aligned = dtype == torch.bfloat16 and all(p % 16 == 0 for p in ptrs) and all(s % 8 == 0 for s in strides)
+    routes = ["rows"]
+    if aligned and D in (16, 32, 64, 128, 256):
+        routes.append("mma")
+    if aligned and D in (64, 128, 256) and all(s > 0 for s in strides[:9]):
+        routes.append("wgmma")
+    return tuple(routes)
+
+
+def flash_attention_route(D: int, dtype, ptrs: Sequence[int], strides: Sequence[int]) -> str:
+    """The route for head_dim ``D``, ``dtype``, the pointers of q, k, v and
+    the output, and their ``(b, h, s)`` element strides (q's, k's, v's,
+    then the output's): the first of ``"wgmma"``, ``"mma"``, ``"rows"``
+    that they allow.  TMA needs 16-byte aligned addresses and strides, and
+    a positive stride for q, k and v."""
+    return _allowed(D, dtype, ptrs, strides)[-1]
+
+
+def wgmma_smem_bytes(D: int) -> int:
+    """Dynamic shared memory the ``"wgmma"`` kernel asks for at head_dim
+    ``D`` (from the built library; the card's machine only)."""
+    return _lib().flash_attention_wgmma_smem(D)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention
@@ -81,10 +118,13 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4  # q, k, v, out
         + [ctypes.c_longlong] * 12  # (b, h, s) strides of q, k, v, out
         + [ctypes.c_int] * 6  # B, H, Kv, Sq, Sk, D
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int]  # scale, softcap, causal, window
+        + [ctypes.c_int, ctypes.c_int]  # dtype, route
         + [ctypes.c_void_p]  # stream
     )
     fn.restype = ctypes.c_int
+    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
+    lib.flash_attention_wgmma_smem.restype = ctypes.c_int
     return lib
 
 
@@ -99,12 +139,15 @@ def flash_attention_cuda(
     scale: Optional[float] = None,
     bq: Optional[int] = 256,
     bk: Optional[int] = 256,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v`` on the card, launched on the
-    current stream without synchronising; returns a new tensor.  Raises on
-    anything the kernel does not take, and when the launch is refused.
-    Causal rows without keys are refused by ``ops.flash_attention``, which
-    calls this after :func:`check_causal`."""
+    current stream without synchronising; returns a new tensor.  ``route``
+    None takes :func:`flash_attention_route`'s; a named route the operands
+    do not allow raises ``ValueError``.  Raises on anything the kernel does
+    not take, and when the launch is refused.  Causal rows without keys are
+    refused by ``ops.flash_attention``, which calls this after
+    :func:`check_causal`."""
     tensors = (q, k, v)
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("flash_attention_cuda needs CUDA tensors")
@@ -126,17 +169,25 @@ def flash_attention_cuda(
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)  # q's layout: dense views keep their strides, others become contiguous
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    allowed = _allowed(D, q.dtype, ptrs, strides)
+    if route is None:
+        route = allowed[-1]
+    elif route not in allowed:
+        raise ValueError(f"flash_attention route {route!r} does not take these operands (they allow {allowed})")
     fn = _lib().flash_attention
     with torch.cuda.device(q.device):
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+            *ptrs, *strides,
             B, H, Kv, Sq, Sk, D, float(scale), float(softcap), int(bool(causal)), int(window),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            _DTYPES[q.dtype], ROUTES.index(route), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention launch ({route} route) failed with CUDA error {err}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_route[route] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -23,7 +23,15 @@ the DFPA panels and the reference's aligned bf16 cases go ``"wgmma"``,
 and so does every panel the DFPA loop can give a processor; float32, N or
 K not a multiple of 8 and a misaligned operand go ``"tile"``.
 ``ops.flash_attention`` refuses causal attention with ``Sq > Sk`` (rows
-that see no key) before any dispatch.
+that see no key) before any dispatch.  The route ``flash_attention`` takes
+is decided the same way: aligned bf16 at head_dim 64, 128 or 256 goes
+``"wgmma"`` — the model's transposed views at the serving shape among it —
+other aligned bf16 head dims ``"mma"``, and float32, a misaligned operand
+or another head_dim ``"rows"``.  The chunked scan's arithmetic (the carry
+into each 64-step chunk from the chunk's product and local end state, every
+step inside a chunk sequential) is written out here and meets the
+reference at its tolerance over a 4096-step sequence; a carry reset at one
+chunk boundary fails that check.
 
 The CUDA kernels are held against the plain versions on the card by
 ``tests/test_torch_kernels_cuda.py`` (which imports no JAX, so it runs on
@@ -43,7 +51,7 @@ from repro.kernels.rglru import rglru_scan_pallas
 from repro.models.recurrent import _rglru_scan as jax_model_scan
 
 from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_route
 from repro_torch.kernels.matmul_update import matmul_update_cuda, matmul_update_route
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
 from repro_torch.kernels.rglru import rglru_scan_cuda
@@ -303,3 +311,101 @@ def test_model_kernels_dispatch_cpu_tensors_to_plain_versions():
     with pytest.raises(ValueError, match="takes CPU tensors"):
         rglru_scan(meta[0], meta[0], impl="ref")
     assert (flash_attention_cuda.launches, rglru_scan_cuda.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# routes of the model stack's kernels, and the chunked scan's arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _flash_route(q, k, v, out=None):
+    out = q if out is None else out
+    ts = (q, k, v, out)
+    return flash_attention_route(q.shape[-1], q.dtype, [t.data_ptr() for t in ts], [s for t in ts for s in t.stride()[:3]])
+
+
+def test_serving_shape_takes_the_wgmma_route():
+    # the model's call: transposed (B, S, H, D) views, row stride H * D
+    q = torch.zeros(4, 64, 10, 256, dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros(4, 64, 1, 256, dtype=torch.bfloat16).transpose(1, 2)
+    assert q.stride() == (64 * 10 * 256, 256, 10 * 256, 1)
+    assert _flash_route(q, kv, kv, torch.empty_like(q)) == "wgmma"
+
+
+@pytest.mark.parametrize("D,dtype,offset,route", [
+    (64, torch.bfloat16, 0, "wgmma"),
+    (128, torch.bfloat16, 0, "wgmma"),
+    (256, torch.bfloat16, 0, "wgmma"),
+    (32, torch.bfloat16, 0, "mma"),
+    (16, torch.bfloat16, 0, "mma"),
+    (48, torch.bfloat16, 0, "rows"),
+    (256, torch.float32, 0, "rows"),
+    (256, torch.bfloat16, 1, "rows"),  # q one element off its allocation's 16-byte alignment
+])
+def test_flash_attention_route_by_operands(D, dtype, offset, route):
+    base = torch.zeros(2 * 8 * D + offset, dtype=dtype)
+    q = base[offset:].view(1, 2, 8, D)
+    kv = torch.zeros(1, 1, 8, D, dtype=dtype)
+    assert _flash_route(q, kv, kv, torch.zeros_like(q)) == route
+
+
+def test_flash_attention_route_needs_tma_strides():
+    q = torch.zeros(1, 2, 8, 256, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 8, 256, dtype=torch.bfloat16)
+    broadcast = kv.expand(1, 2, 8, 256)  # a zero head stride: TMA cannot walk it
+    assert broadcast.stride(1) == 0
+    assert _flash_route(q, broadcast, broadcast, q) == "mma"
+    odd = torch.zeros(1, 8, 2, 257, dtype=torch.bfloat16)[..., :256].transpose(1, 2)  # row stride 514: not 16-byte
+    assert _flash_route(odd, kv, kv, q) == "rows"
+
+
+def test_model_kernels_cpu_launch_counts_stay_put_on_every_route():
+    before = (dict(flash_attention_cuda.launches_by_route), dict(rglru_scan_cuda.launches_by_route))
+    assert set(before[0]) == {"rows", "mma", "wgmma"} and set(before[1]) == {"chunked", "serial"}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.full((1, 2, 8, 64), 0.1, dtype=dtype)
+        flash_attention(q, q[:, :1], q[:, :1], bq=None, bk=None)
+    la = torch.full((1, 70, 8), -1.0)
+    rglru_scan(la, la, bs=None, bd=None)
+    with pytest.raises(ValueError, match="unknown rglru_scan route"):
+        rglru_scan_cuda(la, la, route="tree")
+    assert (flash_attention_cuda.launches_by_route, rglru_scan_cuda.launches_by_route) == before
+
+
+CHUNK = 64  # the "chunked" route's steps a chunk (csrc/rglru_scan.cu)
+
+
+def _chunked_scan(log_a, b, h0, reset_at=None):
+    """The "chunked" route's arithmetic in float32: per chunk the product
+    A of its decays and its end state Bl from zero, each step rounded as
+    the kernel rounds it; the carry into chunk c is A_{c-1} * carry + Bl_{c-1}
+    (h0 into the first), and every step inside a chunk is the sequential
+    recurrence from its carry.  ``reset_at`` zeroes the carry into that
+    chunk (a planted fault)."""
+    a = torch.exp(log_a)
+    out = torch.empty_like(b)
+    carry = h0.clone()
+    for c, t0 in enumerate(range(0, b.shape[1], CHUNK)):
+        if c == reset_at:
+            carry = torch.zeros_like(carry)
+        A, Bl, h = torch.ones_like(carry), torch.zeros_like(carry), carry
+        for t in range(t0, min(t0 + CHUNK, b.shape[1])):
+            A, Bl = A * a[:, t], a[:, t] * Bl + b[:, t]
+            h = a[:, t] * h + b[:, t]
+            out[:, t] = h
+        carry = A * carry + Bl
+    return out
+
+
+@pytest.mark.parametrize("B,S,D,decay", [(2, 4096, 16, 1.0), (2, 4096, 16, 0.002), (3, 77, 40, 1.0), (1, 50, 8, 1.0)])
+def test_chunked_scan_arithmetic_meets_reference(B, S, D, decay):
+    # decay 0.002 keeps a near 1, so every carry reaches the far end of its chunk
+    log_a, b, h0 = _rglru_inputs(B, S, D, seed=2)
+    log_a = (decay * log_a).astype(np.float32)
+    want = np.asarray(jax.jit(jref.rglru_scan_ref)(*(jnp.asarray(x) for x in (log_a, b, h0))))
+    la, bt, h0t = (torch.from_numpy(x) for x in (log_a, b, h0))
+    np.testing.assert_allclose(_chunked_scan(la, bt, h0t).numpy(), want, atol=1e-5, rtol=1e-5)
+    chunks = -(-S // CHUNK)
+    if chunks > 2:  # the check's power: one carry lost at a chunk boundary fails it
+        fault = _chunked_scan(la, bt, h0t, reset_at=chunks // 2).numpy()
+        assert not np.allclose(fault, want, atol=1e-5, rtol=1e-5)

@@ -19,8 +19,17 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
   plus a window whose first key tile is fully masked for some rows, ragged
   lengths no block divides, a head_dim the tensor-core path does not take,
   and strided (transposed) operands; causal with ``Sq > Sk`` refused;
+* ``flash_attention`` on the ``"wgmma"`` route at head_dim 256: ten query
+  heads over one KV head, an odd group count, lengths no 128-row or 64-key
+  tile divides, a window no tile divides, softcap, the model's transposed
+  views; each launched twice (bit-identical) and counted by route; the
+  ``"mma"`` route, forced, still serves head_dim 256, and a route the
+  operands do not allow is refused;
 * ``rglru_scan``: ``RGLRU_CASES`` at 1e-5, plus an ``h0`` case and a
-  ragged one.
+  ragged one; on the ``"chunked"`` route S not a multiple of the 64-step
+  chunk and S below it, B·D not a multiple of the 128-channel tile, and
+  S = 4096 at a narrow D with ``h0``, each launched twice (bit-identical);
+  the ``"serial"`` route, forced, agrees too.
 """
 
 import numpy as np
@@ -63,6 +72,16 @@ FLASH_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs, blocks)
     (2, 3, 1, 97, 161, 64, dict(causal=True, window=50), None),
     (1, 10, 1, 130, 130, 256, dict(causal=True, window=70, scale=0.0625), None),
     (1, 2, 1, 77, 77, 48, dict(causal=True, softcap=20.0), None),
+]
+# the "wgmma" route at the model's head_dim: (B, H, Kv, Sq, Sk, kwargs, views)
+WGMMA_CASES = [
+    (2, 10, 1, 256, 256, dict(causal=True), False),  # MQA over ten heads
+    (2, 3, 1, 200, 200, dict(causal=True), False),  # an odd group count
+    (1, 4, 2, 97, 161, dict(causal=True), False),  # lengths no tile divides, right-aligned, GQA
+    (1, 10, 1, 333, 333, dict(causal=True, window=100, scale=0.0625), False),  # a window no tile divides
+    (1, 2, 1, 190, 190, dict(causal=True, softcap=30.0), False),  # softcap
+    (2, 10, 1, 300, 300, dict(causal=True, window=90), True),  # the model's (B, S, H, D) views
+    (1, 2, 2, 130, 130, dict(causal=False), False),  # encoder
 ]
 RGLRU_CASES = [  # (B, S, D, bs, bd)
     (1, 128, 128, 64, 128),
@@ -177,6 +196,66 @@ def test_rglru_scan_matches_plain_on_card(card, B, S, D, bs, bd, with_h0):
     torch.cuda.synchronize()
     assert rglru_scan_cuda.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,kwargs,views", WGMMA_CASES)
+def test_flash_attention_wgmma_route_at_head_dim_256(card, B, H, Kv, Sq, Sk, kwargs, views):
+    rng = np.random.default_rng(2)
+    D = 256
+    q = _randn(rng, (B, Sq, H, D), 0.3).to(card, torch.bfloat16)
+    k = _randn(rng, (B, Sk, Kv, D), 0.3).to(card, torch.bfloat16)
+    v = _randn(rng, (B, Sk, Kv, D)).to(card, torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) if views else x.transpose(1, 2).contiguous() for x in (q, k, v))
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
+    before = dict(flash_attention_cuda.launches_by_route)
+    got = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
+    again = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
+    torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    assert routes == {"rows": 0, "mma": 0, "wgmma": 2}
+    assert torch.equal(got, again)
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_named_routes_on_card(card):
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (1, 10, 150, 256), 0.3).to(card, torch.bfloat16)
+    kv = _randn(rng, (1, 1, 150, 256), 0.3).to(card, torch.bfloat16)
+    kw = dict(causal=True, window=70, bq=None, bk=None)
+    want = flash_attention_ref(q, kv, kv, causal=True, window=70)
+    before = dict(flash_attention_cuda.launches_by_route)
+    got = {route: flash_attention_cuda(q, kv, kv, route=route, **kw) for route in ("mma", "rows")}
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()} == {"rows": 1, "mma": 1, "wgmma": 0}
+    for out in got.values():
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="route 'wgmma' does not take"):
+        flash_attention_cuda(q.float(), kv.float(), kv.float(), route="wgmma", **kw)
+    assert flash_attention_cuda.launches_by_route == {r: n + (r != "wgmma") for r, n in before.items()}
+
+
+@pytest.mark.parametrize("B,S,D", [
+    (2, 100, 256),  # S not a multiple of the chunk
+    (3, 50, 200),  # S below one chunk
+    (3, 130, 300),  # B * D not a multiple of the tile
+    (2, 4096, 64),  # a long sequence at a narrow D
+])
+def test_rglru_scan_chunked_route_on_card(card, B, S, D):
+    rng = np.random.default_rng(S + D)
+    log_a = -torch.nn.functional.softplus(_randn(rng, (B, S, D))).to(card)
+    b = (0.1 * _randn(rng, (B, S, D))).to(card)
+    h0 = _randn(rng, (B, D)).to(card)
+    want = rglru_scan_ref(log_a, b, h0)
+    before = dict(rglru_scan_cuda.launches_by_route)
+    got = rglru_scan(log_a, b, h0, bs=None, bd=None)
+    again = rglru_scan(log_a, b, h0, bs=None, bd=None)
+    serial = rglru_scan_cuda(log_a, b, h0, bs=None, bd=None, route="serial")
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in rglru_scan_cuda.launches_by_route.items()} == {"chunked": 2, "serial": 1}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(serial, want, atol=1e-5, rtol=1e-5)
 
 
 def test_flash_attention_refuses_causal_rows_without_keys_on_card(card):
