@@ -29,7 +29,10 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
   ragged one; on the ``"chunked"`` route S not a multiple of the 64-step
   chunk and S below it, B·D not a multiple of the 128-channel tile, and
   S = 4096 at a narrow D with ``h0``, each launched twice (bit-identical);
-  the ``"serial"`` route, forced, agrees too.
+  the ``"serial"`` route, forced, agrees too; S = 4096 with decays near 1
+  (log_a scaled by 0.002), where every chunk's carry reaches the far end
+  of the chunk, and a carry lost at a mid-sequence chunk boundary fails
+  the same check.
 """
 
 import numpy as np
@@ -40,7 +43,7 @@ from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.matmul_update import matmul_update_cuda, matmul_update_route
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
-from repro_torch.kernels.rglru import rglru_scan_cuda
+from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -256,6 +259,27 @@ def test_rglru_scan_chunked_route_on_card(card, B, S, D):
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(serial, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 4096, 256), (1, 4096, 2560)])
+def test_rglru_scan_carries_decays_near_one_on_card(card, B, S, D):
+    # log_a scaled by 0.002 keeps a near 1: each chunk's carry reaches the far
+    # end of the chunk, so the kernel's reassociated carry is what is checked
+    rng = np.random.default_rng(S + D + 1)
+    log_a = (-0.002 * torch.nn.functional.softplus(_randn(rng, (B, S, D)))).to(card)
+    b = (0.1 * _randn(rng, (B, S, D))).to(card)
+    h0 = _randn(rng, (B, D)).to(card)
+    want = rglru_scan_ref(log_a, b, h0)
+    before = dict(rglru_scan_cuda.launches_by_route)
+    got = rglru_scan(log_a, b, h0, bs=None, bd=None)
+    again = rglru_scan(log_a, b, h0, bs=None, bd=None)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in rglru_scan_cuda.launches_by_route.items()} == {"chunked": 2, "serial": 0}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    t = chunk_steps() * (S // chunk_steps() // 2)  # the check's power: a carry lost mid-sequence fails it
+    fault = torch.cat([want[:, :t], rglru_scan_ref(log_a[:, t:], b[:, t:], None)], dim=1)
+    assert not torch.allclose(got, fault, atol=1e-5, rtol=1e-5)
 
 
 def test_flash_attention_refuses_causal_rows_without_keys_on_card(card):
