@@ -34,12 +34,9 @@ the first fault:
                       ``h0``, ragged, shorter-than-a-chunk and long cases,
                       and the serve shape with decays near 1 (log_a scaled
                       by 0.002, so every chunk's carry reaches the chunk's
-                      far end), each launched twice (bit-identical) on
-                      ``"chunked"``.
+                      far end), each launched twice (bit-identical).
                       Times at the main paths' shapes, beside the plain
-                      version's, one PyTorch call's and the bound, and for
-                      flash and the scan the route each replaced
-                      (``"mma"``, ``"serial"``: "before") in the same run;
+                      version's, one PyTorch call's and the bound;
                       at the serve shape flash is held at atol 2e-3, rtol
                       2e-2, and a plain version whose window is one 64-key
                       tile short must fail that check; the scan is held at
@@ -63,8 +60,8 @@ the first fault:
                       served by ``ServeEngine.generate`` — a 4096-token
                       prompt for a batch of 4, then 32 greedy tokens.  One
                       ``generate`` must launch ``flash_attention`` exactly 8
-                      times, all on ``"wgmma"``, and ``rglru_scan`` 18
-                      times, all on ``"chunked"``; two give identical
+                      times, all on ``"wgmma"``, and ``rglru_scan`` (its one
+                      kernel) 18 times; two give identical
                       tokens; prefill(4096) + one decode step agree with the
                       full forward over 4097 tokens (rel 0.05); the kernels'
                       inputs captured from a real prefill agree with the plain
@@ -72,13 +69,11 @@ the first fault:
                       smoke-width model in float32 gives the CPU's tokens
                       (plain versions) on the card (kernels).  Times come
                       from CUDA events around ``generate``: prefill is one
-                      of a single token (printed beside the 385.1 ms an
-                      earlier run on another H100 took before the flash and
-                      scan redesign: a constant), a decode step the rest of one
-                      of 32 tokens over 31.
+                      of a single token, a decode step the rest of one of 32
+                      tokens over 31.
 
-Then it prints the ``kernels`` summary line (with each kernel's launches by
-route on its main path), the card's name and power limit
+Then it prints the ``kernels`` summary line (with the launches by route of
+the kernels that have routes), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -201,9 +196,6 @@ RGLRU_NEAR_ONE = 0.002  # log_a scaled by this keeps a near 1 (the model's decay
 SERVE_ARCH = "recurrentgemma-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
 SERVE_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18}  # one per local / rec layer
-# the serve phase's prefill before the flash and scan redesign: a constant from an
-# earlier run on another H100 (PERF.md §5), printed for reference, not measured here
-PREFILL_MS_BEFORE = 385.1
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 2, 24, 8
 
 
@@ -508,27 +500,26 @@ def _rglru_operands(B, S, D, with_h0, seed, decay=1.0):
 
 def _rglru_parity(B, S, D, bs, bd, with_h0, decay=1.0) -> float:
     """The kernel against its plain version, launched twice on the same
-    inputs (bit-identical results), on the ``"chunked"`` route; ``decay``
-    scales log_a."""
+    inputs (bit-identical results); ``decay`` scales log_a."""
     log_a, b, h0 = _rglru_operands(B, S, D, with_h0, seed=S + D, decay=decay)
     want = rglru_scan_ref(log_a, b, h0)
-    before = dict(rglru_scan_cuda.launches_by_route)
+    before = rglru_scan_cuda.launches
     got = rglru_scan(log_a, b, h0, impl="cuda", bs=bs, bd=bd)
     again = rglru_scan(log_a, b, h0, impl="cuda", bs=bs, bd=bd)
     torch.cuda.synchronize()
-    routes = {r: n - before[r] for r, n in rglru_scan_cuda.launches_by_route.items()}
+    launched = rglru_scan_cuda.launches - before
     ok, max_err = _close(got, want, 1e-5)
     emit({
         "phase": "kernels", "kernel": "rglru_scan", "case": [B, S, D], "blocks": [bs, bd], "h0": with_h0,
-        "log_a_scale": decay, "dtype": "float32", "launches_by_route": routes, "max_abs_err": max_err, "tol": "atol = rtol = 1e-5",
+        "log_a_scale": decay, "dtype": "float32", "launches": launched, "max_abs_err": max_err, "tol": "atol = rtol = 1e-5",
         "ok": ok, "repeat_bit_identical": torch.equal(got, again),
     })
     if not ok:
         raise SystemExit(f"chip_smoke: rglru_scan disagrees with its plain version at {(B, S, D, with_h0)}")
     if not torch.equal(got, again):
         raise SystemExit(f"chip_smoke: two rglru_scan launches on the same inputs differ at {(B, S, D)}")
-    if routes != {"chunked": 2, "serial": 0}:
-        raise SystemExit(f"chip_smoke: rglru_scan at {(B, S, D)} launched {routes}, not twice on 'chunked'")
+    if launched != 2:
+        raise SystemExit(f"chip_smoke: rglru_scan at {(B, S, D)} launched {launched} times, not twice")
     return max_err
 
 
@@ -566,8 +557,7 @@ def _routes_timed(wrapper, route, fn, reps) -> float:
 
 def _flash_timing() -> dict:
     """flash_attention at the serve path's shape: B=4, H=10, Kv=1,
-    Sq=Sk=4096, D=256, bf16, causal, window 2048.  The ``"wgmma"`` route,
-    then the ``"mma"`` route it replaced ("before"), in the same run."""
+    Sq=Sk=4096, D=256, bf16, causal, window 2048, on the ``"wgmma"`` route."""
     cfg = get_config(SERVE_ARCH)
     B, H, Kv, S, D, W = SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT, cfg.head_dim, cfg.window
     kw = dict(causal=True, window=W, scale=cfg.query_scale)
@@ -578,9 +568,7 @@ def _flash_timing() -> dict:
     if not torch.equal(got, again):
         raise SystemExit("chip_smoke: two flash_attention launches at the serve shape differ")
     del got, again
-    launch = lambda route: lambda: flash_attention_cuda(q, k, v, bq=None, bk=None, route=route, **kw)  # noqa: E731
-    ms = _routes_timed(flash_attention_cuda, "wgmma", launch("wgmma"), 20)
-    before_ms = _routes_timed(flash_attention_cuda, "mma", launch("mma"), 20)
+    ms = _routes_timed(flash_attention_cuda, "wgmma", lambda: flash_attention_cuda(q, k, v, bq=None, bk=None, **kw), 20)
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 5)
     pos = torch.arange(S, device="cuda")
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
@@ -591,11 +579,10 @@ def _flash_timing() -> dict:
     bound_ms, bound_by = _bound_ms(4.0 * D * pairs * B * H, torch.bfloat16, nbytes)
     row = {
         "shape": [B, H, Kv, S, S, D], "dtype": "bfloat16", "window": W, "visible_pairs_per_head": pairs,
-        **check, "repeat_bit_identical": True, "route": "wgmma", "ms": ms, "before_route": "mma",
-        "before_ms": before_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        **check, "repeat_bit_identical": True, "route": "wgmma", "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
         "library": "scaled_dot_product_attention(bool mask, enable_gqa=True)",
         "bound_ms": bound_ms, "bound_by": bound_by, "tflops": 4.0 * D * pairs * B * H / (ms * 1e-3) / 1e12,
-        "before_tflops": 4.0 * D * pairs * B * H / (before_ms * 1e-3) / 1e12,
     }
     emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
     return row
@@ -603,8 +590,7 @@ def _flash_timing() -> dict:
 
 def _rglru_timing() -> dict:
     """rglru_scan at the serve path's shape: B=4, S=4096, D=2560, fp32, h0.
-    The ``"chunked"`` route, then the ``"serial"`` route it replaced
-    ("before"), in the same run.  The check's own power: the plain version
+    The check's own power: the plain version
     with the carry reset to zero at the chunk boundary in mid-sequence (a
     kernel that loses one carry) must fail it."""
     cfg = get_config(SERVE_ARCH)
@@ -625,20 +611,16 @@ def _rglru_timing() -> dict:
     if fault_passes:
         raise SystemExit("chip_smoke: the rglru_scan check cannot tell a carry lost at a chunk boundary")
     del got, again, fault
-    launch = lambda route: lambda: rglru_scan_cuda(log_a, b, h0, bs=None, bd=None, route=route)  # noqa: E731
-    ms = _routes_timed(rglru_scan_cuda, "chunked", launch("chunked"), 20)
-    before_ms = _routes_timed(rglru_scan_cuda, "serial", launch("serial"), 20)
+    ms = cuda_ms(lambda: rglru_scan_cuda(log_a, b, h0, bs=None, bd=None), 20)
     plain_ms = cuda_ms(lambda: rglru_scan_ref(log_a, b, h0), 3)
     nbytes = 4 * (3 * B * S * D + B * D)  # log_a, b read once, h written once, h0 read once
     bound_ms, bound_by = _bound_ms(3.0 * B * S * D, torch.float32, nbytes)  # exp, multiply, add
     row = {
         "shape": [B, S, D], "dtype": "float32", "h0": True, "max_abs_err": max_err,
         "repeat_bit_identical": True, "carry_lost_at_step": t, "carry_lost_max_abs_err": fault_err,
-        "route": "chunked", "ms": ms, "before_route": "serial", "before_ms": before_ms,
-        "plain_ms": plain_ms, "library_ms": None,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
         "library": "none: no single PyTorch call computes a linear recurrence",
         "bound_ms": bound_ms, "bound_by": bound_by, "gbps": nbytes / (ms * 1e-3) / 1e9,
-        "before_gbps": nbytes / (before_ms * 1e-3) / 1e9,
     }
     emit({"phase": "kernels", "kernel": "rglru_scan", "timing": row})
     return row
@@ -893,18 +875,14 @@ def _serve_full(out: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = rglru_scan_cuda.launches = matmul_update_cuda.launches = 0
-    for wrapper in (flash_attention_cuda, rglru_scan_cuda):
-        wrapper.launches_by_route = dict.fromkeys(wrapper.launches_by_route, 0)
+    flash_attention_cuda.launches_by_route = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
     tokens, ms = timed_generate(SERVE_NEW)
     launches = {
         "flash_attention": flash_attention_cuda.launches, "rglru_scan": rglru_scan_cuda.launches,
         "matmul_update": matmul_update_cuda.launches,
     }
     out["launches"] = launches
-    out["launches_by_route"] = {
-        "flash_attention": dict(flash_attention_cuda.launches_by_route),
-        "rglru_scan": dict(rglru_scan_cuda.launches_by_route),
-    }
+    out["launches_by_route"] = {"flash_attention": dict(flash_attention_cuda.launches_by_route)}
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     # two more generates, then three of one token (prefill and its argmax):
     # a decode step's time is the difference over the other new tokens
@@ -923,7 +901,6 @@ def _serve_full(out: dict) -> dict:
     out["generate_ms_runs"] = gen_ms
     out["prefill_ms_runs"] = prefill_ms
     out["prefill_ms"] = float(np.median(prefill_ms))
-    out["prefill_ms_before_redesign_earlier_run"] = PREFILL_MS_BEFORE
     out["decode_ms_per_token"] = (float(np.median(gen_ms)) - out["prefill_ms"]) / (SERVE_NEW - 1)
     out["tok_per_s"] = SERVE_BATCH * SERVE_NEW / (float(np.median(gen_ms)) / 1e3)
     out["prefill_tok_per_s"] = SERVE_BATCH * SERVE_PROMPT / (out["prefill_ms"] / 1e3)
@@ -934,8 +911,6 @@ def _serve_full(out: dict) -> dict:
         raise SystemExit(f"chip_smoke: one generate launched {launches}, expected {SERVE_LAUNCHES}")
     if out["launches_by_route"]["flash_attention"]["wgmma"] != SERVE_LAUNCHES["flash_attention"]:
         raise SystemExit(f"chip_smoke: one generate's flash launches went {out['launches_by_route']}, not all 'wgmma'")
-    if out["launches_by_route"]["rglru_scan"]["chunked"] != SERVE_LAUNCHES["rglru_scan"]:
-        raise SystemExit(f"chip_smoke: one generate's scans went {out['launches_by_route']}, not all 'chunked'")
 
     with torch.inference_mode():
         # prefill(4096) + decode_step against the full forward over 4097 tokens
@@ -1034,8 +1009,7 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"], "dtype": row["dtype"],
-        "launches_by_route": routes[name], "kernel_route": row["route"],
-        **({"before_ms": row["before_ms"], "before_route": row["before_route"]} if "before_ms" in row else {}),
+        **({"launches_by_route": routes[name], "kernel_route": row["route"]} if name in routes else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -11,11 +11,10 @@
 // D=2560), 0.15 ms at 3.35 TB/s, against 2 operations and one exp per
 // element: bound by bytes.
 //
-// What the design does about it (route "chunked").  The TPU kernel walks
-// sequence blocks in order on one core, carrying the state in VMEM
-// scratch; CUDA blocks run in no order, and a thread per channel walking
-// all of S (route "serial" below) leaves the card short of parallel work
-// (10,240 threads at the serving shape).  Here S is cut into chunks of
+// What the design does about it.  The TPU kernel walks sequence blocks in
+// order on one core, carrying the state in VMEM scratch; CUDA blocks run in
+// no order, and a thread per channel walking all of S leaves the card short
+// of parallel work (10,240 threads at the serving shape).  Here S is cut into chunks of
 // CHUNK = 64 steps, and a block owns one chunk of TILE = 128 neighbouring
 // channels of one batch row: every warp load and store is one 128-byte
 // line, and the serving shape has 5,120 blocks.  Each thread, for its
@@ -54,11 +53,7 @@
 // flag a (chunk, tile) set once its end state is published; `state`,
 // float32, tiles · chunks · TILE: the published end states.
 //
-// Route "serial" (the kernel of the first port, kept for the before/after
-// timing in one run): one thread owns one (b, d) channel and walks all of
-// S, loads 16 steps ahead of the recurrence.
-//
-// The kernels launch on the caller's stream, do not synchronise and
+// The kernel launches on the caller's stream, do not synchronise and
 // allocate nothing.  The entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -139,74 +134,29 @@ __global__ void __launch_bounds__(TILE)
   }
 }
 
-constexpr int SERIAL_THREADS = 128, AHEAD = 16;
-
-__global__ void __launch_bounds__(SERIAL_THREADS)
-    rglru_scan_serial(const float* __restrict__ log_a, const float* __restrict__ b,
-                      const float* __restrict__ h0, float* __restrict__ out, int B, int S, int D) {
-  const long long ch = (long long)blockIdx.x * SERIAL_THREADS + threadIdx.x;
-  if (ch >= (long long)B * D) return;
-  const long long bb = ch / D, d = ch % D;
-  const long long base = bb * S * D + d;
-  const float* la = log_a + base;
-  const float* bv = b + base;
-  float* o = out + base;
-  float h = h0 != nullptr ? h0[bb * D + d] : 0.0f;
-
-  int t = 0;
-  for (; t + AHEAD <= S; t += AHEAD) {
-    float a[AHEAD], x[AHEAD];
-#pragma unroll
-    for (int u = 0; u < AHEAD; ++u) {
-      a[u] = __ldg(la + (long long)(t + u) * D);
-      x[u] = __ldg(bv + (long long)(t + u) * D);
-    }
-#pragma unroll
-    for (int u = 0; u < AHEAD; ++u) {
-      h = __fadd_rn(__fmul_rn(expf(a[u]), h), x[u]);
-      o[(long long)(t + u) * D] = h;
-    }
-  }
-  for (; t < S; ++t) {
-    h = __fadd_rn(__fmul_rn(expf(__ldg(la + (long long)t * D)), h), __ldg(bv + (long long)t * D));
-    o[(long long)t * D] = h;
-  }
-}
-
 }  // namespace
 
-// Steps of one chunk and channels of one tile of the "chunked" route (the
-// wrapper sizes the scratch from them).
+// Steps of one chunk and channels of one tile (the wrapper sizes the
+// scratch from them).
 extern "C" int rglru_scan_chunk_steps() { return CHUNK; }
 extern "C" int rglru_scan_tile_channels() { return TILE; }
 
 // log_a, b, out (B,S,D) and h0 (B,D) or null: contiguous float32 on the
-// current device.  route 0 = "chunked" (flags: n_flags zeroed int32, state:
-// n_state float32, as above), 1 = "serial" (flags and state unused).
-// stream is a cudaStream_t.  Returns the launch's cudaError_t (0 = launched).
+// current device; flags: n_flags zeroed int32, state: n_state float32, as
+// above.  stream is a cudaStream_t.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int rglru_scan(const void* log_a, const void* b, const void* h0, void* out, void* flags,
                           void* state, long long n_flags, long long n_state, int B, int S, int D,
-                          int route, void* stream) {
+                          void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 0) {
-    const int d_tiles = (D + TILE - 1) / TILE, chunks = (S + CHUNK - 1) / CHUNK;
-    const long long blocks = (long long)B * d_tiles * chunks;
-    if (flags == nullptr || state == nullptr || n_flags < 1 + blocks || n_state < blocks * TILE ||
-        blocks >= (1ll << 31))
-      return static_cast<int>(cudaErrorInvalidValue);
-    rglru_scan_chunked<<<static_cast<unsigned>(blocks), TILE, 0, s>>>(
-        static_cast<const float*>(log_a), static_cast<const float*>(b), static_cast<const float*>(h0),
-        static_cast<float*>(out), static_cast<int*>(flags), static_cast<float*>(state), B, S, D, d_tiles,
-        chunks);
-  } else if (route == 1) {
-    const long long channels = (long long)B * D;
-    const unsigned blocks = static_cast<unsigned>((channels + SERIAL_THREADS - 1) / SERIAL_THREADS);
-    rglru_scan_serial<<<blocks, SERIAL_THREADS, 0, s>>>(
-        static_cast<const float*>(log_a), static_cast<const float*>(b), static_cast<const float*>(h0),
-        static_cast<float*>(out), B, S, D);
-  } else {
+  const int d_tiles = (D + TILE - 1) / TILE, chunks = (S + CHUNK - 1) / CHUNK;
+  const long long blocks = (long long)B * d_tiles * chunks;
+  if (flags == nullptr || state == nullptr || n_flags < 1 + blocks || n_state < blocks * TILE ||
+      blocks >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  rglru_scan_chunked<<<static_cast<unsigned>(blocks), TILE, 0, s>>>(
+      static_cast<const float*>(log_a), static_cast<const float*>(b), static_cast<const float*>(h0),
+      static_cast<float*>(out), static_cast<int*>(flags), static_cast<float*>(state), B, S, D, d_tiles,
+      chunks);
   return static_cast<int>(cudaGetLastError());
 }

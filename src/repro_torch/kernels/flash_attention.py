@@ -29,9 +29,8 @@ the launch: ``"wgmma"`` (bf16, head_dim 64, 128 or 256, every pointer
 elements: TMA loads into an mbarrier ring feeding ``wgmma``, 128 query
 rows a block), ``"mma"`` (other aligned bf16 head dims of 16 or 32:
 ``mma.sync``, 64 rows a block) and ``"rows"`` (everything else, float32
-among it: one warp per query row).  ``route=`` names one instead (a
-measurement's choice); a route the operands do not allow raises, and no
-route falls back to another at run time.
+among it: one warp per query row).  No route falls back to another at
+run time.
 
 ``flash_attention_cuda.launches`` counts the kernel's launches and
 ``flash_attention_cuda.launches_by_route`` the same launches by route; the
@@ -42,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
@@ -86,23 +85,18 @@ def check_operands(q, k, v):
     return B, H, Kv, Sq, Sk, D
 
 
-def _allowed(D: int, dtype, ptrs: Sequence[int], strides: Sequence[int]) -> Tuple[str, ...]:
-    aligned = dtype == torch.bfloat16 and all(p % 16 == 0 for p in ptrs) and all(s % 8 == 0 for s in strides)
-    routes = ["rows"]
-    if aligned and D in (16, 32, 64, 128, 256):
-        routes.append("mma")
-    if aligned and D in (64, 128, 256) and all(s > 0 for s in strides[:9]):
-        routes.append("wgmma")
-    return tuple(routes)
-
-
 def flash_attention_route(D: int, dtype, ptrs: Sequence[int], strides: Sequence[int]) -> str:
     """The route for head_dim ``D``, ``dtype``, the pointers of q, k, v and
     the output, and their ``(b, h, s)`` element strides (q's, k's, v's,
     then the output's): the first of ``"wgmma"``, ``"mma"``, ``"rows"``
     that they allow.  TMA needs 16-byte aligned addresses and strides, and
     a positive stride for q, k and v."""
-    return _allowed(D, dtype, ptrs, strides)[-1]
+    aligned = dtype == torch.bfloat16 and all(p % 16 == 0 for p in ptrs) and all(s % 8 == 0 for s in strides)
+    if aligned and D in (64, 128, 256) and all(s > 0 for s in strides[:9]):
+        return "wgmma"
+    if aligned and D in (16, 32, 64, 128, 256):
+        return "mma"
+    return "rows"
 
 
 def wgmma_smem_bytes(D: int) -> int:
@@ -139,13 +133,11 @@ def flash_attention_cuda(
     scale: Optional[float] = None,
     bq: Optional[int] = 256,
     bk: Optional[int] = 256,
-    route: Optional[str] = None,
 ) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v`` on the card, launched on the
-    current stream without synchronising; returns a new tensor.  ``route``
-    None takes :func:`flash_attention_route`'s; a named route the operands
-    do not allow raises ``ValueError``.  Raises on anything the kernel does
-    not take, and when the launch is refused.  Causal rows without keys are
+    current stream without synchronising, on :func:`flash_attention_route`'s
+    route; returns a new tensor.  Raises on anything the kernel does not
+    take, and when the launch is refused.  Causal rows without keys are
     refused by ``ops.flash_attention``, which calls this after
     :func:`check_causal`."""
     tensors = (q, k, v)
@@ -170,11 +162,7 @@ def flash_attention_cuda(
     out = torch.empty_like(q)  # q's layout: dense views keep their strides, others become contiguous
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
-    allowed = _allowed(D, q.dtype, ptrs, strides)
-    if route is None:
-        route = allowed[-1]
-    elif route not in allowed:
-        raise ValueError(f"flash_attention route {route!r} does not take these operands (they allow {allowed})")
+    route = flash_attention_route(D, q.dtype, ptrs, strides)
     fn = _lib().flash_attention
     with torch.cuda.device(q.device):
         err = fn(

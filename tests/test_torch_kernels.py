@@ -360,23 +360,27 @@ def test_flash_attention_route_needs_tma_strides():
 
 
 def test_model_kernels_cpu_launch_counts_stay_put_on_every_route():
-    before = (dict(flash_attention_cuda.launches_by_route), dict(rglru_scan_cuda.launches_by_route))
-    assert set(before[0]) == {"rows", "mma", "wgmma"} and set(before[1]) == {"chunked", "serial"}
+    before = (dict(flash_attention_cuda.launches_by_route), rglru_scan_cuda.launches)
+    assert set(before[0]) == {"rows", "mma", "wgmma"}
+    assert not hasattr(rglru_scan_cuda, "launches_by_route")  # the scan has one kernel
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.full((1, 2, 8, 64), 0.1, dtype=dtype)
         flash_attention(q, q[:, :1], q[:, :1], bq=None, bk=None)
     la = torch.full((1, 70, 8), -1.0)
     rglru_scan(la, la, bs=None, bd=None)
-    with pytest.raises(ValueError, match="unknown rglru_scan route"):
-        rglru_scan_cuda(la, la, route="tree")
-    assert (flash_attention_cuda.launches_by_route, rglru_scan_cuda.launches_by_route) == before
+    # neither wrapper takes a caller's route any more: the operands choose
+    with pytest.raises(TypeError, match="route"):
+        rglru_scan_cuda(la, la, route="chunked")
+    with pytest.raises(TypeError, match="route"):
+        flash_attention_cuda(q, q, q, route="mma")
+    assert (flash_attention_cuda.launches_by_route, rglru_scan_cuda.launches) == before
 
 
-CHUNK = 64  # the "chunked" route's steps a chunk (csrc/rglru_scan.cu)
+CHUNK = 64  # the scan kernel's steps a chunk (csrc/rglru_scan.cu)
 
 
 def _chunked_scan(log_a, b, h0, reset_at=None):
-    """The "chunked" route's arithmetic in float32: per chunk the product
+    """The scan kernel's arithmetic in float32: per chunk the product
     A of its decays and its end state Bl from zero, each step rounded as
     the kernel rounds it; the carry into chunk c is A_{c-1} * carry + Bl_{c-1}
     (h0 into the first), and every step inside a chunk is the sequential

@@ -23,13 +23,13 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
   heads over one KV head, an odd group count, lengths no 128-row or 64-key
   tile divides, a window no tile divides, softcap, the model's transposed
   views; each launched twice (bit-identical) and counted by route; the
-  ``"mma"`` route, forced, still serves head_dim 256, and a route the
-  operands do not allow is refused;
+  ``"mma"`` route (bf16 head_dim 32, and head_dim 256 over broadcast K/V
+  with a zero head stride) and the ``"rows"`` route (float32, bf16
+  head_dim 96), each reached through operands that select it;
 * ``rglru_scan``: ``RGLRU_CASES`` at 1e-5, plus an ``h0`` case and a
-  ragged one; on the ``"chunked"`` route S not a multiple of the 64-step
-  chunk and S below it, B·D not a multiple of the 128-channel tile, and
-  S = 4096 at a narrow D with ``h0``, each launched twice (bit-identical);
-  the ``"serial"`` route, forced, agrees too; S = 4096 with decays near 1
+  ragged one; S not a multiple of the 64-step chunk and S below it, B·D
+  not a multiple of the 128-channel tile, and S = 4096 at a narrow D with
+  ``h0``, each launched twice (bit-identical); S = 4096 with decays near 1
   (log_a scaled by 0.002), where every chunk's carry reaches the far end
   of the chunk, and a carry lost at a mid-sequence chunk boundary fails
   the same check.
@@ -221,21 +221,30 @@ def test_flash_attention_wgmma_route_at_head_dim_256(card, B, H, Kv, Sq, Sk, kwa
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
-def test_flash_attention_named_routes_on_card(card):
+@pytest.mark.parametrize("D,dtype,broadcast,route", [
+    (32, torch.bfloat16, False, "mma"),  # an aligned bf16 head_dim "wgmma" does not take
+    (256, torch.bfloat16, True, "mma"),  # K/V broadcast over heads: a zero stride TMA cannot walk
+    (96, torch.bfloat16, False, "rows"),  # a head_dim neither tensor-core route takes
+    (256, torch.float32, False, "rows"),
+])
+def test_flash_attention_named_routes_on_card(card, D, dtype, broadcast, route):
+    # the routes "wgmma" does not take, each reached through operands that select it
     rng = np.random.default_rng(3)
-    q = _randn(rng, (1, 10, 150, 256), 0.3).to(card, torch.bfloat16)
-    kv = _randn(rng, (1, 1, 150, 256), 0.3).to(card, torch.bfloat16)
-    kw = dict(causal=True, window=70, bq=None, bk=None)
-    want = flash_attention_ref(q, kv, kv, causal=True, window=70)
+    q = _randn(rng, (1, 10, 150, D), 0.3).to(card, dtype)
+    kv = _randn(rng, (1, 1, 150, D), 0.3).to(card, dtype)
+    if broadcast:
+        kv = kv.expand(1, 2, 150, D)
+        assert kv.stride(1) == 0
+    kw = dict(causal=True, window=70)
+    want = flash_attention_ref(q, kv.contiguous(), kv.contiguous(), **kw)
     before = dict(flash_attention_cuda.launches_by_route)
-    got = {route: flash_attention_cuda(q, kv, kv, route=route, **kw) for route in ("mma", "rows")}
+    got = flash_attention(q, kv, kv, bq=None, bk=None, **kw)
     torch.cuda.synchronize()
-    assert {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()} == {"rows": 1, "mma": 1, "wgmma": 0}
-    for out in got.values():
-        torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
-    with pytest.raises(ValueError, match="route 'wgmma' does not take"):
-        flash_attention_cuda(q.float(), kv.float(), kv.float(), route="wgmma", **kw)
-    assert flash_attention_cuda.launches_by_route == {r: n + (r != "wgmma") for r, n in before.items()}
+    assert {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()} == {
+        r: int(r == route) for r in before
+    }
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("B,S,D", [
@@ -250,15 +259,13 @@ def test_rglru_scan_chunked_route_on_card(card, B, S, D):
     b = (0.1 * _randn(rng, (B, S, D))).to(card)
     h0 = _randn(rng, (B, D)).to(card)
     want = rglru_scan_ref(log_a, b, h0)
-    before = dict(rglru_scan_cuda.launches_by_route)
+    before = rglru_scan_cuda.launches
     got = rglru_scan(log_a, b, h0, bs=None, bd=None)
     again = rglru_scan(log_a, b, h0, bs=None, bd=None)
-    serial = rglru_scan_cuda(log_a, b, h0, bs=None, bd=None, route="serial")
     torch.cuda.synchronize()
-    assert {r: n - before[r] for r, n in rglru_scan_cuda.launches_by_route.items()} == {"chunked": 2, "serial": 1}
+    assert rglru_scan_cuda.launches == before + 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(serial, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("B,S,D", [(2, 4096, 256), (1, 4096, 2560)])
@@ -270,11 +277,11 @@ def test_rglru_scan_carries_decays_near_one_on_card(card, B, S, D):
     b = (0.1 * _randn(rng, (B, S, D))).to(card)
     h0 = _randn(rng, (B, D)).to(card)
     want = rglru_scan_ref(log_a, b, h0)
-    before = dict(rglru_scan_cuda.launches_by_route)
+    before = rglru_scan_cuda.launches
     got = rglru_scan(log_a, b, h0, bs=None, bd=None)
     again = rglru_scan(log_a, b, h0, bs=None, bd=None)
     torch.cuda.synchronize()
-    assert {r: n - before[r] for r, n in rglru_scan_cuda.launches_by_route.items()} == {"chunked": 2, "serial": 0}
+    assert rglru_scan_cuda.launches == before + 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     t = chunk_steps() * (S // chunk_steps() // 2)  # the check's power: a carry lost mid-sequence fails it
