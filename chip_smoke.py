@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs seven phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs nine phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -70,10 +70,40 @@ the first fault:
                       (plain versions) on the card (kernels).  Times come
                       from CUDA events around ``generate``: prefill is one
                       of a single token, a decode step the rest of one of 32
-                      tokens over 31.
+                      tokens over 31;
+  8. ``paper``      — the paper's six tables (``repro_torch.launch.
+                      paper_tables``: Tables 2-5, Figs. 6 and 10), each at
+                      the smallest size it lists, with every bank on the
+                      card (``backend="torch"``), each CSV equal character
+                      for character to the numpy backend's on the host in
+                      the same run; the wall seconds of each on both (the
+                      CSVs' own seconds are simulated seconds of the paper's
+                      clusters, not times of the card).  The whole tables
+                      come from ``python -m repro_torch.launch.paper_tables
+                      --device cuda``;
+  9. ``grid``       — the 2-D grid partitioner: (a) ``partition_grid`` on
+                      the HCL 4x4 grid at M = N = 512 under GRID2D, CPM and
+                      FFMPA, bank on the card, bit-identical to numpy on the
+                      host; (b) ``repartition_grid`` of q = 16 columns of
+                      p = 4096 random monotone estimates (8 knots) as one
+                      stacked device bank, no column differing from numpy,
+                      timed cold and warm beside numpy; (c) the paper's 2-D
+                      application (``repro_torch.launch.matmul_grid``): a
+                      2 x 4 grid of processors sharing the card, processor
+                      (i, j) running ``matmul_update`` on its (r*128) x
+                      (w*128) x 4096 bf16 block r_ij times (r = [[1, 2, 3,
+                      4], [4, 3, 2, 1]]), timed by CUDA events, balanced by
+                      ``partition_grid`` (GRID2D, eps 0.1, M = N = 128 units
+                      of 128).  It must converge, launch the kernel exactly
+                      as often as the speed functions' evaluations times
+                      their repeats, every launch on ``"wgmma"``, and the
+                      final partition, measured again five times, must have
+                      median imbalance <= 2*eps; the CPM partition's
+                      measured makespan is printed beside it.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
-the kernels that have routes), the card's name and power limit
+the kernels that have routes, and ``matmul_update``'s by phase, ``dfpa``
+and ``grid``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -99,6 +129,7 @@ from repro_torch.core import (  # noqa: E402
     CallableExecutor,
     ModelBank,
     PiecewiseLinearFPM,
+    Policy,
     Scheduler,
     SimulatedExecutor,
     SpeedStore,
@@ -122,6 +153,8 @@ from repro_torch.kernels.matmul_update import (  # noqa: E402
 )
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda  # noqa: E402
+from repro_torch.launch import paper_tables  # noqa: E402
+from repro_torch.launch.matmul_grid import GRID_EPS, GRID_UNITS, MatmulGrid  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     LanguageModel,
     apply_lm,
@@ -197,6 +230,9 @@ SERVE_ARCH = "recurrentgemma-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
 SERVE_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18}  # one per local / rec layer
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 2, 24, 8
+
+# the stacked repartition: q columns of p rows of random monotone estimates
+REPART_Q, REPART_P, REPART_KNOTS = 16, 4096, 8
 
 
 def emit(obj) -> None:
@@ -979,12 +1015,164 @@ def phase_serve() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+
+
+def phase_paper() -> None:
+    """The paper's six tables, each at the smallest size it lists, with
+    every bank on the card, against the numpy backend on the host, CSV for
+    CSV."""
+    for name, fn in paper_tables.TABLES.items():
+        sizes = [min(paper_tables.SIZES[name])]
+        t0 = time.perf_counter()
+        host = fn(backend="numpy", device="cpu", sizes=sizes)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(backend="torch", device="cuda", sizes=sizes)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        emit({
+            "phase": "paper", "table": name, "sizes": sizes, "csv_equal": card == host,
+            "rows": card.count("\n") - 1, "card_wall_s": card_s, "host_numpy_wall_s": host_s,
+            "csv_seconds": "simulated seconds of the paper's clusters, not times of the card",
+        })
+        if card != host:
+            print(card, host, sep="\n", flush=True)
+            raise SystemExit(f"chip_smoke: {name} on the card differs from the numpy backend's")
+
+
+def _same_grid_partition(got, want) -> bool:
+    return (
+        got.col_widths == want.col_widths and got.row_heights == want.row_heights
+        and got.times == want.times and got.iterations == want.iterations
+        and got.imbalance == want.imbalance and got.converged == want.converged
+        and all(got.diagnostics[k] == want.diagnostics[k] for k in ("total_rounds", "bench_cost", "times"))
+    )
+
+
+def _grid_parity() -> None:
+    """(a) partition_grid on the HCL 4x4 grid at M = N = 512, bank on the
+    card against numpy on the host, for the three policies."""
+    for policy, kw in (("GRID2D", dict(eps=0.1)), ("CPM", {}), ("FFMPA", dict(eps=0.1, max_outer=50))):
+        walls = {}
+        parts = {}
+        for backend, device in (("numpy", "cpu"), ("torch", "cuda")):
+            sched = Scheduler(grid=paper_tables.hcl_grid(4, 4), policy=getattr(Policy, policy),
+                              backend=backend, device=device)
+            t0 = time.perf_counter()
+            parts[backend] = sched.partition_grid(512, 512, **kw)
+            walls[backend] = time.perf_counter() - t0
+        same = _same_grid_partition(parts["torch"], parts["numpy"])
+        emit({
+            "phase": "grid", "part": "a", "policy": policy, "M": 512, "N": 512, "bit_identical": same,
+            "outer_iterations": parts["torch"].iterations, "converged": parts["torch"].converged,
+            "total_rounds": parts["torch"].diagnostics["total_rounds"],
+            "card_wall_s": walls["torch"], "host_numpy_wall_s": walls["numpy"],
+        })
+        if not same:
+            raise SystemExit(f"chip_smoke: partition_grid ({policy}) on the card differs from numpy")
+
+
+def _grid_repartition(smi: str) -> None:
+    """(b) repartition_grid of q columns of p rows of random monotone
+    estimates: one stacked [q, p, k] device bank against numpy."""
+    rng = np.random.default_rng(16)
+    q, p, k = REPART_Q, REPART_P, REPART_KNOTS
+    M = 100 * p
+    widths = [int(w) for w in rng.integers(64, 256, q)]
+    fpms = [[None] * q for _ in range(p)]
+    fpm_width = [[None] * q for _ in range(p)]
+    for i in range(p):
+        for j in range(q):
+            xs = np.sort(rng.uniform(1.0, 4.0 * M / p, k))
+            ss = xs / np.sort(rng.uniform(0.1, 50.0, k))  # ordered knot times: monotone
+            fpms[i][j] = PiecewiseLinearFPM.from_points(list(zip(xs.tolist(), ss.tolist())))
+            fpm_width[i][j] = int(rng.integers(widths[j] // 2, 2 * widths[j]))
+    t0 = time.perf_counter()
+    want = Scheduler(policy=Policy.GRID2D, backend="numpy").repartition_grid(fpms, fpm_width, widths, M)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    sched = Scheduler(policy=Policy.GRID2D, backend="torch", device="cuda")
+    card_ms, got = [], None
+    for _ in range(2):  # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sched.repartition_grid(fpms, fpm_width, widths, M)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    diverged = sum(a != b for a, b in zip(got, want))
+    emit({
+        "phase": "grid", "part": "b", "q": q, "p": p, "knots": k, "M": M,
+        "divergent_columns": diverged, "card_ms_cold_warm": card_ms, "host_numpy_ms": host_ms,
+        "card": smi,
+    })
+    if diverged or any(sum(r) != M for r in got):
+        raise SystemExit("chip_smoke: repartition_grid on the card differs from numpy")
+
+
+def _grid_application() -> tuple:
+    """(c) partition_grid (GRID2D) balancing matmul_update blocks on the card."""
+    app = MatmulGrid()
+    app.run(0, 0, 1, 1)  # first use of the kernel, before the counts
+    torch.cuda.synchronize()
+    app.reset_counts()
+    sched = Scheduler(grid=app.grid(), policy=Policy.GRID2D, backend="torch", device="cuda")
+    matmul_update_cuda.launches = 0
+    matmul_update_cuda.launches_by_route = dict.fromkeys(matmul_update_cuda.launches_by_route, 0)
+    t0 = time.perf_counter()
+    part = sched.partition_grid(GRID_UNITS, GRID_UNITS, eps=GRID_EPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = matmul_update_cuda.launches
+    routes = dict(matmul_update_cuda.launches_by_route)
+    evals, expected, eval_s = app.evals, app.expected, app.eval_s
+
+    remeasured = [app.measure(part) for _ in range(5)]
+    remeasured_imb = [imbalance(t) for t in remeasured]
+    median_imb = float(np.median(remeasured_imb))
+    cpm = Scheduler(grid=app.grid(), policy=Policy.CPM, backend="torch", device="cuda").partition_grid(
+        GRID_UNITS, GRID_UNITS
+    )
+    makespan = {
+        name: float(np.median([max(app.measure(pt)) for _ in range(5)])) * 1e3
+        for name, pt in (("grid2d", part), ("cpm", cpm))
+    }
+    out = {
+        "phase": "grid", "part": "c", "repeats": app.repeats, "unit": app.unit, "M_units": GRID_UNITS,
+        "N_units": GRID_UNITS, "K": app.K, "blocks": app.blocks, "dtype": "bfloat16", "eps": GRID_EPS,
+        "converged": part.converged, "final_imbalance": part.imbalance, "outer_iterations": part.iterations,
+        "rounds": part.diagnostics["total_rounds"], "col_widths": part.col_widths,
+        "row_heights": part.row_heights, "wall_s": wall_s,
+        "speed_fn_evaluations": evals, "speed_fn_s": eval_s, "scheduling_s": wall_s - eval_s,
+        "launches": launches, "launches_by_route": routes, "expected_launches": expected,
+        "final_remeasured_imbalance": remeasured_imb, "final_remeasured_imbalance_median": median_imb,
+        "cpm_col_widths": cpm.col_widths, "cpm_row_heights": cpm.row_heights,
+        "makespan_ms_median5": makespan,
+    }
+    emit(out)
+    if not part.converged:
+        raise SystemExit("chip_smoke: the 2-D grid partitioner did not converge on the card")
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: {launches} kernel launches, the speed functions account for {expected}")
+    if routes != {"tile": 0, "wgmma": launches}:
+        raise SystemExit(f"chip_smoke: the grid's blocks launched {routes}, not every one on 'wgmma'")
+    if median_imb > 2 * GRID_EPS:
+        raise SystemExit(f"chip_smoke: the final grid partition re-measures at imbalance {median_imb}")
+    return launches, routes
+
+
+def phase_grid(smi: str) -> tuple:
+    _grid_parity()
+    _grid_repartition(smi)
+    return _grid_application()
+
+
 def main() -> int:
     seconds = {}
 
-    def run(name, fn):
+    def run(name, fn, *args):
         t0 = time.perf_counter()
-        result = fn()
+        result = fn(*args)
         seconds[name] = time.perf_counter() - t0
         emit({"phase": name, "seconds": seconds[name]})
         return result
@@ -996,8 +1184,13 @@ def main() -> int:
     run("hcl_golden", phase_hcl_golden)
     dfpa_launches, dfpa_routes = run("dfpa", phase_dfpa)
     serve = run("serve", phase_serve)
-    launches = {"matmul_update": dfpa_launches, **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
-    routes = {"matmul_update": dfpa_routes, **serve["launches_by_route"]}
+    run("paper", phase_paper)
+    grid_launches, grid_routes = run("grid", phase_grid, smi)
+    launches = {"matmul_update": dfpa_launches + grid_launches, **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
+    routes = {
+        "matmul_update": {r: dfpa_routes[r] + grid_routes[r] for r in dfpa_routes},
+        **serve["launches_by_route"],
+    }
     sources = {
         "matmul_update": "src/repro/kernels/matmul_update.py:49",
         "flash_attention": "src/repro/kernels/flash_attention.py:93",
@@ -1010,6 +1203,7 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"], "dtype": row["dtype"],
         **({"launches_by_route": routes[name], "kernel_route": row["route"]} if name in routes else {}),
+        **({"launches_by_phase": {"dfpa": dfpa_launches, "grid": grid_launches}} if name == "matmul_update" else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -11,13 +11,16 @@ Three model representations back the partitioners, as in the reference:
   the integer completion and the observation fold-in run.
 
 The entry point is the ``Scheduler`` facade (``scheduler.py``) over a
-``SpeedStore`` (``speedstore.py``), backend and device resolved once.
-``convert.py`` carries the reference package's banks and checkpoints over.
+``SpeedStore`` (``speedstore.py``), backend and device resolved once; it
+also carries the nested 2-D grid partitioner (``partition2d.py`` holds its
+helpers).  ``convert.py`` carries the reference package's banks and
+checkpoints over.
 """
 
 from .convert import bank_from_arrays
 from .executor import (
     BatchedSimulatedExecutor,
+    BatchedSimulatedExecutor2D,
     CallableExecutor,
     Executor,
     RoundLog,
@@ -27,26 +30,35 @@ from .fpm import AnalyticModel, ConstantModel, PiecewiseLinearFPM, SpeedModel, i
 from .modelbank import ModelBank
 from .modelbank_torch import TorchModelBank, fetch_partition
 from .partition import cpm_partition, partition_continuous, partition_units
+from .partition2d import Grid2DResult, app_time_2d
 from .scheduler import Partition, Policy, Scheduler
 from .simulator import (
     HCL_SPECS,
     NodeSpec,
+    full_model_build_cost,
+    make_grid5000_specs,
+    make_grid5000_time_fns,
     make_hcl_time_fn_batch,
     make_hcl_time_fns,
     matmul_app_time_1d,
     speed_fn_1d,
     speed_fn_1d_batch,
+    speed_fn_2d,
+    speed_fn_2d_batch,
     time_fn_1d,
     time_fn_1d_batch,
+    time_fn_2d_batch,
 )
 from .speedstore import SpeedStore, sample_analytic_points
 
 __all__ = [
     "AnalyticModel",
     "BatchedSimulatedExecutor",
+    "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "ConstantModel",
     "Executor",
+    "Grid2DResult",
     "HCL_SPECS",
     "ModelBank",
     "NodeSpec",
@@ -59,10 +71,14 @@ __all__ = [
     "SpeedModel",
     "SpeedStore",
     "TorchModelBank",
+    "app_time_2d",
     "bank_from_arrays",
     "cpm_partition",
     "fetch_partition",
+    "full_model_build_cost",
     "imbalance",
+    "make_grid5000_specs",
+    "make_grid5000_time_fns",
     "make_hcl_time_fn_batch",
     "make_hcl_time_fns",
     "matmul_app_time_1d",
@@ -71,6 +87,9 @@ __all__ = [
     "sample_analytic_points",
     "speed_fn_1d",
     "speed_fn_1d_batch",
+    "speed_fn_2d",
+    "speed_fn_2d_batch",
     "time_fn_1d",
     "time_fn_1d_batch",
+    "time_fn_2d_batch",
 ]

@@ -10,6 +10,9 @@ once) plus a :class:`Policy`:
     exceeds ``eps``;
   * ``repartition()``                — force a re-partition;
   * ``autotune(executor, n, eps)``   — the paper's DFPA measurement loop;
+  * ``partition_grid(M, N)``         — the nested 2-D partitioner of §3.2,
+    policy-selected CPM / FFMPA / DFPA-based, and ``repartition_grid``, its
+    no-benchmark refresh of every column as one stacked ``[q, p, k]`` bank;
   * ``state_dict()`` / ``from_state()`` — config, estimates, EMA state and
     the current distribution round-trip, so a restored scheduler produces
     bit-identical next rounds.  ``from_state`` also reads the reference
@@ -21,10 +24,13 @@ construction.  ``backend="numpy"`` / ``"scalar"`` keep their host meaning
 (the parity references), and ``device="cpu"`` runs the torch bank on the
 host.
 
-Later slices of the port bring the 2-D grid partitioner (``grid=``,
-``Policy.GRID2D``), the two-level path (``groups=``, ``Policy.HIER``),
-energy objectives, straggler handling and elastic membership; asking for
-them raises ``NotImplementedError``.
+The reference runs the grid's per-column inner DFPA loops through its
+multi-tenant fleet scheduler, whose results are bit-identical to sequential
+child ``Scheduler`` loops; the port runs them as those sequential loops
+until its fleet slice lands.  Later slices of the port bring the two-level
+path (``groups=``, ``Policy.HIER``), energy objectives, straggler handling
+and elastic membership; asking for the two-level path raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .executor import Executor
-from .fpm import PiecewiseLinearFPM, imbalance
-from .modelbank_torch import resolve_device
+from .executor import BatchedSimulatedExecutor2D, Executor
+from .fpm import AnalyticModel, PiecewiseLinearFPM, imbalance
+from .modelbank import ModelBank
+from .modelbank_torch import TorchModelBank, resolve_device
+from .partition2d import _col_times, _flat_imbalance, _rebalance_widths
 from .speedstore import BACKENDS, SpeedStore
 
 __all__ = ["Policy", "Partition", "Scheduler"]
@@ -49,7 +57,8 @@ class Policy(Enum):
     * ``CPM``    — constant performance models (the conventional baseline);
     * ``FFMPA``  — pre-built full functional models (partition once);
     * ``DFPA``   — the paper's algorithm: partial models built online;
-    * ``GRID2D`` — the nested 2-D partitioner (a later slice of the port);
+    * ``GRID2D`` — the nested 2-D DFPA partitioner of §3.2 (requires
+      ``grid=``);
     * ``HIER``   — the two-level path (a later slice of the port).
     """
 
@@ -62,11 +71,16 @@ class Policy(Enum):
 
 @dataclass
 class Partition:
-    """One partitioning outcome — the single result type of the facade;
-    ``allocations[i]`` is processor ``i``'s unit count."""
+    """One partitioning outcome — the single result type of the facade.
+
+    For 1-D partitions ``allocations[i]`` is processor ``i``'s unit count.
+    For grid partitions ``col_widths``/``row_heights`` are authoritative and
+    ``allocations`` flattens the row heights column-major
+    (``[rows[j][i] for j for i]``).
+    """
 
     allocations: List[int]
-    t_star: Optional[float]  # continuous equal-time point (None for loop results)
+    t_star: Optional[float]  # continuous equal-time point (None for grid/loop results)
     makespan: Optional[float]  # estimated (or measured) slowest-processor time
     imbalance: float  # max |t_i - t_j| / t_i over working processors
     converged: bool
@@ -74,6 +88,8 @@ class Partition:
     policy: Policy
     backend: str
     times: Optional[List[float]] = None  # per-processor times backing the metrics
+    col_widths: Optional[List[int]] = None  # grid only
+    row_heights: Optional[List[List[int]]] = None  # grid only
     diagnostics: Dict[str, Any] = field(default_factory=dict)
 
     @property
@@ -131,6 +147,7 @@ class Scheduler:
         caps: Optional[Sequence[int]] = None,
         smooth: float = 0.5,
         backend: str = "torch",
+        analytic_tol: Optional[float] = None,
         completion: str = "auto",
         groups: Optional[Sequence[int]] = None,
         device="cuda",
@@ -140,25 +157,22 @@ class Scheduler:
             raise ValueError(f"unknown backend {backend!r}")
         if completion not in ("auto", "threshold", "greedy"):
             raise ValueError(f"unknown completion mode {completion!r}")
-        if grid is not None or policy is Policy.GRID2D:
-            raise NotImplementedError(
-                "the 2-D grid partitioner comes with the grid slice of the port "
-                "(core/partition2d.py)"
-            )
         if groups is not None or policy is Policy.HIER:
             raise NotImplementedError(
                 "groups= / Policy.HIER come with the hierarchy slice of the port "
-                "(core/hierarchy.py)"
+                "(queue 1 item 4, core/hierarchy.py)"
             )
         # "auto" = threshold count on monotone banks on the device bank, the
         # exact per-unit greedy otherwise (always on the numpy host path).
         self.completion = completion
         self.policy = policy
+        self.grid = grid
         self.eps = float(eps)
         self.min_units = int(min_units)
         self.caps = list(caps) if caps is not None else None
         self.smooth = float(smooth)
         self.n_units = int(n_units) if n_units is not None else None
+        self.analytic_tol = analytic_tol
         self._backend = backend
         on_card = (store.backend if store is not None else backend) == "torch"
         self._device = resolve_device(device) if on_card else device
@@ -256,7 +270,14 @@ class Scheduler:
     ) -> Partition:
         """Compute one optimal distribution from the current models and make
         it the scheduler's current distribution ``d``.  Per-call ``caps``
-        apply to this call only unless ``persist_caps=True``."""
+        apply to this call only unless ``persist_caps=True``.
+
+        In grid mode pass ``n=(M, N)`` (or call :meth:`partition_grid`).
+        """
+        if self.grid is not None:
+            if isinstance(n, (tuple, list)) and len(n) == 2:
+                return self.partition_grid(int(n[0]), int(n[1]), eps=eps)
+            raise ValueError("grid scheduler: pass n=(M, N) or call partition_grid()")
         if n is None:
             n = self.n_units
         if n is None:
@@ -473,6 +494,340 @@ class Scheduler:
             d = d_new
             times = measure(d)
             it += 1
+
+    # -- nested 2-D partitioning (paper §3.2) ---------------------------------
+
+    def partition_grid(
+        self,
+        M: int,
+        N: int,
+        *,
+        eps: Optional[float] = None,
+        max_outer: int = 40,
+        inner_max_iter: int = 15,
+        width_tol: float = 0.02,
+        min_units: int = 1,
+    ) -> Partition:
+        """Partition an ``M x N`` block matrix over the ``p x q`` grid of
+        speed functions the scheduler was constructed with, by the policy:
+
+          * ``GRID2D`` / ``DFPA`` — the paper's nested algorithm: per-column
+            DFPA row partitions (online partial models), outer column-width
+            rebalancing, with all of §3.2's cost optimizations;
+          * ``FFMPA`` — full models given, zero benchmark cost (with
+            ``analytic_tol`` the analytic models are sample-and-banked onto
+            the session's bank backend);
+          * ``CPM``   — one benchmark round, proportional split.
+
+        ``grid[i][j](m_b, n_b)`` is processor ``(i, j)``'s speed in units/s
+        for an ``m_b x n_b`` block: a simulator's ground truth, or a
+        callable that runs and times the block (each call is then one
+        measurement).
+        """
+        if self.grid is None:
+            raise ValueError("no grid: construct Scheduler(grid=...) first")
+        eps = float(eps if eps is not None else self.eps)
+        if self.policy in (Policy.GRID2D, Policy.DFPA):
+            return self._grid_dfpa(
+                M, N, eps, max_outer=max_outer, inner_max_iter=inner_max_iter,
+                width_tol=width_tol, min_units=min_units,
+            )
+        if self.policy is Policy.FFMPA:
+            return self._grid_ffmpa(M, N, eps, max_outer=max_outer)
+        if self.policy is Policy.CPM:
+            return self._grid_cpm(M, N)
+        raise ValueError(f"policy {self.policy} cannot partition a grid")
+
+    def _grid_result(
+        self, widths, rows, outer, total_rounds, bench_cost, converged, imb, times
+    ) -> Partition:
+        flat = [int(r) for col in rows for r in col]
+        flat_t = [t for col in times for t in col]
+        pos = [t for t in flat_t if t > 0]
+        return Partition(
+            allocations=flat,
+            t_star=None,
+            makespan=max(pos) if pos else None,
+            imbalance=imb,
+            converged=converged,
+            iterations=outer,
+            policy=self.policy,
+            backend=self.backend,
+            times=flat_t,
+            col_widths=list(widths),
+            row_heights=[list(r) for r in rows],
+            diagnostics={"total_rounds": total_rounds, "bench_cost": bench_cost,
+                         "times": [list(t) for t in times]},
+        )
+
+    def _bank_backend(self) -> str:
+        """The bank backend of the CPM and banked-FFMPA column stores: the
+        session's device bank on ``"torch"``, the host bank otherwise."""
+        return "torch" if self._backend == "torch" else "numpy"
+
+    def _grid_column(self, j, w, M, eps, warm, warm_rows, *, inner_max_iter, min_units):
+        """One column's inner DFPA loop: a child ``Scheduler.autotune`` over
+        the column's rows at width ``w``, measured through a one-job
+        :class:`BatchedSimulatedExecutor2D`.  Its rounds' costs
+        ``max(times) + alpha + beta * p``, added one by one in round order,
+        are the column's benchmark cost (not ``sum()``, whose compensated
+        float summation rounds differently)."""
+        grid = self.grid
+        p = len(grid)
+
+        def col_time(X):
+            T = np.zeros_like(X)
+            for i in range(p):
+                r = X[0, i]
+                T[0, i] = (r * w) / grid[i][j](float(r), float(w)) if r > 0 else 0.0
+            return T
+
+        ex = BatchedSimulatedExecutor2D(time_fn_batch_2d=col_time, p=p, q=1)
+        models = (
+            [
+                PiecewiseLinearFPM.from_points(m.as_points())
+                if getattr(m, "num_points", 0) > 0
+                else PiecewiseLinearFPM()
+                for m in warm
+            ]
+            if warm is not None
+            else [PiecewiseLinearFPM() for _ in range(p)]
+        )
+        store = SpeedStore.from_models(
+            models, backend=self._backend, dtype=self.dtype, device=self._device
+        )
+        child = Scheduler(
+            store, policy=Policy.DFPA, backend=self._backend, completion=self.completion,
+            device=self._device, dtype=self.dtype,
+        )
+        res = child.autotune(
+            ex, M, eps, max_iter=inner_max_iter, min_units=min_units,
+            warm_start_d=warm_rows,
+            # Probe fixed points only on the COLD first partition of a
+            # column; warm refinements rely on the outer width update for
+            # fresh information (unbounded probing churns rounds).
+            probe_budget=p if warm is None else 0,
+        )
+        cost = 0.0
+        for log in ex.logs:
+            cost += log.wall_cost
+        return res, cost
+
+    def _grid_dfpa(
+        self, M, N, eps, *, max_outer, inner_max_iter, width_tol, min_units
+    ) -> Partition:
+        grid = self.grid
+        p, q = len(grid), len(grid[0])
+        widths = [N // q + (1 if j < N % q else 0) for j in range(q)]
+        rows: List[Optional[List[int]]] = [None] * q  # warm-start rows per column
+        # FPM estimates per (i, j), in ROW units at the width they were
+        # observed; reused across widths by rescaling rows/s by (old_w/new_w).
+        fpms: List[List[PiecewiseLinearFPM]] = [
+            [PiecewiseLinearFPM() for _ in range(q)] for _ in range(p)
+        ]
+        fpm_width: List[List[Optional[int]]] = [[None] * q for _ in range(p)]
+
+        total_rounds = 0
+        bench_cost = 0.0
+        times: List[List[float]] = [[0.0] * p for _ in range(q)]
+        prev_widths: Optional[List[int]] = None
+        best: Optional[Partition] = None
+
+        for outer in range(1, max_outer + 1):
+            col_round_costs = [0.0] * q
+            for j in range(q):
+                if (
+                    prev_widths is not None
+                    and rows[j] is not None
+                    and widths[j] == prev_widths[j]
+                ):
+                    # Paper's optimization: width unchanged -> keep the
+                    # column's partition; no re-benchmark needed.
+                    times[j] = _col_times(grid, j, widths, rows[j])
+                    continue
+                w = widths[j]
+                # Rescale surviving FPM points to the new width (g ~ const
+                # in w): one batched speed-scale over the column's bank.
+                warm = None
+                if all(
+                    fpm_width[i][j] is not None and fpms[i][j].num_points > 0
+                    for i in range(p)
+                ):
+                    col_bank = ModelBank.from_models([fpms[i][j] for i in range(p)])
+                    scale = [fpm_width[i][j] / w for i in range(p)]
+                    warm = col_bank.scaled(scale).to_models()
+                res, cost = self._grid_column(
+                    j, w, M, eps, warm, rows[j],
+                    inner_max_iter=inner_max_iter, min_units=min_units,
+                )
+                rows[j] = list(res.allocations)
+                times[j] = list(res.times)
+                col_models = res.diagnostics["models"]
+                for i in range(p):
+                    fpms[i][j] = col_models[i]
+                    fpm_width[i][j] = widths[j]
+                total_rounds += res.iterations
+                col_round_costs[j] = cost
+            # Columns run their inner DFPA in parallel -> cost = slowest col.
+            bench_cost += max(col_round_costs) if col_round_costs else 0.0
+
+            imb = _flat_imbalance(times)
+            snap = self._grid_result(
+                widths, rows, outer, total_rounds, bench_cost, imb <= eps, imb, times
+            )
+            if best is None or imb < best.imbalance:
+                best = snap
+            if imb <= eps:
+                return snap
+
+            # Outer step (ii): columns' widths ∝ column speed sums (damped).
+            # Paper's freeze optimization: revert sub-tolerance width changes
+            # (skipping their columns' re-benchmark next round) and hand the
+            # residual to the columns that did move.
+            prev_widths = list(widths)
+            widths = _rebalance_widths(widths, times, rows, N)
+            moved = [
+                j for j in range(q)
+                if abs(widths[j] - prev_widths[j]) > width_tol * prev_widths[j]
+            ]
+            if moved and len(moved) < q:
+                for j in range(q):
+                    if j not in moved:
+                        widths[j] = prev_widths[j]
+                diff = N - sum(widths)
+                k = 0
+                while diff != 0:
+                    j = moved[k % len(moved)]
+                    step = 1 if diff > 0 else -1
+                    if widths[j] + step >= 1:
+                        widths[j] += step
+                        diff -= step
+                    k += 1
+            elif not moved:
+                widths = list(prev_widths)
+
+        return self._grid_result(
+            best.col_widths, best.row_heights, max_outer, total_rounds,
+            bench_cost, best.converged, best.imbalance, best.diagnostics["times"],
+        )
+
+    def _grid_cpm(self, M, N) -> Partition:
+        """The conventional baseline: ONE benchmark round at the even
+        distribution gives each processor a speed constant; rows/columns
+        split proportionally.  ``diagnostics["bench_cost"]`` carries the
+        single round's cost."""
+        grid = self.grid
+        p, q = len(grid), len(grid[0])
+        w0, r0 = N // q, M // p
+        speeds = [[grid[i][j](float(r0), float(w0)) for j in range(q)] for i in range(p)]
+        bench_cost = max(
+            (r0 * w0) / speeds[i][j] for i in range(p) for j in range(q)
+        )
+        col_speed = [sum(speeds[i][j] for i in range(p)) for j in range(q)]
+        kw = dict(backend=self._bank_backend(), device=self._device)
+        widths = SpeedStore.from_speeds(col_speed, **kw).partition_units(N)
+        rows = [
+            SpeedStore.from_speeds([speeds[i][j] for i in range(p)], **kw).partition_units(M)
+            for j in range(q)
+        ]
+        times = [_col_times(grid, j, widths, rows[j]) for j in range(q)]
+        return self._grid_result(
+            widths, rows, 1, 1, bench_cost, True, _flat_imbalance(times), times
+        )
+
+    def _grid_ffmpa(self, M, N, eps, *, max_outer) -> Partition:
+        """FFMPA baseline [18]: the FULL models are given (pre-built), so the
+        nested iteration runs entirely without benchmarks.  Rows are
+        partitioned directly in ROW units.  With ``analytic_tol`` set the
+        analytic models are sample-and-banked so this baseline rides the
+        session's bank backend; the default keeps the scalar path."""
+        grid = self.grid
+        p, q = len(grid), len(grid[0])
+        widths = [N // q + (1 if j < N % q else 0) for j in range(q)]
+        rows: List[List[int]] = [[M // p] * p for _ in range(q)]
+        times: List[List[float]] = [[0.0] * p for _ in range(q)]
+        best: Optional[Partition] = None
+        banked = self.analytic_tol is not None
+        for outer in range(1, max_outer + 1):
+            for j in range(q):
+                w = widths[j]
+                models = [
+                    AnalyticModel(
+                        (lambda i_: lambda r: (r * w) / grid[i_][j](float(r), float(w)) if r > 0 else 0.0)(i)
+                    )
+                    for i in range(p)
+                ]
+                col_store = SpeedStore.from_models(
+                    models,
+                    backend=self._bank_backend() if banked else "auto",
+                    analytic_tol=self.analytic_tol,
+                    analytic_hi=float(M) if banked else None,
+                    dtype=self.dtype,
+                    device=self._device,
+                )
+                rows[j] = col_store.partition_units(
+                    M, min_units=1, completion=self._completion_for(col_store)
+                )
+                times[j] = _col_times(grid, j, widths, rows[j])
+            imb = _flat_imbalance(times)
+            if best is None or imb < best.imbalance:
+                best = self._grid_result(
+                    widths, rows, outer, 0, 0.0, imb <= eps, imb, times
+                )
+            if imb <= eps:
+                return best
+            new_widths = _rebalance_widths(widths, times, rows, N)
+            if new_widths == widths:
+                return best
+            widths = new_widths
+        return best
+
+    def repartition_grid(
+        self,
+        fpms: Sequence[Sequence[PiecewiseLinearFPM]],
+        fpm_width: Sequence[Sequence[Optional[int]]],
+        widths: Sequence[int],
+        M: int,
+        *,
+        min_units: int = 1,
+    ) -> List[List[int]]:
+        """Re-partition EVERY column's rows from surviving FPM estimates in
+        one call — no new benchmarks (the refresh used when widths move but
+        no fresh benchmarks are wanted).
+
+        ``fpms[i][j]`` / ``fpm_width[i][j]`` are the per-(row, column)
+        estimates and the widths they were observed at; each column's bank is
+        rescaled to its current width and, on the torch backend, all ``q``
+        banks are stacked into one ``[q, p, k]`` device bank whose ``t*``
+        bisections and completions run together.  Returns ``rows[j][i]``.
+        """
+        p, q = len(fpms), len(widths)
+        for i in range(p):
+            for j in range(q):
+                if fpm_width[i][j] is None or fpms[i][j].num_points == 0:
+                    raise ValueError(f"no FPM estimate for processor ({i}, {j})")
+        col_banks = []
+        for j in range(q):
+            bank = ModelBank.from_models([fpms[i][j] for i in range(p)])
+            scale = [fpm_width[i][j] / widths[j] for i in range(p)]
+            col_banks.append(bank.scaled(scale))
+        if self._backend == "torch":
+            stacked = TorchModelBank.stack(
+                [TorchModelBank.from_bank(b, device=self._device, dtype=self.dtype) for b in col_banks]
+            )
+            d = stacked.partition_units(
+                M, min_units=min_units, completion=self.completion
+            )
+            return [[int(v) for v in row] for row in d]
+        rows = []
+        for b in col_banks:
+            store = SpeedStore.from_bank(b)
+            rows.append(
+                store.partition_units(
+                    M, min_units=min_units, completion=self._completion_for(store)
+                )
+            )
+        return rows
 
     # -- persistence ----------------------------------------------------------
 

@@ -18,8 +18,8 @@ cluster (§3.1: {658, 667, ..., 695} for n_b=20, n=2048; 1 unit = 1 add + 1 mul
 paper's *phenomena* (iteration counts, cost ratios, paging-borderline
 convergence); absolute seconds are the same order as the paper's tables.
 
-This slice of the port carries the 1-D functions and the HCL cluster; the
-2-D, Grid'5000 and device-group functions come with later slices.
+The device-group time functions (``make_tpu_group_time_fns``) come with
+the hierarchy slice of the port.
 """
 
 from __future__ import annotations
@@ -33,10 +33,16 @@ __all__ = [
     "time_fn_1d",
     "speed_fn_1d_batch",
     "time_fn_1d_batch",
+    "speed_fn_2d",
+    "speed_fn_2d_batch",
+    "time_fn_2d_batch",
     "HCL_SPECS",
     "make_hcl_time_fns",
     "make_hcl_time_fn_batch",
+    "make_grid5000_specs",
+    "make_grid5000_time_fns",
     "matmul_app_time_1d",
+    "full_model_build_cost",
 ]
 
 MB = 1 << 20
@@ -149,6 +155,100 @@ def time_fn_1d_batch(specs: Sequence[NodeSpec], n: int) -> Callable[["object"], 
     return t
 
 
+def speed_fn_2d(spec: NodeSpec, b: int = 32) -> Callable[[float, float], float]:
+    """2-D kernel speed g(m_b, n_b) [units/s], unit = b x b block mult-add.
+
+    Footprint ~ 8*b^2*(m_b*n_b + m_b + n_b); mild anisotropy makes the speed
+    depend on the aspect ratio (the paper's Fig. 5(b) relative-speed surface).
+    """
+    flops_per_unit = 2.0 * b * b * b  # one b x b block multiply-accumulate
+    s_units = spec.s_mem * 2.0 / flops_per_unit * (b * b)  # rescale: keep
+    # plateau speed comparable in "block units"/s given s_mem in scalar units/s.
+    avail = spec.ram_bytes - spec.os_bytes
+    units_page = max(avail / (24.0 * b * b), 1.0)
+    units_ref = spec.ram_bytes / (24.0 * b * b)
+    x_cache = max(spec.l2_bytes / (24.0 * b * b), 1.0)
+
+    def g(mb: float, nb: float) -> float:
+        u = mb * nb
+        if u <= 0:
+            return s_units * spec.cache_boost
+        if u <= x_cache:
+            boost = spec.cache_boost
+        elif u <= 3.0 * x_cache:
+            w = (u - x_cache) / (2.0 * x_cache)
+            boost = spec.cache_boost + w * (1.0 - spec.cache_boost)
+        else:
+            boost = 1.0
+        base = s_units * boost
+        if u > units_page:
+            z = (u - units_page) / units_ref
+            miss = z / (1.0 + z)
+            base = base / (1.0 + (spec.disk_factor - 1.0) * miss)
+        if spec.anisotropy:
+            aspect = nb / (mb + nb)  # in (0, 1)
+            base *= 1.0 + spec.anisotropy * (aspect - 0.5)
+        return base
+
+    return g
+
+
+def speed_fn_2d_batch(
+    specs: Sequence[NodeSpec], b: int = 32
+) -> Callable[["object", "object"], "object"]:
+    """Batched 2-D ground truth: ``g_i(mb_i, nb_i)`` for the WHOLE grid in one
+    vector call — the simulator-side prerequisite of the ``[q, p, k]``
+    stacked-bank partitioner (a ``p x q`` grid flattens to one spec list).
+    Elementwise identical to :func:`speed_fn_2d`.
+    """
+    import numpy as np
+
+    flops_per_unit = 2.0 * b * b * b
+    s_units = np.array([s.s_mem for s in specs]) * 2.0 / flops_per_unit * (b * b)
+    boost0 = np.array([s.cache_boost for s in specs])
+    disk = np.array([s.disk_factor for s in specs])
+    aniso = np.array([s.anisotropy for s in specs])
+    avail = np.array([s.ram_bytes - s.os_bytes for s in specs])
+    units_page = np.maximum(avail / (24.0 * b * b), 1.0)
+    units_ref = np.array([s.ram_bytes for s in specs]) / (24.0 * b * b)
+    x_cache = np.maximum(np.array([s.l2_bytes for s in specs]) / (24.0 * b * b), 1.0)
+
+    def g(mb, nb):
+        mb = np.asarray(mb, dtype=np.float64)
+        nb = np.asarray(nb, dtype=np.float64)
+        u = mb * nb
+        w = np.clip((u - x_cache) / (2.0 * x_cache), 0.0, 1.0)
+        boost = boost0 + w * (1.0 - boost0)
+        base = s_units * boost
+        z = np.maximum(u - units_page, 0.0) / units_ref
+        miss = z / (1.0 + z)
+        base = base / (1.0 + (disk - 1.0) * miss)
+        denom = np.where(mb + nb > 0.0, mb + nb, 1.0)
+        aspect = nb / denom
+        base = np.where(aniso != 0.0, base * (1.0 + aniso * (aspect - 0.5)), base)
+        return np.where(u <= 0.0, s_units * boost0, base)
+
+    return g
+
+
+def time_fn_2d_batch(
+    specs: Sequence[NodeSpec], b: int = 32
+) -> Callable[["object", "object"], "object"]:
+    """Batched ``t_i(mb_i, nb_i) = mb_i * nb_i / g_i(mb_i, nb_i)`` (0 where
+    the block is empty)."""
+    import numpy as np
+
+    g = speed_fn_2d_batch(specs, b)
+
+    def t(mb, nb):
+        mb = np.asarray(mb, dtype=np.float64)
+        nb = np.asarray(nb, dtype=np.float64)
+        u = mb * nb
+        return np.where(u > 0.0, u / g(mb, nb), 0.0)
+
+    return t
+
+
 # --------------------------------------------------------------------------
 # Calibrated clusters
 # --------------------------------------------------------------------------
@@ -190,6 +290,36 @@ def make_hcl_time_fn_batch(
     return specs, time_fn_1d_batch(specs, n)
 
 
+def make_grid5000_specs(seed: int = 5000) -> List[NodeSpec]:
+    """28 nodes, 14 types x 2, heterogeneity ~2.5-2.8, large RAM (no paging
+    for the paper's sizes) — the paper's Grid5000 experiment (Table 4)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    specs: List[NodeSpec] = []
+    # 14 types with plateau speeds spanning ~2.7x.
+    type_speeds = np.geomspace(2.2e8, 6.0e8, 14)
+    type_ram = [4 * GB if i % 3 else 8 * GB for i in range(14)]
+    for ty in range(14):
+        for rep in range(2):
+            jitter = 1.0 + 0.02 * float(rng.standard_normal())
+            specs.append(
+                NodeSpec(
+                    name=f"g5k-{ty:02d}-{rep}",
+                    s_mem=float(type_speeds[ty]) * jitter,
+                    l2_bytes=2 * MB,
+                    ram_bytes=type_ram[ty],
+                    cache_boost=1.4,
+                )
+            )
+    return specs
+
+
+def make_grid5000_time_fns(n: int) -> Tuple[List[NodeSpec], List[Callable[[float], float]]]:
+    specs = make_grid5000_specs()
+    return specs, [time_fn_1d(s, n) for s in specs]
+
+
 # --------------------------------------------------------------------------
 # Application-level cost model (for the benchmark tables)
 # --------------------------------------------------------------------------
@@ -210,3 +340,22 @@ def matmul_app_time_1d(
     """
     per_step = max(tf(float(r * n)) for tf, r in zip(time_fns, d_rows))
     return n * (per_step + step_overhead)
+
+
+def full_model_build_cost(
+    time_fns_by_n: Callable[[int], Sequence[Callable[[float], float]]],
+    n_values: Sequence[int],
+    nb_fracs: Sequence[float],
+) -> float:
+    """Cost of building FULL functional models (the paper's 1850 s):
+
+    every processor runs the kernel over the whole (n_b, n) grid in parallel;
+    rounds are lockstep, so each grid point costs the max time across nodes.
+    """
+    total = 0.0
+    for n in n_values:
+        fns = time_fns_by_n(n)
+        for frac in nb_fracs:
+            nb = max(int(frac * n), 1)
+            total += max(fn(float(nb * n)) for fn in fns)
+    return total

@@ -202,9 +202,10 @@ class SpeedStore:
 
     @staticmethod
     def _initial_carry(models: Sequence[SpeedModel], dtype, device) -> TorchModelBank:
-        """The DFPA device carry: built from the models when any has points,
-        otherwise the empty bank."""
-        if any(getattr(m, "num_points", 0) > 0 for m in models):
+        """The DFPA device carry: built from the models when any has points
+        (a model with no point count, such as a ``ConstantModel``, is always
+        evaluable), otherwise the empty bank."""
+        if any(getattr(m, "num_points", 1) > 0 for m in models):
             return TorchModelBank.from_models(models, device=device, dtype=dtype)
         return TorchModelBank.empty(len(models), device=device, dtype=dtype)
 

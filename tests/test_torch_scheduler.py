@@ -177,8 +177,12 @@ def test_torch_backend_default_device_refuses_without_cuda():
 
 
 def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="grid"):
-        Scheduler(policy=Policy.GRID2D, device="cpu")
+    # the grid slice is ported: Scheduler(grid=...) constructs and partitions
+    grid = [[lambda mb, nb: 1.0 + mb] * 2] * 2
+    sched = Scheduler(grid=grid, policy=Policy.GRID2D, device="cpu")
+    assert sched.grid is grid and sched.policy is Policy.GRID2D
+    part = sched.partition_grid(8, 8, eps=0.5)
+    assert sum(part.col_widths) == 8 and all(sum(r) == 8 for r in part.row_heights)
     with pytest.raises(NotImplementedError, match="hierarchy"):
         Scheduler(groups=[0, 0, 1], device="cpu")
     state = _session(Scheduler, "numpy").state_dict()
