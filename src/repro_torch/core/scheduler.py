@@ -160,7 +160,7 @@ class Scheduler:
         if groups is not None or policy is Policy.HIER:
             raise NotImplementedError(
                 "groups= / Policy.HIER come with the hierarchy slice of the port "
-                "(queue 1 item 4, core/hierarchy.py)"
+                "(core/hierarchy.py)"
             )
         # "auto" = threshold count on monotone banks on the device bank, the
         # exact per-unit greedy otherwise (always on the numpy host path).
@@ -583,16 +583,7 @@ class Scheduler:
             return T
 
         ex = BatchedSimulatedExecutor2D(time_fn_batch_2d=col_time, p=p, q=1)
-        models = (
-            [
-                PiecewiseLinearFPM.from_points(m.as_points())
-                if getattr(m, "num_points", 0) > 0
-                else PiecewiseLinearFPM()
-                for m in warm
-            ]
-            if warm is not None
-            else [PiecewiseLinearFPM() for _ in range(p)]
-        )
+        models = warm if warm is not None else [PiecewiseLinearFPM() for _ in range(p)]
         store = SpeedStore.from_models(
             models, backend=self._backend, dtype=self.dtype, device=self._device
         )

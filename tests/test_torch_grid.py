@@ -153,6 +153,20 @@ def test_partition_grid_matches_reference(policy, n, backend):
     assert app_time_2d(_grid(4, 4), got, K=n) == ref_app_time_2d(_ref_grid(4, 4), want, K=n)
 
 
+@pytest.mark.parametrize("policy", ["GRID2D", "CPM"])
+def test_legacy_grid_result_matches_reference(policy):
+    from repro.core.partition2d import _to_grid2d as ref_to_grid2d
+
+    from repro_torch.core.partition2d import Grid2DResult, _to_grid2d
+
+    want = RefScheduler(grid=_ref_grid(3, 3), policy=getattr(RefPolicy, policy)).partition_grid(192, 192)
+    got = _port(_grid(3, 3), getattr(Policy, policy), "torch").partition_grid(192, 192)
+    legacy = _to_grid2d(got)
+    assert isinstance(legacy, Grid2DResult)
+    assert vars(legacy) == vars(ref_to_grid2d(want))
+    assert app_time_2d(_grid(3, 3), legacy, K=192) == app_time_2d(_grid(3, 3), got, K=192)
+
+
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_banked_ffmpa_matches_reference(backend):
     # analytic_tol: the full models are sample-and-banked onto the bank
