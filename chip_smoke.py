@@ -233,6 +233,7 @@ SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 2, 24, 8
 
 # the stacked repartition: q columns of p rows of random monotone estimates
 REPART_Q, REPART_P, REPART_KNOTS = 16, 4096, 8
+FFMPA_ANALYTIC_TOL = 0.005  # grid (a): FFMPA's analytic models sample-and-banked onto the bank
 
 
 def emit(obj) -> None:
@@ -323,7 +324,7 @@ def _within(got, want, K, dtype) -> tuple:
     return bool((err <= ATOL[dtype] * float(np.sqrt(K)) + 2e-2 * want.abs()).all()), float(err.max())
 
 
-def _check_parity(M, N, K, blocks, dtype, seed=0, planted_fault=False) -> float:
+def _check_parity(M, N, K, blocks, dtype, seed=0, planted_fault=False, phase="kernels") -> float:
     """The kernel against its plain version, launched twice on the same
     inputs (bit-identical results), through the route the wrapper picks.
     With ``planted_fault`` a plain version that drops the last 64-deep
@@ -340,7 +341,7 @@ def _check_parity(M, N, K, blocks, dtype, seed=0, planted_fault=False) -> float:
     route = matmul_update_route(M, N, K, dtype, (c.data_ptr(), a.data_ptr(), b.data_ptr()))
     ok, max_err = _within(got, want, K, dtype)
     row = {
-        "phase": "kernels", "case": [M, N, K], "blocks": [blocks["bm"], blocks["bn"], blocks["bk"]],
+        "phase": phase, "case": [M, N, K], "blocks": [blocks["bm"], blocks["bn"], blocks["bk"]],
         "dtype": _dtype_name(dtype), "route": route, "launches_by_route": routes,
         "max_abs_err": max_err,
         "tol": f"atol {ATOL[dtype]}*sqrt(K), rtol 2e-2", "ok": ok, "repeat_bit_identical": torch.equal(got, again),
@@ -1053,19 +1054,26 @@ def _same_grid_partition(got, want) -> bool:
 
 def _grid_parity() -> None:
     """(a) partition_grid on the HCL 4x4 grid at M = N = 512, bank on the
-    card against numpy on the host, for the three policies."""
-    for policy, kw in (("GRID2D", dict(eps=0.1)), ("CPM", {}), ("FFMPA", dict(eps=0.1, max_outer=50))):
+    card against numpy on the host, for the three policies.  FFMPA runs
+    with ``analytic_tol``: its analytic models are sample-and-banked, so
+    its column partitions run on the device bank (without it they stay on
+    the scalar host path on either backend)."""
+    for policy, ctor, kw in (
+        ("GRID2D", {}, dict(eps=0.1)),
+        ("CPM", {}, {}),
+        ("FFMPA", dict(analytic_tol=FFMPA_ANALYTIC_TOL), dict(eps=0.1, max_outer=50)),
+    ):
         walls = {}
         parts = {}
         for backend, device in (("numpy", "cpu"), ("torch", "cuda")):
             sched = Scheduler(grid=paper_tables.hcl_grid(4, 4), policy=getattr(Policy, policy),
-                              backend=backend, device=device)
+                              backend=backend, device=device, **ctor)
             t0 = time.perf_counter()
             parts[backend] = sched.partition_grid(512, 512, **kw)
             walls[backend] = time.perf_counter() - t0
         same = _same_grid_partition(parts["torch"], parts["numpy"])
         emit({
-            "phase": "grid", "part": "a", "policy": policy, "M": 512, "N": 512, "bit_identical": same,
+            "phase": "grid", "part": "a", "policy": policy, **ctor, "M": 512, "N": 512, "bit_identical": same,
             "outer_iterations": parts["torch"].iterations, "converged": parts["torch"].converged,
             "total_rounds": parts["torch"].diagnostics["total_rounds"],
             "card_wall_s": walls["torch"], "host_numpy_wall_s": walls["numpy"],
@@ -1111,7 +1119,10 @@ def _grid_repartition(smi: str) -> None:
 
 
 def _grid_application() -> tuple:
-    """(c) partition_grid (GRID2D) balancing matmul_update blocks on the card."""
+    """(c) partition_grid (GRID2D) balancing matmul_update blocks on the
+    card.  After the counts are read, the kernel is held against its plain
+    version at the blocks' shapes: the even first round's, and the final
+    partition's largest and smallest."""
     app = MatmulGrid()
     app.run(0, 0, 1, 1)  # first use of the kernel, before the counts
     torch.cuda.synchronize()
@@ -1126,7 +1137,18 @@ def _grid_application() -> tuple:
     launches = matmul_update_cuda.launches
     routes = dict(matmul_update_cuda.launches_by_route)
     evals, expected, eval_s = app.evals, app.expected, app.eval_s
+    c_finite = bool(torch.isfinite(app.c).all())
 
+    blocks = [(GRID_UNITS // len(app.repeats), GRID_UNITS // len(app.repeats[0]))]
+    final = [(r, w) for w, col in zip(part.col_widths, part.row_heights) for r in col]
+    blocks += [max(final, key=lambda b: b[0] * b[1]), min(final, key=lambda b: b[0] * b[1])]
+    parity = []
+    for r, w in blocks:
+        M, N = r * app.unit, w * app.unit
+        on_wgmma = matmul_update_cuda.launches_by_route["wgmma"]
+        parity.append([M, N, app.K, _check_parity(M, N, app.K, app.blocks, torch.bfloat16, seed=3, phase="grid")])
+        if matmul_update_cuda.launches_by_route["wgmma"] - on_wgmma != 2:
+            raise SystemExit(f"chip_smoke: the grid block {(M, N, app.K)} was not checked on the 'wgmma' route")
     remeasured = [app.measure(part) for _ in range(5)]
     remeasured_imb = [imbalance(t) for t in remeasured]
     median_imb = float(np.median(remeasured_imb))
@@ -1145,6 +1167,7 @@ def _grid_application() -> tuple:
         "row_heights": part.row_heights, "wall_s": wall_s,
         "speed_fn_evaluations": evals, "speed_fn_s": eval_s, "scheduling_s": wall_s - eval_s,
         "launches": launches, "launches_by_route": routes, "expected_launches": expected,
+        "c_finite": c_finite, "block_parity_max_abs_err": parity,
         "final_remeasured_imbalance": remeasured_imb, "final_remeasured_imbalance_median": median_imb,
         "cpm_col_widths": cpm.col_widths, "cpm_row_heights": cpm.row_heights,
         "makespan_ms_median5": makespan,
@@ -1152,6 +1175,8 @@ def _grid_application() -> tuple:
     emit(out)
     if not part.converged:
         raise SystemExit("chip_smoke: the 2-D grid partitioner did not converge on the card")
+    if not c_finite:
+        raise SystemExit("chip_smoke: the grid's blocks left a non-finite value in C")
     if launches != expected:
         raise SystemExit(f"chip_smoke: {launches} kernel launches, the speed functions account for {expected}")
     if routes != {"tile": 0, "wgmma": launches}:

@@ -20,7 +20,6 @@ checkpoints over.
 from .convert import bank_from_arrays
 from .executor import (
     BatchedSimulatedExecutor,
-    BatchedSimulatedExecutor2D,
     CallableExecutor,
     Executor,
     RoundLog,
@@ -30,7 +29,7 @@ from .fpm import AnalyticModel, ConstantModel, PiecewiseLinearFPM, SpeedModel, i
 from .modelbank import ModelBank
 from .modelbank_torch import TorchModelBank, fetch_partition
 from .partition import cpm_partition, partition_continuous, partition_units
-from .partition2d import Grid2DResult, app_time_2d
+from .partition2d import app_time_2d
 from .scheduler import Partition, Policy, Scheduler
 from .simulator import (
     HCL_SPECS,
@@ -44,21 +43,17 @@ from .simulator import (
     speed_fn_1d,
     speed_fn_1d_batch,
     speed_fn_2d,
-    speed_fn_2d_batch,
     time_fn_1d,
     time_fn_1d_batch,
-    time_fn_2d_batch,
 )
 from .speedstore import SpeedStore, sample_analytic_points
 
 __all__ = [
     "AnalyticModel",
     "BatchedSimulatedExecutor",
-    "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "ConstantModel",
     "Executor",
-    "Grid2DResult",
     "HCL_SPECS",
     "ModelBank",
     "NodeSpec",
@@ -88,8 +83,6 @@ __all__ = [
     "speed_fn_1d",
     "speed_fn_1d_batch",
     "speed_fn_2d",
-    "speed_fn_2d_batch",
     "time_fn_1d",
     "time_fn_1d_batch",
-    "time_fn_2d_batch",
 ]

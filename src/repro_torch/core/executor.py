@@ -6,16 +6,14 @@ so one DFPA loop drives:
 
 * ``SimulatedExecutor`` / ``BatchedSimulatedExecutor`` — the cluster
   simulator (benchmarks, tests);
-* ``BatchedSimulatedExecutor2D`` — one ``[q, p]`` time function for ``q``
-  jobs x ``p`` processors (the 2-D grid partitioner's columns);
 * ``CallableExecutor`` — real per-processor callables, such as the
   ``matmul_update`` kernel on row panels, timed by the clock of the device
   they run on.
 
 ``run`` returns per-processor execution times for one parallel round; the
 round's wall-clock cost is ``max(times)`` plus the collective overhead the
-executor models.  The fleet's executors (delayed, trace-driven) belong to
-the fleet slice of the port.
+executor models.  The fleet, 2-D, delayed and trace executors belong to
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -33,7 +31,6 @@ __all__ = [
     "Executor",
     "SimulatedExecutor",
     "BatchedSimulatedExecutor",
-    "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "RoundLog",
 ]
@@ -128,60 +125,6 @@ class BatchedSimulatedExecutor:
         times = [float(v) for v in t]
         self.logs.append(RoundLog(list(map(int, d)), times, self.round_cost(times)))
         return times
-
-    def round_cost(self, times: Sequence[float]) -> float:
-        return max(times) + self.alpha + self.beta * self.num_procs
-
-    @property
-    def total_cost(self) -> float:
-        return sum(l.wall_cost for l in self.logs)
-
-
-@dataclass
-class BatchedSimulatedExecutor2D:
-    """Multi-job simulator: ONE ``[q, p]``-valued time function for all
-    ``q`` jobs x ``p`` processors, so a round of every measuring job costs
-    one array op instead of ``q * p`` Python calls.  The 2-D grid
-    partitioner measures each column's inner DFPA loop through a one-job
-    instance.
-
-    ``time_fn_batch_2d(X) -> T`` must accept the full ``[q, p]`` row space
-    (rows of jobs not measuring this round are zero; its values there are
-    discarded).  Jobs are the integer rows of that space.  Mirrors
-    ``SimulatedExecutor``'s collective-overhead model per job: one job's
-    round costs ``max(times) + alpha + beta * p``.  The reference's job
-    names and noise model come with the fleet slice of the port.
-    """
-
-    time_fn_batch_2d: Callable  # X[q, p] -> T[q, p], values at X <= 0 ignored
-    p: int
-    q: int
-    alpha: float = 1e-4
-    beta: float = 1e-6
-    logs: List[RoundLog] = field(default_factory=list)  # one per (job, round)
-
-    @property
-    def num_procs(self) -> int:
-        return self.p
-
-    def run_jobs(self, rows: Sequence[int], D):
-        rows = [int(r) for r in rows]
-        X = np.zeros((self.q, self.p), dtype=np.float64)
-        X[rows] = np.asarray(D, dtype=np.float64)
-        T = np.asarray(self.time_fn_batch_2d(X), dtype=np.float64)
-        T = np.where(X > 0, T, 0.0)
-        out = T[rows]
-        for k, r in enumerate(rows):
-            times = [float(v) for v in out[k]]
-            self.logs.append(
-                RoundLog([int(v) for v in X[r]], times, self.round_cost(times))
-            )
-        return out
-
-    def run(self, d: Sequence[int]) -> List[float]:
-        """Single-job adapter (row 0), so the 2-D executor also satisfies
-        the plain ``Executor`` protocol."""
-        return [float(v) for v in self.run_jobs([0], [list(d)])[0]]
 
     def round_cost(self, times: Sequence[float]) -> float:
         return max(times) + self.alpha + self.beta * self.num_procs

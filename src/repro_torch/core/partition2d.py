@@ -14,35 +14,22 @@ heights ``m_ij`` (inner).  The paper's DFPA-based algorithm:
 The algorithms live on the facade: construct ``Scheduler(grid=grid,
 policy=Policy.GRID2D | CPM | FFMPA)`` and call ``partition_grid(M, N)``
 (or ``repartition_grid`` for the batched no-benchmark refresh).  This module
-keeps the legacy result dataclass, the evaluation helper
-:func:`app_time_2d`, and the pure grid helpers the facade shares
-(`_col_times`, `_rebalance_widths`, `_flat_imbalance`).  The reference's
-deprecated free-function shims (``dfpa_partition_2d`` and friends) come
-with the port's last slice, if at all.
+keeps the evaluation helper :func:`app_time_2d` and the pure grid helpers
+the facade shares (`_col_times`, `_rebalance_widths`, `_flat_imbalance`).
+The reference's legacy ``Grid2DResult`` and its deprecated free-function
+shims (``dfpa_partition_2d`` and friends) come with the port's last slice,
+if at all.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
 from typing import Callable, List, Sequence
 
 from .fpm import imbalance
 
-__all__ = ["Grid2DResult", "app_time_2d"]
+__all__ = ["app_time_2d"]
 
 SpeedFn2D = Callable[[float, float], float]  # g(m_b, n_b) -> units/s
-
-
-@dataclass
-class Grid2DResult:
-    col_widths: List[int]  # n_j, len q
-    row_heights: List[List[int]]  # m[j][i], q x p
-    outer_iterations: int
-    total_rounds: int  # total DFPA parallel rounds across all columns
-    bench_cost: float  # wall-clock spent benchmarking (parallel-round model)
-    converged: bool
-    imbalance: float
-    times: List[List[float]] = field(default_factory=list)  # t[j][i]
 
 
 def _col_times(
@@ -92,21 +79,6 @@ def _rebalance_widths(widths: List[int], times: List[List[float]], rows, N: int,
     return new_widths
 
 
-def _to_grid2d(part) -> Grid2DResult:
-    """Repack a facade ``Partition`` into the legacy result type."""
-    diag = part.diagnostics
-    return Grid2DResult(
-        col_widths=list(part.col_widths),
-        row_heights=[list(r) for r in part.row_heights],
-        outer_iterations=part.iterations,
-        total_rounds=diag.get("total_rounds", 0),
-        bench_cost=diag.get("bench_cost", 0.0),
-        converged=part.converged,
-        imbalance=part.imbalance,
-        times=[list(t) for t in diag.get("times", [])],
-    )
-
-
 def app_time_2d(
     grid: Sequence[Sequence[SpeedFn2D]],
     result,
@@ -117,8 +89,7 @@ def app_time_2d(
     """Full 2-D matmul app time: K pivot steps, each costing the slowest
     processor's panel update + broadcast overhead (paper Fig. 7(a)).
 
-    Accepts either the legacy :class:`Grid2DResult` or a facade
-    ``Partition`` — both expose ``col_widths`` / ``row_heights``.
+    ``result`` is a grid ``Partition`` (``col_widths`` / ``row_heights``).
     """
     step = 0.0
     for j, w in enumerate(result.col_widths):

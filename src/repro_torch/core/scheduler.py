@@ -41,7 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .executor import BatchedSimulatedExecutor2D, Executor
+from .executor import Executor, SimulatedExecutor
 from .fpm import AnalyticModel, PiecewiseLinearFPM, imbalance
 from .modelbank import ModelBank
 from .modelbank_torch import TorchModelBank, resolve_device
@@ -270,14 +270,11 @@ class Scheduler:
     ) -> Partition:
         """Compute one optimal distribution from the current models and make
         it the scheduler's current distribution ``d``.  Per-call ``caps``
-        apply to this call only unless ``persist_caps=True``.
-
-        In grid mode pass ``n=(M, N)`` (or call :meth:`partition_grid`).
+        apply to this call only unless ``persist_caps=True``.  A grid
+        scheduler partitions through :meth:`partition_grid`.
         """
         if self.grid is not None:
-            if isinstance(n, (tuple, list)) and len(n) == 2:
-                return self.partition_grid(int(n[0]), int(n[1]), eps=eps)
-            raise ValueError("grid scheduler: pass n=(M, N) or call partition_grid()")
+            raise ValueError("grid scheduler: call partition_grid(M, N)")
         if n is None:
             n = self.n_units
         if n is None:
@@ -567,22 +564,16 @@ class Scheduler:
 
     def _grid_column(self, j, w, M, eps, warm, warm_rows, *, inner_max_iter, min_units):
         """One column's inner DFPA loop: a child ``Scheduler.autotune`` over
-        the column's rows at width ``w``, measured through a one-job
-        :class:`BatchedSimulatedExecutor2D`.  Its rounds' costs
-        ``max(times) + alpha + beta * p``, added one by one in round order,
-        are the column's benchmark cost (not ``sum()``, whose compensated
-        float summation rounds differently)."""
+        the column's rows at width ``w``, measured through a
+        :class:`SimulatedExecutor` over the column's processors.  Its
+        rounds' costs ``max(times) + alpha + beta * p``, added one by one in
+        round order, are the column's benchmark cost (not ``sum()``, whose
+        compensated float summation rounds differently)."""
         grid = self.grid
         p = len(grid)
-
-        def col_time(X):
-            T = np.zeros_like(X)
-            for i in range(p):
-                r = X[0, i]
-                T[0, i] = (r * w) / grid[i][j](float(r), float(w)) if r > 0 else 0.0
-            return T
-
-        ex = BatchedSimulatedExecutor2D(time_fn_batch_2d=col_time, p=p, q=1)
+        ex = SimulatedExecutor(
+            time_fns=[(lambda i_: lambda r: (r * w) / grid[i_][j](r, float(w)))(i) for i in range(p)]
+        )
         models = warm if warm is not None else [PiecewiseLinearFPM() for _ in range(p)]
         store = SpeedStore.from_models(
             models, backend=self._backend, dtype=self.dtype, device=self._device

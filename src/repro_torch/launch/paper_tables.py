@@ -21,7 +21,8 @@ The 1-D artifacts run ``Scheduler.autotune`` (DFPA) and
 ``Scheduler.partition_grid`` under ``GRID2D``, ``CPM`` and ``FFMPA``.  The
 bank lives where ``backend``/``device`` say: ``backend="torch"`` puts every
 DFPA bank, fold and partition on ``device`` (default the card),
-``backend="numpy"`` keeps them on the host.  The times are produced by the
+``backend="numpy"`` keeps them on the host; FFMPA's analytic models take
+the scalar host path on either backend, as in the reference.  The times are produced by the
 calibrated simulator (``core/simulator.py``): the seconds in the CSVs are
 simulated seconds of the paper's clusters, not times of the device that
 ran the partitioner.  The CLI prints each artifact's CSV and, on stderr,

@@ -10,8 +10,8 @@ times, outer iterations, ``total_rounds``, ``bench_cost`` and the imbalance
 are equal, for ``GRID2D``, ``CPM`` and ``FFMPA``.  The reference runs its
 per-column inner loops through its fleet scheduler and the port through
 sequential child ``Scheduler``s; the reference states the two are
-bit-identical, and these cases hold the port to it.  The 2-D simulator and
-the 2-D executor equal the reference's; the properties of
+bit-identical, and these cases hold the port to it.  The 2-D simulator
+equals the reference's; the properties of
 ``tests/test_partition2d.py`` hold on the port; ``repartition_grid`` on the
 stacked ``[q, p, k]`` torch bank equals the numpy per-column path.
 """
@@ -28,13 +28,9 @@ from repro.core import make_grid5000_specs as ref_make_grid5000_specs
 from repro.core import make_grid5000_time_fns as ref_make_grid5000_time_fns
 from repro.core import make_hcl_time_fns as ref_make_hcl_time_fns
 from repro.core import speed_fn_2d as ref_speed_fn_2d
-from repro.core.executor import BatchedSimulatedExecutor2D as RefExecutor2D
-from repro.core.simulator import speed_fn_2d_batch as ref_speed_fn_2d_batch
-from repro.core.simulator import time_fn_2d_batch as ref_time_fn_2d_batch
 
 from repro_torch.core import (
     HCL_SPECS,
-    BatchedSimulatedExecutor2D,
     PiecewiseLinearFPM,
     Policy,
     Scheduler,
@@ -44,8 +40,6 @@ from repro_torch.core import (
     make_grid5000_time_fns,
     make_hcl_time_fns,
     speed_fn_2d,
-    speed_fn_2d_batch,
-    time_fn_2d_batch,
 )
 
 BACKENDS = ["numpy", "torch"]
@@ -78,7 +72,7 @@ def _assert_same_partition(got, want):
 
 
 # ---------------------------------------------------------------------------
-# The 2-D simulator and the 2-D executors
+# The 2-D simulator
 # ---------------------------------------------------------------------------
 
 
@@ -92,14 +86,6 @@ def test_2d_simulator_matches_reference():
             assert [g(float(x), float(y)) for x, y in zip(mb, nb)] == [
                 rg(float(x), float(y)) for x, y in zip(mb, nb)
             ]
-        m = np.resize(mb, len(HCL_SPECS))
-        n = np.resize(nb, len(HCL_SPECS))
-        np.testing.assert_array_equal(
-            speed_fn_2d_batch(HCL_SPECS, b)(m, n), ref_speed_fn_2d_batch(REF_HCL_SPECS, b)(m, n)
-        )
-        np.testing.assert_array_equal(
-            time_fn_2d_batch(HCL_SPECS, b)(m, n), ref_time_fn_2d_batch(REF_HCL_SPECS, b)(m, n)
-        )
 
 
 def test_grid5000_and_full_model_cost_match_reference():
@@ -113,25 +99,6 @@ def test_grid5000_and_full_model_cost_match_reference():
     assert full_model_build_cost(lambda n: make_hcl_time_fns(n)[1], *args) == ref_full_model_build_cost(
         lambda n: ref_make_hcl_time_fns(n)[1], *args
     )
-
-
-def _time_2d(X):
-    return (X * X + 1.0) / (1.0 + np.arange(X.shape[-1]))
-
-
-@pytest.mark.parametrize("rounds", [
-    (([[1, 0, 2, 3], [4, 4, 0, 1]], [2, 0]), ([[2, 2, 2, 2]], [1])),
-    (([[5, 1, 1, 0]], [0]), ([[0, 3, 3, 3], [1, 1, 1, 1], [2, 0, 0, 7]], [1, 2, 0])),
-])
-@pytest.mark.parametrize("alpha,beta", [(1e-4, 1e-6), (0.3, 0.01)])
-def test_2d_executor_matches_reference(alpha, beta, rounds):
-    port = BatchedSimulatedExecutor2D(time_fn_batch_2d=_time_2d, p=4, q=3, alpha=alpha, beta=beta)
-    ref = RefExecutor2D(time_fn_batch_2d=_time_2d, p=4, q=3, alpha=alpha, beta=beta)
-    for D, rows in rounds:
-        np.testing.assert_array_equal(port.run_jobs(rows, D), ref.run_jobs(rows, D))
-    assert port.run([3, 1, 0, 2]) == ref.run([3, 1, 0, 2])
-    assert [(l.d, l.times, l.wall_cost) for l in port.logs] == [(l.d, l.times, l.wall_cost) for l in ref.logs]
-    assert port.total_cost == ref.total_cost
 
 
 # ---------------------------------------------------------------------------
@@ -153,20 +120,6 @@ def test_partition_grid_matches_reference(policy, n, backend):
     assert app_time_2d(_grid(4, 4), got, K=n) == ref_app_time_2d(_ref_grid(4, 4), want, K=n)
 
 
-@pytest.mark.parametrize("policy", ["GRID2D", "CPM"])
-def test_legacy_grid_result_matches_reference(policy):
-    from repro.core.partition2d import _to_grid2d as ref_to_grid2d
-
-    from repro_torch.core.partition2d import Grid2DResult, _to_grid2d
-
-    want = RefScheduler(grid=_ref_grid(3, 3), policy=getattr(RefPolicy, policy)).partition_grid(192, 192)
-    got = _port(_grid(3, 3), getattr(Policy, policy), "torch").partition_grid(192, 192)
-    legacy = _to_grid2d(got)
-    assert isinstance(legacy, Grid2DResult)
-    assert vars(legacy) == vars(ref_to_grid2d(want))
-    assert app_time_2d(_grid(3, 3), legacy, K=192) == app_time_2d(_grid(3, 3), got, K=192)
-
-
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_banked_ffmpa_matches_reference(backend):
     # analytic_tol: the full models are sample-and-banked onto the bank
@@ -180,11 +133,34 @@ def test_banked_ffmpa_matches_reference(backend):
     _assert_same_partition(got, want)
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("n", [256, 512])
+def test_banked_ffmpa_on_the_hcl_grid_matches_reference(n, backend):
+    # the banked path on the 4x4 grid, as chip_smoke.py's grid phase runs it
+    # on the card (at 512 it stops unconverged after 12 outer iterations)
+    kw = dict(eps=0.1, max_outer=50)
+    want = RefScheduler(grid=_ref_grid(4, 4), policy=RefPolicy.FFMPA, analytic_tol=0.005).partition_grid(n, n, **kw)
+    got = _port(_grid(4, 4), Policy.FFMPA, backend, analytic_tol=0.005).partition_grid(n, n, **kw)
+    _assert_same_partition(got, want)
+
+
+@pytest.mark.parametrize("policy", ["GRID2D", "CPM"])
+def test_app_time_2d_matches_reference(policy):
+    want = RefScheduler(grid=_ref_grid(3, 3), policy=getattr(RefPolicy, policy)).partition_grid(192, 192)
+    got = _port(_grid(3, 3), getattr(Policy, policy), "torch").partition_grid(192, 192)
+    _assert_same_partition(got, want)
+    for K in (1, 192):
+        assert app_time_2d(_grid(3, 3), got, K=K) == ref_app_time_2d(_ref_grid(3, 3), want, K=K)
+    assert app_time_2d(_grid(3, 3), got, K=192, bcast_overhead=0.0) == ref_app_time_2d(
+        _ref_grid(3, 3), want, K=192, bcast_overhead=0.0
+    )
+
+
 def test_grid_partition_through_partition_and_its_refusals():
     sched = _port(_grid(2, 2), Policy.CPM, "numpy")
-    assert sched.partition((64, 64)).col_widths == sched.partition_grid(64, 64).col_widths
-    with pytest.raises(ValueError, match="n=\\(M, N\\)"):
-        sched.partition(64)
+    for n in (64, (64, 64)):
+        with pytest.raises(ValueError, match="partition_grid"):
+            sched.partition(n)
     with pytest.raises(ValueError, match="grid"):
         Scheduler(num_groups=2, backend="numpy").partition_grid(8, 8)
     # Policy.DFPA on a grid is the nested DFPA algorithm, as GRID2D

@@ -6,8 +6,9 @@ the card:
 
     python -m pytest -q -m cuda tests/test_torch_grid_cuda.py
 
-* ``partition_grid`` on the HCL 4x4 grid (GRID2D, CPM, FFMPA) with the bank
-  on the card is bit-identical to the numpy backend on the host;
+* ``partition_grid`` on the HCL 4x4 grid (GRID2D, CPM, FFMPA, and FFMPA
+  with its analytic models sample-and-banked) with the bank on the card is
+  bit-identical to the numpy backend on the host;
 * ``repartition_grid`` on one stacked ``[q, p, k]`` device bank equals the
   numpy per-column path;
 * ``MatmulGrid``, the 2-D application at ``chip_smoke.py``'s configuration
@@ -15,7 +16,8 @@ the card:
   ``matmul_update`` on its block), balanced by ``partition_grid`` under
   GRID2D: it converges at eps 0.1, every launch takes the ``"wgmma"``
   route, and the launches are the speed functions' evaluations times their
-  repeats.
+  repeats; ``matmul_update`` at the blocks' shapes (K = 4096, 128 x 128 x
+  512 tiles) meets its plain version, ``atol 5e-2 * sqrt(K), rtol 2e-2``.
 """
 
 import numpy as np
@@ -23,8 +25,10 @@ import pytest
 import torch
 
 from repro_torch.core import PiecewiseLinearFPM, Policy, Scheduler
+from repro_torch.kernels import matmul_update
 from repro_torch.kernels.matmul_update import matmul_update_cuda
-from repro_torch.launch.matmul_grid import GRID_EPS, GRID_UNITS, MatmulGrid
+from repro_torch.kernels.ref import matmul_update_ref
+from repro_torch.launch.matmul_grid import GRID_BLOCKS, GRID_EPS, GRID_K, GRID_UNIT, GRID_UNITS, MatmulGrid
 from repro_torch.launch.paper_tables import hcl_grid
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +66,17 @@ def test_hcl_grid_on_card_matches_numpy(card, policy, kw):
     _same(got, want)
 
 
+def test_banked_ffmpa_on_card_matches_numpy(card):
+    kw = dict(eps=0.1, max_outer=50)
+    want = Scheduler(grid=hcl_grid(4, 4), policy=Policy.FFMPA, backend="numpy", analytic_tol=0.005).partition_grid(
+        384, 384, **kw
+    )
+    got = Scheduler(
+        grid=hcl_grid(4, 4), policy=Policy.FFMPA, backend="torch", device=card, analytic_tol=0.005
+    ).partition_grid(384, 384, **kw)
+    _same(got, want)
+
+
 @pytest.mark.parametrize("monotone", [False, True])
 def test_repartition_grid_on_card_matches_numpy(card, monotone):
     rng = np.random.default_rng(7 + monotone)
@@ -95,3 +110,19 @@ def test_matmul_grid_converges_on_card(card):
     assert launched == app.expected > 0 and app.evals > 0
     assert routes == {"tile": 0, "wgmma": launched}
     assert sum(part.col_widths) == GRID_UNITS and all(sum(r) == GRID_UNITS for r in part.row_heights)
+
+
+@pytest.mark.parametrize("r,w", [(64, 32), (100, 50), (28, 26)])
+def test_matmul_grid_blocks_match_plain_on_card(card, r, w):
+    M, N, K = r * GRID_UNIT, w * GRID_UNIT, GRID_K
+    g = torch.Generator(device=card).manual_seed(3)
+    c, a, b = (torch.randn(s, generator=g, device=card).to(torch.bfloat16) for s in ((M, N), (M, K), (K, N)))
+    want = matmul_update_ref(c, a, b).float()
+    before = dict(matmul_update_cuda.launches_by_route)
+    got = matmul_update(c.clone(), a, b, **GRID_BLOCKS)
+    again = matmul_update(c.clone(), a, b, **GRID_BLOCKS)
+    torch.cuda.synchronize()
+    assert matmul_update_cuda.launches_by_route["wgmma"] - before["wgmma"] == 2
+    assert torch.equal(got, again)
+    err = (got.float() - want).abs()
+    assert bool((err <= 5e-2 * np.sqrt(K) + 2e-2 * want.abs()).all()), float(err.max())
