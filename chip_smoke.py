@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs nine phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs eleven phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -99,11 +99,33 @@ the first fault:
                       their repeats, every launch on ``"wgmma"``, and the
                       final partition, measured again five times, must have
                       median imbalance <= 2*eps; the CPM partition's
-                      measured makespan is printed beside it.
+                      measured makespan is printed beside it;
+ 10. ``energy``     — the time/energy Pareto front (``SpeedStore.
+                      pareto_front``, 33 points) on the reference's sweep
+                      fixture at p = 8 and p = 1024 (n = 100 p), banks on
+                      the card in float64 (the interior thresholds as one
+                      stacked [T, p, k] partition) against numpy on the
+                      host: times, energies and every allocation row
+                      bit-identical, strictly monotone, index 0 the
+                      time-optimal partition, index -1 the energy-optimal
+                      one, and ``Scheduler.partition(objective="pareto",
+                      energy_cap=...)`` equal to numpy's; cold and warm ms
+                      on both;
+ 11. ``hier``       — the two-level partitioner: (a) ``Hierarchy`` at
+                      p = 10^4 random monotone estimates (4 knots) in
+                      groups of 1000, n = 20 p: the card's allocations,
+                      t_outer and aggregate bank bit-identical to the
+                      host's, makespan within 1.05x the flat device
+                      partition's, and one group of all p equal to the
+                      flat device partition, with cold and warm ms of each;
+                      (b) the ``dfpa`` phase's loop once more with
+                      ``Scheduler(groups=[0, 0, 1, 1, 2, 2, 3, 3])``, so
+                      every round after the first runs under the two-level
+                      partitioner, held to the ``dfpa`` phase's gates.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
-the kernels that have routes, and ``matmul_update``'s by phase, ``dfpa``
-and ``grid``), the card's name and power limit
+the kernels that have routes, and ``matmul_update``'s by phase, ``dfpa``,
+``grid`` and ``hier``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -127,6 +149,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import _build  # noqa: E402  (needs the checkout's src/ on the path)
 from repro_torch.core import (  # noqa: E402
     CallableExecutor,
+    Hierarchy,
     ModelBank,
     PiecewiseLinearFPM,
     Policy,
@@ -137,6 +160,7 @@ from repro_torch.core import (  # noqa: E402
     imbalance,
     make_hcl_time_fns,
 )
+from repro_torch.core.energy import energy_model  # noqa: E402
 from repro_torch.core.modelbank_torch import numpy_sum_block, np_order_sum  # noqa: E402
 from repro_torch.core.partition import _partition_units_bank  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
@@ -234,6 +258,14 @@ SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 2, 24, 8
 # the stacked repartition: q columns of p rows of random monotone estimates
 REPART_Q, REPART_P, REPART_KNOTS = 16, 4096, 8
 FFMPA_ANALYTIC_TOL = 0.005  # grid (a): FFMPA's analytic models sample-and-banked onto the bank
+
+# the time/energy front: the reference's sweep fixture at two sizes
+ENERGY_PS = (8, 1024)
+ENERGY_POINTS = 33
+# the hierarchy: p = 10^4 random monotone estimates (4 knots) in groups of
+# 1000, and the DFPA loop's eight processors in pairs of like ones
+HIER_P, HIER_KNOTS, HIER_GROUP, HIER_SEED = 10_000, 4, 1000, 4
+HIER_DFPA_GROUPS = [0, 0, 1, 1, 2, 2, 3, 3]
 
 
 def emit(obj) -> None:
@@ -774,6 +806,15 @@ def phase_hcl_golden() -> None:
 def phase_dfpa() -> tuple:
     """The main path: Scheduler.autotune over CallableExecutor, each
     processor running matmul_update on its row panel r_i times a round."""
+    return _dfpa_loop("dfpa")
+
+
+def _dfpa_loop(phase: str, groups=None) -> tuple:
+    """``Scheduler.autotune`` balancing the matmul_update panels; with
+    ``groups`` every round after the first runs under the two-level
+    partitioner.  Fails unless it converges, launches the kernel as often
+    as the rounds account for, all on ``"wgmma"``, and the final
+    distribution re-measures within 2*eps."""
     g = torch.Generator(device="cuda").manual_seed(0)
     n = DFPA_N
     a = torch.randn((n, n), generator=g, device="cuda", dtype=torch.bfloat16)
@@ -791,7 +832,8 @@ def phase_dfpa() -> tuple:
     executor = CallableExecutor(fns, device="cuda")
     store = SpeedStore.empty(len(fns), backend="torch", device="cuda")
     # the scheduling overhead between rounds, on the host clock with the
-    # card drained after each call: every fold_in and partition_units
+    # card drained after each call: every fold_in and partition (flat, or
+    # the two-level one with groups)
     overhead_ms = {"fold_in": [], "partition_units": []}
 
     def timed(name, method):
@@ -806,7 +848,9 @@ def phase_dfpa() -> tuple:
 
     for name in overhead_ms:
         setattr(store, name, timed(name, getattr(store, name)))
-    sched = Scheduler(store, backend="torch", device="cuda")
+    sched = Scheduler(store, backend="torch", device="cuda", groups=groups)
+    if groups is not None:  # the rounds partition through the hierarchy
+        sched._hier_partition = timed("partition_units", sched._hier_partition)
     matmul_update_cuda.launches = 0
     matmul_update_cuda.launches_by_route = dict.fromkeys(matmul_update_cuda.launches_by_route, 0)
     t0 = time.perf_counter()
@@ -824,7 +868,7 @@ def phase_dfpa() -> tuple:
     remeasured_imb = [imbalance(t) for t in remeasured]
     median_imb = float(np.median(remeasured_imb))
     out = {
-        "phase": "dfpa", "N": n, "units": DFPA_UNITS, "unit_rows": DFPA_UNIT_ROWS,
+        "phase": phase, "groups": groups, "N": n, "units": DFPA_UNITS, "unit_rows": DFPA_UNIT_ROWS,
         "blocks": DFPA_BLOCKS, "dtype": "bfloat16", "repeats": DFPA_REPEATS, "eps": DFPA_EPS,
         "bank_device": str(sched.store.device_bank(snapshot=False).device), "iterations": res.iterations,
         "converged": res.converged, "final_imbalance": res.imbalance,
@@ -840,13 +884,13 @@ def phase_dfpa() -> tuple:
     }
     emit(out)
     if not res.converged:
-        raise SystemExit("chip_smoke: DFPA did not converge on the card")
+        raise SystemExit(f"chip_smoke: DFPA ({phase}) did not converge on the card")
     if launches != expected:
-        raise SystemExit(f"chip_smoke: {launches} kernel launches, the rounds account for {expected}")
+        raise SystemExit(f"chip_smoke: {phase}: {launches} kernel launches, the rounds account for {expected}")
     if routes != {"tile": 0, "wgmma": launches}:
-        raise SystemExit(f"chip_smoke: the DFPA panels launched {routes}, not every one on 'wgmma'")
+        raise SystemExit(f"chip_smoke: {phase}: the DFPA panels launched {routes}, not every one on 'wgmma'")
     if median_imb > 2 * DFPA_EPS:
-        raise SystemExit(f"chip_smoke: the final distribution re-measures at imbalance {median_imb}")
+        raise SystemExit(f"chip_smoke: {phase}: the final distribution re-measures at imbalance {median_imb}")
     return launches, routes
 
 
@@ -1192,6 +1236,144 @@ def phase_grid(smi: str) -> tuple:
     return _grid_application()
 
 
+# ---------------------------------------------------------------------------
+
+
+def _front_fixture(p: int, seed: int):
+    """Heterogeneous plateau/knee speed models and affine energy laws with
+    per-processor (a, b) spread, efficiency uncorrelated with speed: the
+    reference's front-sweep fixture (``benchmarks/energy_pareto.py``)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(1e-6, 3e-6, p)
+    knee = rng.uniform(2e3, 2e4, p)
+    ea = rng.uniform(1.0, 50.0, p)
+    eb = rng.uniform(0.05, 2.0, p)
+    n = 100 * p
+    speed, energy = [], []
+    for i in range(p):
+        xs = np.geomspace(16.0, 8.0 * knee[i], 6)
+        ts = xs * base[i] * (
+            1.0 + np.where(xs > knee[i], 3.0 * (xs - knee[i]) / knee[i], 0.0)
+        )
+        speed.append(PiecewiseLinearFPM.from_points(list(zip(xs, xs / ts))))
+        exs = np.geomspace(1.0, 4.0 * n, 7)
+        energy.append(energy_model(list(zip(exs, ea[i] + eb[i] * exs))))
+    return speed, energy, n
+
+
+def _walls(fn, sync: bool) -> tuple:
+    """``fn()`` twice (cold, then warm): its two results' last and the two
+    wall times in ms, the card drained around each call when ``sync``."""
+    ms, out = [], None
+    for _ in range(2):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if sync:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def phase_energy(smi: str) -> None:
+    """The time/energy front at p = 8 and 1024 (n = 100 p, 33 points) with
+    the banks on the card (the interior thresholds as one stacked
+    ``[T, p, k]`` partition), against the numpy backend on the host."""
+    for i, p in enumerate(ENERGY_PS):
+        speed, energy, n = _front_fixture(p, 100 + i)
+        stores = {
+            backend: SpeedStore.from_models(
+                [PiecewiseLinearFPM.from_points(m.as_points()) for m in speed],
+                backend=backend, device=device,
+            ).attach_energy([PiecewiseLinearFPM.from_points(m.as_points()) for m in energy])
+            for backend, device in (("numpy", "cpu"), ("torch", "cuda"))
+        }
+        want, host_ms = _walls(lambda: stores["numpy"].pareto_front(n, num_points=ENERGY_POINTS), False)
+        got, card_ms = _walls(lambda: stores["torch"].pareto_front(n, num_points=ENERGY_POINTS), True)
+        card = stores["torch"]
+        same = {
+            name: bool(np.array_equal(getattr(got, name), getattr(want, name)))
+            for name in ("times", "energies", "allocations")
+        }
+        checks = {
+            **{f"{name}_bit_identical": ok for name, ok in same.items()},
+            "strictly_monotone": bool(np.all(np.diff(got.times) > 0) and np.all(np.diff(got.energies) < 0)),
+            "interior_points": len(got) > 2,
+            "first_is_time_optimal": list(got.allocations[0]) == card.partition_units(n),
+            "last_is_energy_optimal": list(got.allocations[-1]) == card.partition_units(n, objective="energy"),
+        }
+        cap = float(got.energies[len(got) // 2])  # a budget between the endpoints
+        picked = {
+            backend: Scheduler(st, backend=backend, device=device).partition(
+                n, objective="pareto", energy_cap=cap
+            )
+            for (backend, st), device in zip(stores.items(), ("cpu", "cuda"))
+        }
+        checks["scheduler_energy_cap_equal"] = (
+            picked["torch"].allocations == picked["numpy"].allocations
+            and picked["torch"].t_star == picked["numpy"].t_star
+        )
+        emit({
+            "phase": "energy", "p": p, "n": n, "seed": 100 + i, "num_points": ENERGY_POINTS,
+            "front_points": len(got), "contract": "bit-identical to the numpy backend, float64",
+            "checks": checks, "energy_cap": cap, "picked_makespan": picked["torch"].t_star,
+            "card_ms_cold_warm": card_ms, "host_numpy_ms_cold_warm": host_ms, "card": smi,
+        })
+        if not all(checks.values()):
+            raise SystemExit(f"chip_smoke: the time/energy front at p={p} failed {checks}")
+
+
+def _makespan(bank, d) -> float:
+    d = np.asarray(d, dtype=np.float64)
+    return float(np.max(np.where(d > 0, bank.time(np.maximum(d, 1.0)), 0.0)))
+
+
+def _hier_bank(smi: str) -> None:
+    """(a) the two-level partitioner at p = 10^4 in groups of 1000: the
+    card's hierarchy against the host's, beside the flat device
+    partition."""
+    rng = np.random.default_rng(HIER_SEED)
+    p = HIER_P
+    bank = _random_bank(rng, p, monotone=True, k=HIER_KNOTS)
+    groups = (np.arange(p) // HIER_GROUP).tolist()
+    n = 20 * p
+    host_h = Hierarchy.from_bank(bank, groups, backend="numpy")
+    card_h = Hierarchy.from_bank(bank, groups, backend="torch", device="cuda")
+    (want, t_want), host_ms = _walls(lambda: host_h.partition_units(n, with_t=True), False)
+    (got, t_got), card_ms = _walls(lambda: card_h.partition_units(n, with_t=True), True)
+    tb = TorchModelBank.from_bank(bank, device="cuda")
+    flat, flat_ms = _walls(lambda: [int(v) for v in tb.partition_units(n)], True)
+    one = Hierarchy.from_bank(bank, [0] * p, backend="torch", device="cuda")
+    single, single_ms = _walls(lambda: one.partition_units(n), True)
+    (gbank_card,), (gbank_host,) = card_h._agg_cache.values(), host_h._agg_cache.values()
+    ratio = _makespan(bank, got) / _makespan(bank, flat)
+    checks = {
+        "allocations_bit_identical": got == want,
+        "t_outer_bit_identical": t_got == t_want,
+        "aggregate_bank_identical": all(
+            np.array_equal(getattr(gbank_card, f), getattr(gbank_host, f)) for f in ("xs", "ss", "counts")
+        ),
+        "makespan_within_1.05_of_flat": ratio <= 1.05,
+        "single_group_equals_flat": single == flat,
+        "sum": sum(got) == n,
+    }
+    emit({
+        "phase": "hier", "part": "a", "p": p, "knots": HIER_KNOTS, "group_size": HIER_GROUP, "g": card_h.g,
+        "n": n, "contract": "bit-identical to the numpy backend, float64", "checks": checks,
+        "makespan_ratio_to_flat": ratio, "aggregate_knots": int(gbank_card.xs.shape[1]),
+        "card_hier_ms_cold_warm": card_ms, "host_hier_ms_cold_warm": host_ms,
+        "card_flat_ms_cold_warm": flat_ms, "card_single_group_ms_cold_warm": single_ms, "card": smi,
+    })
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: the hierarchy at p={p} failed {checks}")
+
+
+def phase_hier(smi: str) -> tuple:
+    _hier_bank(smi)
+    return _dfpa_loop("hier", groups=HIER_DFPA_GROUPS)
+
+
 def main() -> int:
     seconds = {}
 
@@ -1211,9 +1393,12 @@ def main() -> int:
     serve = run("serve", phase_serve)
     run("paper", phase_paper)
     grid_launches, grid_routes = run("grid", phase_grid, smi)
-    launches = {"matmul_update": dfpa_launches + grid_launches, **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
+    run("energy", phase_energy, smi)
+    hier_launches, hier_routes = run("hier", phase_hier, smi)
+    by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches}
+    launches = {"matmul_update": sum(by_phase.values()), **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
     routes = {
-        "matmul_update": {r: dfpa_routes[r] + grid_routes[r] for r in dfpa_routes},
+        "matmul_update": {r: dfpa_routes[r] + grid_routes[r] + hier_routes[r] for r in dfpa_routes},
         **serve["launches_by_route"],
     }
     sources = {
@@ -1228,7 +1413,7 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"], "dtype": row["dtype"],
         **({"launches_by_route": routes[name], "kernel_route": row["route"]} if name in routes else {}),
-        **({"launches_by_phase": {"dfpa": dfpa_launches, "grid": grid_launches}} if name == "matmul_update" else {}),
+        **({"launches_by_phase": by_phase} if name == "matmul_update" else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

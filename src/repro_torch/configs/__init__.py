@@ -4,7 +4,7 @@ The registry names every architecture the reference assigns (``ARCH_IDS``)
 and its input-shape set (``SHAPES``).  A config comes to the port with the
 slice that runs it: so far only ``recurrentgemma-2b``.  Asking for any
 other architecture raises ``NotImplementedError`` (ROADMAP queue 1,
-item 8).
+item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def _module(name: str):
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"{name}: not ported yet (ROADMAP queue 1, item 8); ported: {list(PORTED)}"
+            f"{name}: not ported yet (ROADMAP queue 1, item 10: what remains of the LLM stack); ported: {list(PORTED)}"
         )
     return importlib.import_module(f".{name.replace('-', '_')}", __package__)
 

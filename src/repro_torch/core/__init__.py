@@ -13,8 +13,9 @@ Three model representations back the partitioners, as in the reference:
 The entry point is the ``Scheduler`` facade (``scheduler.py``) over a
 ``SpeedStore`` (``speedstore.py``), backend and device resolved once; it
 also carries the nested 2-D grid partitioner (``partition2d.py`` holds its
-helpers).  ``convert.py`` carries the reference package's banks and
-checkpoints over.
+helpers), the two-level partitioner (``hierarchy.py``) and the time/energy
+front (``energy.py``).  ``convert.py`` carries the reference package's
+banks and checkpoints over.
 """
 
 from .convert import bank_from_arrays
@@ -26,7 +27,8 @@ from .executor import (
     SimulatedExecutor,
 )
 from .fpm import AnalyticModel, ConstantModel, PiecewiseLinearFPM, SpeedModel, imbalance
-from .modelbank import ModelBank
+from .hierarchy import Hierarchy
+from .modelbank import ModelBank, aggregate_groups, group_members
 from .modelbank_torch import TorchModelBank, fetch_partition
 from .partition import cpm_partition, partition_continuous, partition_units
 from .partition2d import app_time_2d
@@ -55,6 +57,7 @@ __all__ = [
     "ConstantModel",
     "Executor",
     "HCL_SPECS",
+    "Hierarchy",
     "ModelBank",
     "NodeSpec",
     "Partition",
@@ -66,11 +69,13 @@ __all__ = [
     "SpeedModel",
     "SpeedStore",
     "TorchModelBank",
+    "aggregate_groups",
     "app_time_2d",
     "bank_from_arrays",
     "cpm_partition",
     "fetch_partition",
     "full_model_build_cost",
+    "group_members",
     "imbalance",
     "make_grid5000_specs",
     "make_grid5000_time_fns",

@@ -12,8 +12,11 @@ The port reads what the JAX package writes, without importing it:
     port's ``from_state`` constructors run them, so a checkpoint of either
     package continues in the port and both compute the same next rounds.
 
-State of features the port does not have yet (groups of the two-level path,
-energy models) raises ``NotImplementedError`` rather than being dropped.
+Energy models (``energy_points``) and the two-level assignment
+(``groups``, ``max_group_knots``) carry over as they are.  The reference's
+``sharding="shard_map"`` spreads the hierarchy's group blocks over several
+devices; the port runs on one card and has no counterpart, so a state that
+names it raises ``NotImplementedError`` rather than being dropped.
 """
 
 from __future__ import annotations
@@ -49,11 +52,8 @@ def _backend(name):
 
 
 def store_state_from_reference(state: Dict) -> Dict:
-    """A ``SpeedStore.state_dict()`` of either package in the port's schema."""
-    if state.get("energy_points"):
-        raise NotImplementedError(
-            "energy models come with the energy slice of the port (core/energy.py)"
-        )
+    """A ``SpeedStore.state_dict()`` of either package in the port's schema
+    (``energy_points`` included)."""
     out = dict(state)
     out["backend"] = _backend(state.get("backend", "numpy"))
     return out
@@ -63,8 +63,12 @@ def scheduler_state_from_reference(state: Dict) -> Dict:
     """A ``Scheduler.state_dict()`` of either package in the port's schema."""
     if state.get("version", 1) != 1:
         raise ValueError(f"unknown scheduler state version {state.get('version')!r}")
-    if state.get("groups") is not None:
+    if state.get("sharding") is not None:
         raise NotImplementedError(
-            "groups= comes with the hierarchy slice of the port (core/hierarchy.py)"
+            f"sharding={state['sharding']!r} spreads the hierarchy's group blocks "
+            "over several devices; the port runs on a single card and has no "
+            "counterpart (ROADMAP queue 1, item 4: the two-level hierarchy)"
         )
-    return store_state_from_reference(state)
+    out = store_state_from_reference(state)
+    out.pop("sharding", None)
+    return out

@@ -33,6 +33,12 @@ to the host numpy bank, on the CPU and on CUDA.  Two things make that hold:
 
 Integer sums (unit counts) are exact and use ``torch.sum``.
 
+Two more uses serve the two-level partitioner (``core/hierarchy.py``):
+``_agg_alloc`` evaluates every group's member allocations at the group's
+sample times (the device half of the group aggregation), and the inner
+solves run as one stacked ``[g, p_max, k]`` partition whose float sums
+follow each group's own row length (:func:`ragged_order_sum`).
+
 The loops that the reference runs as device ``while_loop``s are Python loops
 over tensor ops here: the doubling and bisection loops read their exit
 condition back from the device once per step, and the greedy completion
@@ -48,7 +54,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +66,7 @@ __all__ = [
     "fetch_partition",
     "np_order_sum",
     "numpy_sum_block",
+    "ragged_order_sum",
     "resolve_device",
     "torch_dtype",
 ]
@@ -217,6 +224,32 @@ def np_order_sum(x: torch.Tensor) -> torch.Tensor:
     return _plan_sum(x, numpy_sum_block())
 
 
+def ragged_order_sum(lens: Sequence[int], device) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A row sum for ``[g, p_max]`` lanes whose row ``i`` holds only its
+    first ``lens[i]`` elements (the rest are padding): lane ``i`` is summed
+    over its first ``lens[i]`` elements in numpy's order for a row of that
+    length, so it equals ``np.sum`` of the unpadded row bit for bit.
+    Zero padding alone would not do: numpy's pairwise tree depends on the
+    row length, and a longer row associates the same values differently.
+    Lanes of one length share one :func:`np_order_sum` call."""
+    lens = [int(v) for v in lens]
+    width = max(lens, default=0)
+    if all(v == width for v in lens):
+        return np_order_sum
+    by_len = {}
+    for i, v in enumerate(lens):
+        by_len.setdefault(v, []).append(i)
+    parts = [(torch.as_tensor(idx, device=device), v) for v, idx in by_len.items()]
+
+    def row_sum(x: torch.Tensor) -> torch.Tensor:
+        out = x.new_zeros(x.shape[:-1])
+        for idx, v in parts:
+            out = out.index_copy(0, idx, np_order_sum(x[idx, :v]))
+        return out
+
+    return row_sum
+
+
 def _plan_sum(x: torch.Tensor, block: Optional[int]) -> torch.Tensor:
     n = x.shape[-1]
     batch = x.shape[:-1]
@@ -326,8 +359,83 @@ def _alloc_at_time(xs, ss, counts, t, caps):
     return torch.where(tb > 0.0, best, 0.0)
 
 
-def _total_alloc(xs, ss, counts, t, caps):
-    return np_order_sum(_alloc_at_time(xs, ss, counts, t, caps))
+def _total_alloc(xs, ss, counts, t, caps, row_sum=np_order_sum):
+    return row_sum(_alloc_at_time(xs, ss, counts, t, caps))
+
+
+# ---------------------------------------------------------------------------
+# Group aggregation on the device (core/hierarchy.py)
+# ---------------------------------------------------------------------------
+
+
+def _agg_products(xs, ss, ts):
+    """Segment-slope products ``t*m`` (``[g, T, p, k-1]``) and ``m*x0``
+    (``[g, p, k-1]``) of the aggregation, materialised as tensors of their
+    own before :func:`_agg_alloc_impl` subtracts them: each product is
+    rounded on its own, as numpy's two-op sequence rounds it, and nothing
+    can contract ``1 - t*m`` or ``s0 - m*x0`` into an FMA.  Eager torch
+    gives that; these functions must never run under ``torch.compile``."""
+    x0, x1 = xs[..., :-1], xs[..., 1:]
+    s0, s1 = ss[..., :-1], ss[..., 1:]
+    denom = torch.where(x1 > x0, x1 - x0, 1.0)
+    m = (s1 - s0) / denom
+    tm = ts[..., None, None] * m[:, None]  # [g, T, p, k-1]
+    mx0 = m * x0  # [g, p, k-1]
+    return tm, mx0
+
+
+def _agg_alloc_impl(xs, ss, counts, caps, ts, tm, mx0):
+    """Member allocations at per-group sample times: ``[g, p, k]`` bank
+    blocks at ``[g, T]`` times give ``[g, T, p]``.  ``_alloc_at_time`` with
+    a broadcast time lane, taking the two products precomputed, so each
+    element is bitwise the host ``_alloc_at_times`` pass.  The per-group
+    member sum runs back on the host, over the same axis as the host pass,
+    so the aggregate bank equals the numpy backend's."""
+    xsb, ssb, cb, capb = xs[:, None], ss[:, None], counts[:, None], caps[:, None]
+    tb = ts[..., None]  # [g, T, 1] against [g, 1, p]
+    first_x, first_s, last_x, last_s = _edges(xsb, ssb, cb)
+
+    best = torch.minimum(tb * first_s, torch.minimum(first_x, capb))
+
+    k_max = xs.shape[-1]
+    if k_max >= 2:
+        x0, x1 = xsb[..., :-1], xsb[..., 1:]
+        s0 = ssb[..., :-1]
+        seg = torch.arange(k_max - 1, device=xs.device)
+        valid = (
+            (seg < (cb - 1).unsqueeze(-1))
+            & (x0 < capb.unsqueeze(-1))
+            & (x1 > x0)
+        )
+        x1c = torch.minimum(x1, capb.unsqueeze(-1))
+        tseg = tb.unsqueeze(-1)  # [g, T, 1, 1] against [g, 1, p, k-1]
+        a = 1.0 - tm
+        b = tseg * (s0 - mx0[:, None])
+        ub = b / torch.where(a != 0.0, a, 1.0)
+        cand = torch.where(
+            a > 0.0,
+            torch.where(ub >= x0, torch.minimum(ub, x1c), 0.0),
+            torch.where(
+                a == 0.0,
+                torch.where(b >= 0.0, x1c, 0.0),
+                torch.where(x1c >= ub, x1c, 0.0),
+            ),
+        )
+        cand = torch.where(valid, cand, 0.0)
+        best = torch.maximum(best, cand.amax(dim=-1))
+
+    ub_r = tb * last_s
+    right = (capb > last_x) & (ub_r >= last_x) & (cb > 0)
+    best = torch.maximum(best, torch.where(right, torch.minimum(ub_r, capb), 0.0))
+
+    best = torch.where((capb > 0.0) & (cb > 0), best, 0.0)
+    return torch.where(tb > 0.0, best, 0.0)
+
+
+def _agg_alloc(xs, ss, counts, caps, ts):
+    """The device aggregation: the products first, then the allocations."""
+    tm, mx0 = _agg_products(xs, ss, ts)
+    return _agg_alloc_impl(xs, ss, counts, caps, ts, tm, mx0)
 
 
 def _monotone_lanes(xs, ss, counts):
@@ -352,7 +460,7 @@ def _monotone_lanes(xs, ss, counts):
 # ---------------------------------------------------------------------------
 
 
-def _partition_continuous(xs, ss, counts, caps, n, rel_tol, max_steps):
+def _partition_continuous(xs, ss, counts, caps, n, rel_tol, max_steps, row_sum=np_order_sum):
     active = caps > 0.0
 
     # Exponential search for an upper bound on t* (per batch element).
@@ -360,7 +468,7 @@ def _partition_continuous(xs, ss, counts, caps, n, rel_tol, max_steps):
     hi = torch.where(active, t_init, float("-inf")).amax(dim=-1)
     hi = torch.clamp(torch.clamp(hi, min=0.0), min=1e-9)
     for _ in range(200):
-        need = _total_alloc(xs, ss, counts, hi, caps) < n
+        need = _total_alloc(xs, ss, counts, hi, caps, row_sum) < n
         if not bool(need.any()):
             break
         hi = torch.where(need, hi * 2.0, hi)
@@ -373,7 +481,7 @@ def _partition_continuous(xs, ss, counts, caps, n, rel_tol, max_steps):
         if bool(done.all()):
             break
         mid = 0.5 * (lo + hi)
-        ge = _total_alloc(xs, ss, counts, mid, caps) >= n
+        ge = _total_alloc(xs, ss, counts, mid, caps, row_sum) >= n
         hi2 = torch.where(~done & ge, mid, hi)
         lo2 = torch.where(~done & ~ge, mid, lo)
         done = done | (hi2 - lo2 <= rel_tol * hi2)
@@ -381,7 +489,7 @@ def _partition_continuous(xs, ss, counts, caps, n, rel_tol, max_steps):
     t_star = hi
 
     alloc = _alloc_at_time(xs, ss, counts, t_star, caps)
-    total = np_order_sum(alloc)
+    total = row_sum(alloc)
     excess = total - n
     scaled = alloc - excess.unsqueeze(-1) * (alloc / total.unsqueeze(-1))
     alloc = torch.where(((total > 0.0) & (excess > 0.0)).unsqueeze(-1), scaled, alloc)
@@ -518,15 +626,20 @@ def _complete_greedy(xs, ss, counts, caps_i, d, rem, leftover):
 
 def _partition_units(
     xs, ss, counts, caps_i, n, min_units, rel_tol, max_steps, fast_mask,
-    completion_fast=False,
+    completion_fast=False, row_sum=np_order_sum,
 ):
     # `n` and `fast_mask` carry the batch shape; `min_units` the row shape
-    # [..., p], so per-lane unit counts, floors and completion routing all
-    # ride the same tensor program.
+    # [..., p] (per-lane floors broadcast by the public API, genuinely
+    # per-row floors on the hierarchy's inner solve, where padded member
+    # rows pin at 0), so per-lane unit counts, floors and completion
+    # routing all ride the same tensor program.  `row_sum` takes the float
+    # sums (numpy's order over the whole row unless the rows are ragged).
     dt = xs.dtype
     n_f = n.to(dt)
     caps_f = torch.minimum(caps_i.to(dt), n_f.unsqueeze(-1))  # continuous clip
-    alloc, t_star = _partition_continuous(xs, ss, counts, caps_f, n_f, rel_tol, max_steps)
+    alloc, t_star = _partition_continuous(
+        xs, ss, counts, caps_f, n_f, rel_tol, max_steps, row_sum
+    )
 
     d = torch.maximum(min_units, torch.floor(alloc).to(caps_i.dtype))
     d = torch.minimum(d, caps_i)
@@ -607,6 +720,9 @@ class TorchModelBank:
     # Per-lane mirror for stacked banks: routes the completion per column.
     monotone_cols: Optional[np.ndarray] = None
     generation: int = 0
+    # Optional energy sub-bank (same layout; ss holds energy RATES x/E(x),
+    # so energy.time(x) == E(x)) — see core/energy.py.
+    energy: Optional["TorchModelBank"] = None
 
     is_torch = True  # duck-type marker for SpeedStore.resolve
 
@@ -625,6 +741,11 @@ class TorchModelBank:
             empty_rows=np.asarray(bank.counts) == 0,
             # resolved on the host while the arrays are still numpy
             monotone=bank.is_monotone(),
+            energy=(
+                cls.from_bank(bank.energy, device=device, dtype=dtype)
+                if bank.energy is not None
+                else None
+            ),
         )
 
     @classmethod
@@ -658,7 +779,13 @@ class TorchModelBank:
             k = max(k, int(min_k))
         padded = [b._padded_to(k) for b in banks]
         flags = [b.monotone for b in banks]
+        energy = (
+            cls.stack([b.energy for b in banks], min_k=min_k)
+            if banks and all(b.energy is not None for b in banks)
+            else None
+        )
         return cls(
+            energy=energy,
             xs=torch.stack([px for px, _ in padded]),
             ss=torch.stack([ps for _, ps in padded]),
             counts=torch.stack([b.counts for b in banks]),
@@ -696,6 +823,7 @@ class TorchModelBank:
             ss=self.ss.detach().cpu().numpy().astype(np.float64),
             counts=self.counts.detach().cpu().numpy().astype(np.int64),
             monotone=self.monotone,
+            energy=self.energy.to_bank() if self.energy is not None else None,
         )
 
     # -- shape ---------------------------------------------------------------
@@ -748,6 +876,7 @@ class TorchModelBank:
             monotone=self.monotone if positive else None,
             monotone_cols=self.monotone_cols if positive else None,
             generation=self.generation,
+            energy=self.energy,  # problem-size semantics unchanged
         )
 
     def copy(self) -> "TorchModelBank":
@@ -758,7 +887,37 @@ class TorchModelBank:
             max_count=self.max_count, empty_rows=self.empty_rows,
             monotone=self.monotone, monotone_cols=self.monotone_cols,
             generation=self.generation,
+            energy=self.energy.copy() if self.energy is not None else None,
         )
+
+    # -- the energy sub-bank (core/energy.py) --------------------------------
+
+    def with_energy(self, energy: "TorchModelBank") -> "TorchModelBank":
+        """Attach an energy sub-bank (same shape; ``ss`` holds energy rates
+        ``x / E(x)``) — returns a new bank sharing this bank's tensors."""
+        if energy.counts.shape != self.counts.shape:
+            raise ValueError(
+                f"energy bank shape {tuple(energy.counts.shape)} != speed bank "
+                f"shape {tuple(self.counts.shape)}"
+            )
+        return TorchModelBank(
+            xs=self.xs, ss=self.ss, counts=self.counts,
+            max_count=self.max_count, empty_rows=self.empty_rows,
+            monotone=self.monotone, monotone_cols=self.monotone_cols,
+            generation=self.generation, energy=energy,
+        )
+
+    def energy_at(self, d) -> torch.Tensor:
+        """Per-processor energies ``E_i(d_i)`` of a distribution (0 for
+        ``d_i <= 0``, NaN on empty energy rows with units)."""
+        if self.energy is None:
+            raise ValueError("no energy sub-bank attached (use with_energy)")
+        return self.energy.time(d)
+
+    def fleet_energy(self, d) -> float:
+        """Total fleet energy ``sum_i E_i(d_i)`` of a distribution, summed
+        in numpy's order (the numpy bank's value bit for bit)."""
+        return float(np_order_sum(self.energy_at(d)))
 
     def _max_count_bound(self) -> int:
         """Host upper bound on ``counts.max()`` (read once if unknown)."""
@@ -951,6 +1110,9 @@ class TorchModelBank:
             # inserted points can create or remove a monotonicity violation;
             # re-resolved lazily on the next partition
             monotone=None,
+            # speed observations leave the energy sub-bank as it is; energy
+            # observations fold into it directly (it is a bank)
+            energy=self.energy,
         )
 
 

@@ -4,7 +4,9 @@ One session object over a :class:`~.speedstore.SpeedStore` (backend resolved
 once) plus a :class:`Policy`:
 
   * ``partition(n, caps, min_units)`` — one optimal distribution from the
-    current models (the paper's step 3);
+    current models (the paper's step 3); with ``objective="energy"`` /
+    ``"pareto"`` / ``energy_cap=`` after ``attach_energy`` it balances
+    energy or picks a point of the time/energy front (``core/energy.py``);
   * ``observe(times)``               — fold one round's measured times into
     the estimates (step 5), EMA-smoothed, repartitioning when the imbalance
     exceeds ``eps``;
@@ -18,6 +20,14 @@ once) plus a :class:`Policy`:
     bit-identical next rounds.  ``from_state`` also reads the reference
     package's ``Scheduler.state_dict()`` as it is (``core/convert.py``).
 
+A ``groups=`` assignment (``policy=Policy.HIER`` is its declarative
+spelling, but any policy may carry groups) sends every flat partition —
+``partition``, ``repartition``, ``observe`` and the rounds of ``autotune`` —
+through the two-level partitioner (``core/hierarchy.py``).  The reference
+routes ``partition`` and ``observe`` so but repartitions its ``autotune``
+rounds flat; the port routes those rounds too, so a DFPA loop over a
+grouped platform runs under the two-level partitioner.
+
 Every constructor defaults to ``backend="torch"`` on ``device="cuda"``: the
 bank and every partition live on the card, and a missing card raises at
 construction.  ``backend="numpy"`` / ``"scalar"`` keep their host meaning
@@ -27,10 +37,8 @@ host.
 The reference runs the grid's per-column inner DFPA loops through its
 multi-tenant fleet scheduler, whose results are bit-identical to sequential
 child ``Scheduler`` loops; the port runs them as those sequential loops
-until its fleet slice lands.  Later slices of the port bring the two-level
-path (``groups=``, ``Policy.HIER``), energy objectives, straggler handling
-and elastic membership; asking for the two-level path raises
-``NotImplementedError``.
+until its fleet slice lands.  Straggler handling and elastic membership
+(``resize``, ``join``, ``leave``) come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import numpy as np
 
 from .executor import Executor, SimulatedExecutor
 from .fpm import AnalyticModel, PiecewiseLinearFPM, imbalance
+from .hierarchy import Hierarchy
 from .modelbank import ModelBank
 from .modelbank_torch import TorchModelBank, resolve_device
 from .partition2d import _col_times, _flat_imbalance, _rebalance_widths
@@ -59,7 +68,7 @@ class Policy(Enum):
     * ``DFPA``   — the paper's algorithm: partial models built online;
     * ``GRID2D`` — the nested 2-D DFPA partitioner of §3.2 (requires
       ``grid=``);
-    * ``HIER``   — the two-level path (a later slice of the port).
+    * ``HIER``   — the two-level partitioner (requires ``groups=``).
     """
 
     CPM = "cpm"
@@ -150,6 +159,7 @@ class Scheduler:
         analytic_tol: Optional[float] = None,
         completion: str = "auto",
         groups: Optional[Sequence[int]] = None,
+        max_group_knots: int = 64,
         device="cuda",
         dtype=None,
     ):
@@ -157,11 +167,8 @@ class Scheduler:
             raise ValueError(f"unknown backend {backend!r}")
         if completion not in ("auto", "threshold", "greedy"):
             raise ValueError(f"unknown completion mode {completion!r}")
-        if groups is not None or policy is Policy.HIER:
-            raise NotImplementedError(
-                "groups= / Policy.HIER come with the hierarchy slice of the port "
-                "(core/hierarchy.py)"
-            )
+        if policy is Policy.HIER and groups is None:
+            raise ValueError("policy=HIER requires a groups= assignment")
         # "auto" = threshold count on monotone banks on the device bank, the
         # exact per-unit greedy otherwise (always on the numpy host path).
         self.completion = completion
@@ -182,6 +189,10 @@ class Scheduler:
                 int(num_groups), backend=backend, dtype=dtype, device=self._device
             )
         self.store = store
+        # two-level routing (core/hierarchy.py): a groups= assignment sends
+        # every flat partition through the hierarchy
+        self.groups = [int(v) for v in groups] if groups is not None else None
+        self.max_group_knots = int(max_group_knots)
         # online state
         self.d: List[int] = (
             _even(self.n_units, self.num_groups)
@@ -248,6 +259,45 @@ class Scheduler:
             return "auto"
         return self.completion
 
+    # -- two-level routing (core/hierarchy.py) --------------------------------
+
+    def set_groups(self, groups: Optional[Sequence[int]]) -> None:
+        """Replace (or, with ``None``, clear) the two-level assignment; the
+        next partition routes through the new grouping.  The models are
+        untouched."""
+        if groups is None:
+            if self.policy is Policy.HIER:
+                raise ValueError("policy=HIER requires a groups= assignment")
+            self.groups = None
+            return
+        if len(groups) != self.num_groups:
+            raise ValueError(
+                f"groups must be a length-p assignment "
+                f"(got {len(groups)} for p={self.num_groups})"
+            )
+        self.groups = [int(v) for v in groups]
+
+    def _hier_partition(self, n, caps, mu) -> Tuple[List[int], float]:
+        store = self.store
+        if store.backend == "scalar":
+            raise ValueError(
+                "hierarchical partitioning requires a banked store "
+                '(backend "numpy" or "torch")'
+            )
+        on_card = store.backend == "torch"
+        h = Hierarchy.from_bank(
+            store.bank(),
+            self.groups,
+            backend="torch" if on_card else "numpy",
+            max_group_knots=self.max_group_knots,
+            dtype=self.dtype,
+            device=store.device if on_card else "cpu",
+        )
+        return h.partition_units(
+            n, caps, min_units=mu,
+            completion=self._completion_for(store), with_t=True,
+        )
+
     @property
     def imbalance_estimate(self) -> float:
         ts = [
@@ -267,13 +317,23 @@ class Scheduler:
         *,
         eps: Optional[float] = None,
         persist_caps: bool = False,
+        objective: str = "time",
+        energy_cap: Optional[float] = None,
     ) -> Partition:
         """Compute one optimal distribution from the current models and make
         it the scheduler's current distribution ``d``.  Per-call ``caps``
         apply to this call only unless ``persist_caps=True``.  A grid
         scheduler partitions through :meth:`partition_grid`.
+
+        ``objective``/``energy_cap`` route the bi-objective dispatch (see
+        ``core/energy.py``; call :meth:`attach_energy` first): ``"energy"``
+        balances per-processor energy, ``"pareto"`` picks the knee of the
+        makespan/energy front — or, with ``energy_cap``, the fastest point
+        within the budget.  Not supported in grid or hierarchical mode.
         """
         if self.grid is not None:
+            if objective != "time" or energy_cap is not None:
+                raise ValueError("grid scheduler: objective='time' only")
             raise ValueError("grid scheduler: call partition_grid(M, N)")
         if n is None:
             n = self.n_units
@@ -287,11 +347,39 @@ class Scheduler:
             if persist_caps:
                 self.caps = list(caps)
         mu = self.min_units if min_units is None else int(min_units)
-        d, t_star = self.store.partition(
-            n, caps_now, min_units=mu, completion=self._completion_for(self.store),
-        )
+        if self.groups is not None:
+            if objective != "time" or energy_cap is not None:
+                raise ValueError("hierarchical scheduler: objective='time' only")
+            d, t_star = self._hier_partition(n, caps_now, mu)
+        else:
+            d, t_star = self.store.partition(
+                n, caps_now, min_units=mu, completion=self._completion_for(self.store),
+                objective=objective, energy_cap=energy_cap,
+            )
         self.d = list(d)
         return self._flat_result(d, t_star, eps=self.eps if eps is None else eps)
+
+    def attach_energy(self, models: Sequence) -> "Scheduler":
+        """Attach per-processor energy models (energy-rate FPMs, see
+        ``core/energy.py:energy_model``), enabling the ``objective=`` /
+        ``energy_cap=`` dispatch and :meth:`pareto_front`."""
+        self.store.attach_energy(models)
+        return self
+
+    def pareto_front(self, n: Optional[int] = None, caps=None, *,
+                     min_units: Optional[int] = None, num_points: int = 17):
+        """The makespan/total-energy Pareto front for ``n`` units (energy
+        models must be attached).  Does not update ``d``."""
+        if n is None:
+            n = self.n_units
+        if n is None:
+            raise ValueError("no unit count: pass n or construct with n_units")
+        mu = self.min_units if min_units is None else int(min_units)
+        return self.store.pareto_front(
+            int(n), self.caps if caps is None else caps,
+            min_units=mu, num_points=num_points,
+            completion=self._completion_for(self.store),
+        )
 
     def repartition(self) -> Partition:
         """Force a re-partition from the current estimates."""
@@ -346,10 +434,13 @@ class Scheduler:
         self.store.fold_in([float(di) for di in self.d], speeds, valid)
         if imbalance(times) <= self.eps:  # zero-allocation groups are ignored
             return False
-        new_d = self.store.partition_units(
-            self.n_units, self.caps, min_units=self.min_units,
-            completion=self._completion_for(self.store),
-        )
+        if self.groups is not None:
+            new_d, _ = self._hier_partition(self.n_units, self.caps, self.min_units)
+        else:
+            new_d = self.store.partition_units(
+                self.n_units, self.caps, min_units=self.min_units,
+                completion=self._completion_for(self.store),
+            )
         if new_d == self.d:
             return False
         self.d = new_d
@@ -379,6 +470,8 @@ class Scheduler:
           4. re-partition optimally for the current estimates, execute,
              measure; goto 3 — with the deterministic local-probe escape
              when the partitioner reaches a fixed point short of eps.
+
+        With ``groups=`` set, step 4 runs through the two-level partitioner.
 
         Leaves the scheduler warm: the estimates, ``n_units`` and the final
         distribution stay on the session.
@@ -424,6 +517,8 @@ class Scheduler:
             return list(times)
 
         def repartition() -> List[int]:
+            if self.groups is not None:
+                return self._hier_partition(n, caps, mu)[0]
             return store.partition_units(
                 n, caps, min_units=mu, completion=self._completion_for(store)
             )
@@ -819,6 +914,7 @@ class Scheduler:
         store_state = self.store.state_dict()
         return {
             "version": 1,
+            "energy_points": store_state.get("energy_points"),
             "policy": self.policy.value,
             "backend": self.backend,
             "n_units": self.n_units,
@@ -828,6 +924,8 @@ class Scheduler:
             "smooth": self.smooth,
             "completion": self.completion,
             "caps": list(self.caps) if self.caps is not None else None,
+            "groups": list(self.groups) if self.groups is not None else None,
+            "max_group_knots": self.max_group_knots,
             "d": list(self.d),
             "points": store_state["points"],
             "dtype": store_state["dtype"],
@@ -854,6 +952,8 @@ class Scheduler:
             smooth=state.get("smooth", 0.5),
             backend=state.get("backend", "numpy"),
             completion=state.get("completion", "auto"),
+            groups=state.get("groups"),
+            max_group_knots=state.get("max_group_knots", 64),
             dtype=state.get("dtype"),
         )
         cfg.update(overrides)
@@ -866,6 +966,10 @@ class Scheduler:
             **cfg,
         )
         sched.d = list(state.get("d", sched.d))
+        if state.get("energy_points"):
+            sched.store.attach_energy(
+                [PiecewiseLinearFPM.from_points(p) for p in state["energy_points"]]
+            )
         sched._ema = {(int(g), int(du)): float(v) for g, du, v in state.get("ema", [])}
         sched.rebalances = int(state.get("rebalances", 0))
         sched.steps_observed = int(state.get("steps_observed", 0))

@@ -10,7 +10,11 @@ protocol:
     torch backend, to the device-resident carry in the same call;
   * ``partition_units`` / ``partition_continuous`` / ``partition`` — the
     partitioners, dispatched to the pre-resolved backend;
-  * ``state_dict()`` / ``from_state`` — checkpointable estimates.
+  * ``state_dict()`` / ``from_state`` — checkpointable estimates;
+  * ``attach_energy`` / ``fold_energy`` / ``energy_at`` / ``pareto_front``
+    — the energy sub-store (``core/energy.py``): energy-rate models on the
+    same backend, and the ``objective=`` / ``energy_cap=`` dispatch of
+    :meth:`SpeedStore.partition`.
 
 Three backends:
 
@@ -26,8 +30,6 @@ Three backends:
 the bit-parity contract with the numpy backend); the host backends always
 compute in float64.  ``AnalyticModel`` s can ride the banked backends by
 sample-and-bank (``analytic_tol=``, :func:`sample_analytic_points`).
-
-The energy sub-store and the Pareto front belong to a later slice.
 """
 
 from __future__ import annotations
@@ -143,6 +145,9 @@ class SpeedStore:
         self.fold_generation = 0
         self._np_bank = bank  # wrapped ModelBank (models is None) only
         self._tbank = tbank  # device carry (torch backend); None -> lazy rebuild
+        # optional energy sub-store on the same backend: energy-rate models
+        # er_i(x) = x / E_i(x), so _energy.times(d) are the energies E_i(d)
+        self._energy: Optional["SpeedStore"] = None
 
     # -- construction --------------------------------------------------------
 
@@ -409,6 +414,100 @@ class SpeedStore:
         self.fold_generation += 1
         return self
 
+    # -- the energy sub-store (core/energy.py) -------------------------------
+
+    @property
+    def energy(self) -> Optional["SpeedStore"]:
+        """The attached energy sub-store (None until ``attach_energy`` /
+        ``fold_energy``)."""
+        return self._energy
+
+    @property
+    def has_energy(self) -> bool:
+        return self._energy is not None
+
+    def attach_energy(self, models: Sequence[SpeedModel]) -> "SpeedStore":
+        """Attach per-processor energy-rate models (``er_i(x) = x / E_i(x)``,
+        built from measured ``(x, energy)`` samples with
+        ``energy.energy_model``) as a sub-store on THIS store's backend and
+        device, so energy partitions ride the same path as speed.  Returns
+        the store."""
+        models = list(models)
+        if len(models) != self.p:
+            raise ValueError(
+                f"need {self.p} energy models (one per processor), got {len(models)}"
+            )
+        es = SpeedStore.from_models(
+            models, backend=self.backend, dtype=self.dtype, device=self.device
+        )
+        if self.backend in ("numpy", "torch") and es.backend != self.backend:
+            raise TypeError(
+                "energy models need a piecewise representation to ride the "
+                f"banked {self.backend!r} backend (sample-and-bank them first)"
+            )
+        self._energy = es
+        return self
+
+    def fold_energy(self, x, energy, valid: Optional[Sequence[bool]] = None) -> "SpeedStore":
+        """Insert one measured ``(x_i, energy_i)`` observation per processor
+        into the energy estimates — the energy twin of :meth:`fold_in`, with
+        the rate conversion ``er = x / E`` done here.  Non-positive /
+        non-finite energies (and rows with ``valid[i] == False``) are
+        skipped.  Creates an empty energy sub-store on first fold."""
+        if self._energy is None:
+            self._energy = SpeedStore.empty(
+                self.p, backend=self.backend, dtype=self.dtype, device=self.device
+            )
+        xs = np.broadcast_to(np.asarray(x, dtype=np.float64), (self.p,))
+        es = np.broadcast_to(np.asarray(energy, dtype=np.float64), (self.p,))
+        vv = (
+            np.broadcast_to(np.asarray(valid, dtype=bool), (self.p,))
+            if valid is not None
+            else np.ones(self.p, dtype=bool)
+        )
+        ok = vv & (xs > 0.0) & (es > 0.0) & np.isfinite(es) & np.isfinite(xs)
+        rates = np.where(ok, xs / np.where(es > 0.0, es, 1.0), 1.0)
+        self._energy.fold_in(xs, rates, ok)
+        return self
+
+    def energy_at(self, d) -> np.ndarray:
+        """Per-processor energies ``E_i(d_i)`` under the current energy
+        estimates (0 for ``d_i <= 0``)."""
+        if self._energy is None:
+            raise ValueError(
+                "no energy models attached; call attach_energy() or fold_energy()"
+            )
+        return self._energy.times([float(v) for v in np.broadcast_to(np.asarray(d), (self.p,))])
+
+    def fleet_energy(self, d) -> float:
+        """Total fleet energy ``sum_i E_i(d_i)`` (rows without units or
+        without estimates contribute 0)."""
+        e = self.energy_at(d)
+        darr = np.broadcast_to(np.asarray(d, dtype=np.float64), (self.p,))
+        return float(np.where((darr > 0.0) & np.isfinite(e), e, 0.0).sum())
+
+    def pareto_front(
+        self, n: int, caps=None, *, min_units: int = 0, num_points: int = 17,
+        completion: str = "auto",
+    ):
+        """The makespan/total-energy Pareto front of integer partitions
+        (``core.energy.ParetoFront``): endpoints are exactly the
+        ``objective="time"`` and ``objective="energy"`` solutions, interior
+        points are energy solves under time-threshold-tightened caps — one
+        stacked ``[T, p, k]`` program on the torch backend, bit-identical to
+        the numpy sweep."""
+        if self._energy is None:
+            raise ValueError(
+                "no energy models attached; call attach_energy() or fold_energy()"
+            )
+        from .energy import pareto_front as _pareto_front
+
+        icaps = _prep_unit_caps(self.p, n, caps, min_units)
+        return _pareto_front(
+            self, self._energy, int(n), icaps,
+            min_units=min_units, num_points=num_points, completion=completion,
+        )
+
     def reset_row(self, i: int, points: Sequence[Tuple[float, float]] = ()) -> None:
         """Replace processor ``i``'s estimate (keep only the supplied points,
         typically the freshest operating point).  The device carry is dropped
@@ -442,12 +541,17 @@ class SpeedStore:
 
     def partition_units(
         self, n: int, caps=None, *, min_units: int = 0, completion: str = "auto",
+        objective: str = "time", energy_cap: Optional[float] = None,
     ) -> List[int]:
         """Integer partition of ``n`` units (allocations only)."""
-        return self.partition(n, caps, min_units=min_units, completion=completion)[0]
+        return self.partition(
+            n, caps, min_units=min_units, completion=completion,
+            objective=objective, energy_cap=energy_cap,
+        )[0]
 
     def partition(
         self, n: int, caps=None, *, min_units: int = 0, completion: str = "auto",
+        objective: str = "time", energy_cap: Optional[float] = None,
     ) -> Tuple[List[int], float]:
         """Integer partition plus the continuous solve's ``t*``.
 
@@ -456,9 +560,36 @@ class SpeedStore:
         and the exact per-unit loop otherwise (always on the numpy host
         path); ``"greedy"`` / ``"threshold"`` force a mode.  The scalar
         backend runs its exact loop and refuses ``"threshold"``.
+
+        ``objective`` selects what the geometric solve balances (see
+        ``core/energy.py``; ``"energy"``/``"pareto"`` need energy models
+        attached): ``"time"`` is the default; ``"energy"`` runs the same
+        solve on the energy bank — the returned scalar is the equal-energy
+        point; ``"pareto"`` computes the makespan/energy front and picks
+        the knee — or, with ``energy_cap``, the fastest point whose total
+        energy fits the budget (``energy_cap`` with any objective routes
+        through the front; the returned scalar is the picked point's
+        predicted makespan).
         """
         if completion not in ("auto", "threshold", "greedy"):
             raise ValueError(f"unknown completion mode {completion!r}")
+        if objective not in ("time", "energy", "pareto"):
+            raise ValueError(f"unknown objective {objective!r}")
+        if (objective != "time" or energy_cap is not None) and self._energy is None:
+            raise ValueError(
+                f"objective={objective!r}/energy_cap need energy models; "
+                "call attach_energy() or fold_energy() first"
+            )
+        if objective == "energy" and energy_cap is None:
+            return self._energy.partition(
+                n, caps, min_units=min_units, completion=completion
+            )
+        if objective == "pareto" or energy_cap is not None:
+            front = self.pareto_front(
+                n, caps, min_units=min_units, completion=completion
+            )
+            idx = front.pick(energy_cap)
+            return [int(v) for v in front.allocations[idx]], float(front.times[idx])
         icaps = _prep_unit_caps(self.p, n, caps, min_units)
         if self.backend == "torch":
             d, t_star = self._carry().partition_units(
@@ -505,7 +636,10 @@ class SpeedStore:
                     "build the store with analytic_tol to sample-and-bank it"
                 )
             points.append([(float(x), float(s)) for x, s in m.as_points()])
-        return {"backend": self.backend, "points": points, "dtype": _dtype_name(self.dtype)}
+        state = {"backend": self.backend, "points": points, "dtype": _dtype_name(self.dtype)}
+        if self._energy is not None:
+            state["energy_points"] = self._energy.state_dict()["points"]
+        return state
 
     @classmethod
     def from_state(cls, state: Dict, *, backend: Optional[str] = None, device="cuda") -> "SpeedStore":
@@ -515,9 +649,14 @@ class SpeedStore:
 
         state = store_state_from_reference(state)
         models = [PiecewiseLinearFPM.from_points(p) for p in state["points"]]
-        return cls.from_models(
+        store = cls.from_models(
             models,
             backend=backend or state.get("backend", "numpy"),
             dtype=state.get("dtype"),
             device=device,
         )
+        if state.get("energy_points"):
+            store.attach_energy(
+                [PiecewiseLinearFPM.from_points(p) for p in state["energy_points"]]
+            )
+        return store

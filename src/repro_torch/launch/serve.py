@@ -13,7 +13,7 @@ prefill and 8 decode steps with ``torch.profiler`` and
 prints, for each, the wall time, the device's busy time and idle share,
 and the device time by kernel (one JSON line each).  ``--replicas`` (DFPA
 dispatch across replicas) comes with ``ReplicaDispatcher`` (ROADMAP
-queue 1, item 5).
+queue 1, item 8: serving dispatch).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def main(argv=None):
     ap.add_argument("--replicas", type=int, default=0, help=">0: DFPA dispatch demo (not ported yet)")
     args = ap.parse_args(argv)
     if args.replicas > 0:
-        raise NotImplementedError("--replicas needs ReplicaDispatcher, not ported yet (ROADMAP queue 1, item 5)")
+        raise NotImplementedError("--replicas needs ReplicaDispatcher, not ported yet (ROADMAP queue 1, item 8: serving dispatch)")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

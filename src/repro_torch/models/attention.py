@@ -19,7 +19,7 @@ the reference, where no Pallas kernel covers them.
 Unlike the reference's functional updates, prefill and decode write the
 given cache's tensors in place and return them (no copy of the cache per
 step).  Cross-attention, MLA and the reference's chunked path as a code
-path of its own come later (ROADMAP queue 1, item 8).
+path of its own come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ def apply_attn(
       * decode:  cache given, decode=True, S == 1.
     """
     if cross_kv is not None:
-        raise NotImplementedError("cross-attention is not ported yet (ROADMAP queue 1, item 8)")
+        raise NotImplementedError("cross-attention is not ported yet (ROADMAP queue 1, item 10: what remains of the LLM stack)")
     dtype = x.dtype
     B, S, _ = x.shape
     window = cfg.window if kind == "local" else 0

@@ -7,7 +7,7 @@ fields that only other families (MoE, MLA, encoder-decoder, frontends),
 training or the reference's distribution knobs read are kept so that a
 config reads the same on both sides, but a value other than the default
 raises ``NotImplementedError``: nothing in the port would read it yet
-(ROADMAP queue 1, item 8).
+(ROADMAP queue 1, item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class ModelConfig:
         set_unread = [f for f in _NOT_READ if getattr(self, f) != _DEFAULTS[f]]
         if set_unread:
             raise NotImplementedError(
-                f"{self.name}: {', '.join(set_unread)} not read by the port yet (ROADMAP queue 1, item 8)"
+                f"{self.name}: {', '.join(set_unread)} not read by the port yet (ROADMAP queue 1, item 10: what remains of the LLM stack)"
             )
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)

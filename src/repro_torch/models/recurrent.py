@@ -9,7 +9,7 @@ prefill) calls ``kernels.ops.rglru_scan(log_a, b, h0)`` — the hand-written
 kernel on the card, its plain version on the CPU — with the cache's state
 as ``h0``.  Decode stays the plain one-step update, as in the reference.
 
-The mLSTM and sLSTM blocks (xLSTM) come later (ROADMAP queue 1, item 8).
+The mLSTM and sLSTM blocks (xLSTM) come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations

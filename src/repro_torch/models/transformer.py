@@ -22,7 +22,7 @@ Caches: a list with one entry per layer, in depth order (the reference
 stacks the units' caches).  Prefill and decode update them in place.
 
 MoE, MLA, the self-contained ``mlstm``/``slstm`` kinds, ``prefix_embeds``,
-cross-attention units and ``lm_loss`` come later (ROADMAP queue 1, item 8).
+cross-attention units and ``lm_loss`` come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ __all__ = [
     "prefill",
 ]
 
-_LATER = "(ROADMAP queue 1, item 8)"
+_LATER = "(ROADMAP queue 1, item 10: what remains of the LLM stack)"
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ reference's (a test that needs equal weights carries them over with
 ``nn.convert.params_from_reference``).
 
 ``axes_tree`` and ``spec_tree_shapes`` (sharding, the dry run) come later
-(ROADMAP queue 1, item 8).
+(ROADMAP queue 1, item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ reference jit-compiles prefill and decode, the port runs them eagerly
 under ``torch.inference_mode``; on the card prefill reaches the
 ``flash_attention`` and ``rglru_scan`` kernels and decode runs plain torch.
 
-``ReplicaDispatcher`` (DFPA over request chunks) comes later (ROADMAP
-queue 1, item 5).
+``ReplicaDispatcher`` (DFPA over request chunks) comes later
+(ROADMAP queue 1, item 8: serving dispatch).
 """
 
 from __future__ import annotations

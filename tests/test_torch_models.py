@@ -177,7 +177,7 @@ def test_params_from_reference_unstacks_units():
 
 def test_registry_refuses_unported_archs():
     assert ARCH_IDS[7] == ARCH and len(ARCH_IDS) == 10
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 10: what remains of the LLM stack"):
         get_config("gemma2-2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
@@ -189,7 +189,7 @@ def test_registry_refuses_unported_archs():
 )
 def test_config_refuses_fields_the_port_does_not_read(field, value):
     cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match=f"{field} not read by the port yet .*queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match=f"{field} not read by the port yet .*queue 1, item 10: what remains of the LLM stack"):
         cfg.replace(**{field: value})
 
 
