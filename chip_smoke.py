@@ -213,6 +213,7 @@ DFPA_UNITS = DFPA_N // DFPA_UNIT_ROWS
 DFPA_BLOCKS = dict(bm=32, bn=256, bk=512)
 DFPA_REPEATS = [1, 1, 2, 2, 3, 3, 4, 4]
 DFPA_EPS = 0.1
+DFPA_MAX_OBSERVE_ROUNDS = 20  # the grouped loop's rounds (observe has no probe escape)
 
 # the reference's FLASH_CASES and RGLRU_CASES (tests/test_kernels.py), as data
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -810,11 +811,15 @@ def phase_dfpa() -> tuple:
 
 
 def _dfpa_loop(phase: str, groups=None) -> tuple:
-    """``Scheduler.autotune`` balancing the matmul_update panels; with
-    ``groups`` every round after the first runs under the two-level
-    partitioner.  Fails unless it converges, launches the kernel as often
-    as the rounds account for, all on ``"wgmma"``, and the final
-    distribution re-measures within 2*eps."""
+    """The DFPA loop balancing the matmul_update panels.  Without
+    ``groups`` it is ``Scheduler.autotune``; with ``groups`` it is the
+    loop a grouped session runs, ``Scheduler.observe`` after every round,
+    whose repartitions go through the two-level partitioner (autotune's
+    rounds repartition flat, as the reference's do).  Fails unless it
+    converges, launches the kernel as often as the rounds account for,
+    all on ``"wgmma"``, the final distribution re-measures within 2*eps,
+    and, with ``groups``, every round after the first came from the
+    two-level partitioner."""
     g = torch.Generator(device="cuda").manual_seed(0)
     n = DFPA_N
     a = torch.randn((n, n), generator=g, device="cuda", dtype=torch.bfloat16)
@@ -848,31 +853,53 @@ def _dfpa_loop(phase: str, groups=None) -> tuple:
 
     for name in overhead_ms:
         setattr(store, name, timed(name, getattr(store, name)))
-    sched = Scheduler(store, backend="torch", device="cuda", groups=groups)
-    if groups is not None:  # the rounds partition through the hierarchy
-        sched._hier_partition = timed("partition_units", sched._hier_partition)
     matmul_update_cuda.launches = 0
     matmul_update_cuda.launches_by_route = dict.fromkeys(matmul_update_cuda.launches_by_route, 0)
     t0 = time.perf_counter()
-    res = sched.autotune(executor, DFPA_UNITS, DFPA_EPS, min_units=1)
+    if groups is None:
+        sched = Scheduler(store, backend="torch", device="cuda")
+        res = sched.autotune(executor, DFPA_UNITS, DFPA_EPS, min_units=1)
+        history, converged, allocations = res.diagnostics["history"], res.converged, res.allocations
+        iterations, hier_calls = res.iterations, None
+    else:
+        sched = Scheduler(
+            store, policy=Policy.HIER, groups=groups, n_units=DFPA_UNITS, eps=DFPA_EPS,
+            min_units=1, backend="torch", device="cuda",
+        )
+        hier_calls = 0
+        hier_partition = timed("partition_units", sched._hier_partition)
+
+        def counted(*args, **kwargs):
+            nonlocal hier_calls
+            hier_calls += 1
+            return hier_partition(*args, **kwargs)
+
+        sched._hier_partition = counted
+        history = []
+        for _ in range(DFPA_MAX_OBSERVE_ROUNDS):
+            times = executor.run(sched.d)
+            history.append((list(sched.d), list(times)))
+            if not sched.observe(times):
+                break
+        allocations, iterations = list(sched.d), len(history)
+        converged = imbalance(history[-1][1]) <= DFPA_EPS
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = matmul_update_cuda.launches
     routes = dict(matmul_update_cuda.launches_by_route)
 
-    history = res.diagnostics["history"]
     expected = sum(r for r in DFPA_REPEATS) + sum(
         r for d, _ in history for di, r in zip(d, DFPA_REPEATS) if di > 0
     )
-    remeasured = [executor.run(res.allocations) for _ in range(5)]
+    remeasured = [executor.run(allocations) for _ in range(5)]
     remeasured_imb = [imbalance(t) for t in remeasured]
     median_imb = float(np.median(remeasured_imb))
     out = {
         "phase": phase, "groups": groups, "N": n, "units": DFPA_UNITS, "unit_rows": DFPA_UNIT_ROWS,
         "blocks": DFPA_BLOCKS, "dtype": "bfloat16", "repeats": DFPA_REPEATS, "eps": DFPA_EPS,
-        "bank_device": str(sched.store.device_bank(snapshot=False).device), "iterations": res.iterations,
-        "converged": res.converged, "final_imbalance": res.imbalance,
-        "allocations": res.allocations,
+        "bank_device": str(sched.store.device_bank(snapshot=False).device), "iterations": iterations,
+        "converged": converged, "final_imbalance": imbalance(history[-1][1]),
+        "allocations": allocations, "hier_partition_calls": hier_calls,
         "rounds": [{"d": d, "imbalance": imbalance(t), "times_ms": [v * 1e3 for v in t]} for d, t in history],
         "launches": launches, "launches_by_route": routes, "expected_launches": expected, "wall_s": wall_s,
         "round_ms_sum": sum(max(t) for _, t in history) * 1e3,
@@ -883,8 +910,13 @@ def _dfpa_loop(phase: str, groups=None) -> tuple:
         "final_d_remeasured_imbalance_median": median_imb,
     }
     emit(out)
-    if not res.converged:
+    if not converged:
         raise SystemExit(f"chip_smoke: DFPA ({phase}) did not converge on the card")
+    if groups is not None and hier_calls != len(history) - 1:
+        raise SystemExit(
+            f"chip_smoke: {phase}: {hier_calls} two-level partitions for {len(history)} rounds; "
+            "every round after the first must come from the hierarchy"
+        )
     if launches != expected:
         raise SystemExit(f"chip_smoke: {phase}: {launches} kernel launches, the rounds account for {expected}")
     if routes != {"tile": 0, "wgmma": launches}:

@@ -86,9 +86,9 @@ class Hierarchy:
     directly; the flat ``[p, k]`` bank is never materialized and global
     processor indices run contiguously group by group).
 
-    ``backend`` selects the inner solver: ``"numpy"`` host loops per group,
-    ``"torch"`` one stacked program over the group blocks on ``device``
-    (default ``"cuda"``; a missing card raises).  Instances snapshot their
+    ``backend`` selects the inner solver: ``"torch"`` (the default) one
+    stacked program over the group blocks on ``device`` (default
+    ``"cuda"``; a missing card raises), ``"numpy"`` host loops per group.  Instances snapshot their
     banks at construction — rebuild after the models change.
     """
 
@@ -98,7 +98,7 @@ class Hierarchy:
         members: Sequence[np.ndarray],
         p: int,
         *,
-        backend: str = "numpy",
+        backend: str = "torch",
         max_group_knots: int = 64,
         dtype=None,
         device="cuda",
@@ -123,7 +123,7 @@ class Hierarchy:
         bank: ModelBank,
         groups: Sequence[int],
         *,
-        backend: str = "numpy",
+        backend: str = "torch",
         max_group_knots: int = 64,
         dtype=None,
         device="cuda",
@@ -156,7 +156,7 @@ class Hierarchy:
         cls,
         banks: Sequence[ModelBank],
         *,
-        backend: str = "numpy",
+        backend: str = "torch",
         max_group_knots: int = 64,
         dtype=None,
         device="cuda",

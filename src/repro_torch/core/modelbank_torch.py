@@ -368,74 +368,20 @@ def _total_alloc(xs, ss, counts, t, caps, row_sum=np_order_sum):
 # ---------------------------------------------------------------------------
 
 
-def _agg_products(xs, ss, ts):
-    """Segment-slope products ``t*m`` (``[g, T, p, k-1]``) and ``m*x0``
-    (``[g, p, k-1]``) of the aggregation, materialised as tensors of their
-    own before :func:`_agg_alloc_impl` subtracts them: each product is
-    rounded on its own, as numpy's two-op sequence rounds it, and nothing
-    can contract ``1 - t*m`` or ``s0 - m*x0`` into an FMA.  Eager torch
-    gives that; these functions must never run under ``torch.compile``."""
-    x0, x1 = xs[..., :-1], xs[..., 1:]
-    s0, s1 = ss[..., :-1], ss[..., 1:]
-    denom = torch.where(x1 > x0, x1 - x0, 1.0)
-    m = (s1 - s0) / denom
-    tm = ts[..., None, None] * m[:, None]  # [g, T, p, k-1]
-    mx0 = m * x0  # [g, p, k-1]
-    return tm, mx0
-
-
-def _agg_alloc_impl(xs, ss, counts, caps, ts, tm, mx0):
-    """Member allocations at per-group sample times: ``[g, p, k]`` bank
-    blocks at ``[g, T]`` times give ``[g, T, p]``.  ``_alloc_at_time`` with
-    a broadcast time lane, taking the two products precomputed, so each
-    element is bitwise the host ``_alloc_at_times`` pass.  The per-group
-    member sum runs back on the host, over the same axis as the host pass,
-    so the aggregate bank equals the numpy backend's."""
-    xsb, ssb, cb, capb = xs[:, None], ss[:, None], counts[:, None], caps[:, None]
-    tb = ts[..., None]  # [g, T, 1] against [g, 1, p]
-    first_x, first_s, last_x, last_s = _edges(xsb, ssb, cb)
-
-    best = torch.minimum(tb * first_s, torch.minimum(first_x, capb))
-
-    k_max = xs.shape[-1]
-    if k_max >= 2:
-        x0, x1 = xsb[..., :-1], xsb[..., 1:]
-        s0 = ssb[..., :-1]
-        seg = torch.arange(k_max - 1, device=xs.device)
-        valid = (
-            (seg < (cb - 1).unsqueeze(-1))
-            & (x0 < capb.unsqueeze(-1))
-            & (x1 > x0)
-        )
-        x1c = torch.minimum(x1, capb.unsqueeze(-1))
-        tseg = tb.unsqueeze(-1)  # [g, T, 1, 1] against [g, 1, p, k-1]
-        a = 1.0 - tm
-        b = tseg * (s0 - mx0[:, None])
-        ub = b / torch.where(a != 0.0, a, 1.0)
-        cand = torch.where(
-            a > 0.0,
-            torch.where(ub >= x0, torch.minimum(ub, x1c), 0.0),
-            torch.where(
-                a == 0.0,
-                torch.where(b >= 0.0, x1c, 0.0),
-                torch.where(x1c >= ub, x1c, 0.0),
-            ),
-        )
-        cand = torch.where(valid, cand, 0.0)
-        best = torch.maximum(best, cand.amax(dim=-1))
-
-    ub_r = tb * last_s
-    right = (capb > last_x) & (ub_r >= last_x) & (cb > 0)
-    best = torch.maximum(best, torch.where(right, torch.minimum(ub_r, capb), 0.0))
-
-    best = torch.where((capb > 0.0) & (cb > 0), best, 0.0)
-    return torch.where(tb > 0.0, best, 0.0)
-
-
 def _agg_alloc(xs, ss, counts, caps, ts):
-    """The device aggregation: the products first, then the allocations."""
-    tm, mx0 = _agg_products(xs, ss, ts)
-    return _agg_alloc_impl(xs, ss, counts, caps, ts, tm, mx0)
+    """Member allocations at per-group sample times: ``[g, p, k]`` bank
+    blocks at ``[g, T]`` times give ``[g, T, p]``.  One
+    :func:`_alloc_at_time` over the blocks broadcast as ``[g, 1, p, k]``
+    against ``[g, T, 1]`` times, so each element is bitwise the host
+    ``_alloc_at_times`` pass: eager torch rounds ``t*m`` and ``m*x0`` as
+    tensors of their own before anything subtracts them, so nothing
+    contracts them into an FMA.  This function must never run under
+    ``torch.compile``.  The per-group member sum runs back on the host,
+    over the same axis as the host pass, so the aggregate bank equals the
+    numpy backend's."""
+    return _alloc_at_time(
+        xs[:, None], ss[:, None], counts[:, None], ts, caps[:, None]
+    )
 
 
 def _monotone_lanes(xs, ss, counts):

@@ -21,12 +21,10 @@ once) plus a :class:`Policy`:
     package's ``Scheduler.state_dict()`` as it is (``core/convert.py``).
 
 A ``groups=`` assignment (``policy=Policy.HIER`` is its declarative
-spelling, but any policy may carry groups) sends every flat partition —
-``partition``, ``repartition``, ``observe`` and the rounds of ``autotune`` —
-through the two-level partitioner (``core/hierarchy.py``).  The reference
-routes ``partition`` and ``observe`` so but repartitions its ``autotune``
-rounds flat; the port routes those rounds too, so a DFPA loop over a
-grouped platform runs under the two-level partitioner.
+spelling, but any policy may carry groups) sends ``partition``,
+``repartition`` and ``observe`` through the two-level partitioner
+(``core/hierarchy.py``); the rounds of ``autotune`` repartition flat, as
+the reference's do.
 
 Every constructor defaults to ``backend="torch"`` on ``device="cuda"``: the
 bank and every partition live on the card, and a missing card raises at
@@ -471,8 +469,6 @@ class Scheduler:
              measure; goto 3 — with the deterministic local-probe escape
              when the partitioner reaches a fixed point short of eps.
 
-        With ``groups=`` set, step 4 runs through the two-level partitioner.
-
         Leaves the scheduler warm: the estimates, ``n_units`` and the final
         distribution stay on the session.
         """
@@ -517,8 +513,6 @@ class Scheduler:
             return list(times)
 
         def repartition() -> List[int]:
-            if self.groups is not None:
-                return self._hier_partition(n, caps, mu)[0]
             return store.partition_units(
                 n, caps, min_units=mu, completion=self._completion_for(store)
             )

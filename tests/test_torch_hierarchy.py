@@ -16,9 +16,10 @@ Contract:
 * multiple groups stay within 1.12x the flat makespan on monotone banks
   (the reference's fuzz tolerance);
 * validation raises the flat paths' messages;
-* ``Scheduler(groups=...)`` routes ``partition``, ``observe`` and the
-  rounds of ``autotune`` through the hierarchy, and a reference state
-  with groups continues in the port.
+* ``Scheduler(groups=...)`` routes ``partition`` and ``observe`` through
+  the hierarchy while the rounds of ``autotune`` repartition flat, as the
+  reference's do, and a reference state with groups continues in the
+  port.
 """
 
 import numpy as np
@@ -26,6 +27,7 @@ import pytest
 import torch
 
 from repro.core import Scheduler as RefScheduler
+from repro.core import SimulatedExecutor as RefSimulatedExecutor
 from repro.core import SpeedStore as RefSpeedStore
 from repro.core.fpm import PiecewiseLinearFPM as RefFPM
 from repro.core.hierarchy import Hierarchy as RefHierarchy
@@ -403,40 +405,25 @@ def test_reference_state_with_groups_continues_in_the_port():
         Scheduler.from_state(sharded, device="cpu")
 
 
-def _ref_hier_replay(history, groups, n, mu):
-    """The partitions the reference's numpy hierarchy makes from the
-    estimates the loop had folded in before each round after the first."""
-    out = []
-    models = [RefFPM() for _ in groups]
-    for d, times in history[:-1]:
-        for i, (di, ti) in enumerate(zip(d, times)):
-            if di > 0 and ti > 0:
-                models[i].add_point(float(di), di / ti)
-        bank = RefBank.from_models(models)
-        out.append(RefHierarchy.from_bank(bank, groups).partition_units(n, min_units=mu))
-    return out
-
-
-def test_autotune_rounds_run_under_the_hierarchy():
-    """The DFPA loop with ``groups=``: every round after the first is the
-    reference numpy hierarchy's partition of the estimates folded so far;
-    both backends give the same rounds; one group gives the flat loop's."""
+def test_autotune_rounds_repartition_flat_as_the_reference():
+    """The DFPA loop keeps the reference's behaviour under ``groups=``: its
+    rounds repartition flat (only ``partition`` and ``observe`` route
+    through the hierarchy).  Both backends give the reference's numpy
+    rounds, and the grouped loop's rounds equal the ungrouped loop's."""
     speeds = [3.0, 3.0, 1.0, 1.0, 2.0, 2.0, 0.5, 0.5]
     groups = [0, 0, 1, 1, 2, 2, 3, 3]
     fns = [(lambda s: lambda r: r / s * (1.0 + 0.002 * r))(s) for s in speeds]
     n, eps, mu = 512, 0.02, 1
 
-    def run(backend, grp):
-        sched = Scheduler(backend=backend, device="cpu", groups=grp)
-        return sched.autotune(SimulatedExecutor(time_fns=fns), n, eps, min_units=mu, probe_budget=0)
+    def run(sched, executor):
+        return sched.autotune(executor(time_fns=fns), n, eps, min_units=mu, probe_budget=0)
 
-    res = {b: run(b, groups) for b in BACKENDS}
-    assert res["numpy"].diagnostics["history"] == res["torch"].diagnostics["history"]
-    history = res["torch"].diagnostics["history"]
+    want = run(RefScheduler(backend="numpy", groups=groups), RefSimulatedExecutor)
+    history = want.diagnostics["history"]
     assert len(history) >= 2
-    assert [d for d, _ in history[1:]] == _ref_hier_replay(history, groups, n, mu)
-    flat = Scheduler(backend="torch", device="cpu").autotune(
-        SimulatedExecutor(time_fns=fns), n, eps, min_units=mu, probe_budget=0
-    )
-    one = run("torch", [0] * 8)
-    assert one.diagnostics["history"] == flat.diagnostics["history"]
+    for backend in BACKENDS:
+        got = run(Scheduler(backend=backend, device="cpu", groups=groups), SimulatedExecutor)
+        assert got.diagnostics["history"] == history, backend
+        assert got.allocations == want.allocations, backend
+    flat = run(Scheduler(backend="torch", device="cpu"), SimulatedExecutor)
+    assert flat.diagnostics["history"] == history
