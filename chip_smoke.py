@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs eleven phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs thirteen phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -92,11 +92,13 @@ the first fault:
                       2 x 4 grid of processors sharing the card, processor
                       (i, j) running ``matmul_update`` on its (r*128) x
                       (w*128) x 4096 bf16 block r_ij times (r = [[1, 2, 3,
-                      4], [4, 3, 2, 1]]), timed by CUDA events, balanced by
-                      ``partition_grid`` (GRID2D, eps 0.1, M = N = 128 units
-                      of 128).  It must converge, launch the kernel exactly
-                      as often as the speed functions' evaluations times
-                      their repeats, every launch on ``"wgmma"``, and the
+                      4], [4, 3, 2, 1]]), each evaluation of a speed
+                      function the median of three CUDA-event timings,
+                      balanced by ``partition_grid`` (GRID2D, eps 0.1,
+                      M = N = 128 units of 128).  It must converge, launch
+                      the kernel exactly as often as the speed functions'
+                      evaluations times their repeats times three, every
+                      launch on ``"wgmma"``, and the
                       final partition, measured again five times, must have
                       median imbalance <= 2*eps; the CPM partition's
                       measured makespan is printed beside it;
@@ -121,11 +123,29 @@ the first fault:
                       (b) the ``dfpa`` phase's loop once more with
                       ``Scheduler(groups=[0, 0, 1, 1, 2, 2, 3, 3])``, so
                       every round after the first runs under the two-level
-                      partitioner, held to the ``dfpa`` phase's gates.
+                      partitioner, held to the ``dfpa`` phase's gates;
+ 12. ``obs``        — the ``dfpa`` phase's loop once more with a
+                      ``repro_torch.obs`` sink installed: the Chrome trace
+                      (``build/obs_trace.json``) is valid JSON with one
+                      ``scheduler.autotune`` span, one
+                      ``speedstore.partition`` span per call of the store's
+                      ``partition_units`` (and no ``scheduler.partition``),
+                      and ``speedstore.fold_in`` counts the rounds; the
+                      ``dfpa`` phase's gates hold; and what the sink costs;
+ 13. ``straggler``  — the serving loop's order on the DFPA panels
+                      (``straggler_actions`` before ``observe``) under a
+                      ``FlightRecorder``: the eight processors converge,
+                      processor 0 then runs its panel 2, 4, 8, ... times
+                      more each round until QUARANTINE lands on it
+                      (REPROFILE first), ``leave`` drops it, and the seven
+                      survivors converge within eps and re-measure within
+                      2*eps; launches as the rounds account for, all
+                      ``"wgmma"``; the recorder's dump
+                      (``build/straggler.flightrec.json``) names it.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, and ``matmul_update``'s by phase, ``dfpa``,
-``grid`` and ``hier``), the card's name and power limit
+``grid``, ``hier``, ``obs`` and ``straggler``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -179,6 +199,8 @@ from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglr
 from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda  # noqa: E402
 from repro_torch.launch import paper_tables  # noqa: E402
 from repro_torch.launch.matmul_grid import GRID_EPS, GRID_UNITS, MatmulGrid  # noqa: E402
+from repro_torch.obs import FlightRecorder, Telemetry, export_chrome_trace, use  # noqa: E402
+from repro_torch.obs.report import MetricsSnapshot  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     LanguageModel,
     apply_lm,
@@ -188,7 +210,7 @@ from repro_torch.models.transformer import (  # noqa: E402
     lm_logits,
     prefill,
 )
-from repro_torch.runtime import ServeEngine  # noqa: E402
+from repro_torch.runtime import ServeEngine, StragglerAction  # noqa: E402
 
 # the H100 SXM's published dense peaks and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -267,6 +289,11 @@ ENERGY_POINTS = 33
 # 1000, and the DFPA loop's eight processors in pairs of like ones
 HIER_P, HIER_KNOTS, HIER_GROUP, HIER_SEED = 10_000, 4, 1000, 4
 HIER_DFPA_GROUPS = [0, 0, 1, 1, 2, 2, 3, 3]
+# the straggler phase: processor 0 of the DFPA loop (r = 1, the most units)
+# runs its panel 2, 4, 8, ... times more from the round after the loop
+# converges (doubling each round, capped at 256x) until QUARANTINE lands
+STRAGGLER_PROC, STRAGGLER_CAP, STRAGGLER_MAX_SLOW_ROUNDS = 0, 256, 12
+ARTIFACTS = ROOT / "build"  # the obs trace and the flight recorder's dump
 
 
 def emit(obj) -> None:
@@ -807,7 +834,23 @@ def phase_hcl_golden() -> None:
 def phase_dfpa() -> tuple:
     """The main path: Scheduler.autotune over CallableExecutor, each
     processor running matmul_update on its row panel r_i times a round."""
-    return _dfpa_loop("dfpa")
+    out, _ = _dfpa_loop("dfpa")
+    return out["launches"], out["launches_by_route"]
+
+
+def _dfpa_operands():
+    """The DFPA panels' operands: a 16384^2 bf16 A and B, and C."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = DFPA_N
+    a = torch.randn((n, n), generator=g, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn((n, n), generator=g, device="cuda", dtype=torch.bfloat16)
+    c = torch.zeros((n, n), device="cuda", dtype=torch.bfloat16)
+    return a, b, c
+
+
+def _reset_matmul_counts() -> None:
+    matmul_update_cuda.launches = 0
+    matmul_update_cuda.launches_by_route = dict.fromkeys(matmul_update_cuda.launches_by_route, 0)
 
 
 def _dfpa_loop(phase: str, groups=None) -> tuple:
@@ -819,12 +862,10 @@ def _dfpa_loop(phase: str, groups=None) -> tuple:
     converges, launches the kernel as often as the rounds account for,
     all on ``"wgmma"``, the final distribution re-measures within 2*eps,
     and, with ``groups``, every round after the first came from the
-    two-level partitioner."""
-    g = torch.Generator(device="cuda").manual_seed(0)
+    two-level partitioner.  Returns the phase's JSON line and the
+    scheduler."""
     n = DFPA_N
-    a = torch.randn((n, n), generator=g, device="cuda", dtype=torch.bfloat16)
-    b = torch.randn((n, n), generator=g, device="cuda", dtype=torch.bfloat16)
-    c = torch.zeros((n, n), device="cuda", dtype=torch.bfloat16)
+    a, b, c = _dfpa_operands()
 
     def processor(r):
         def run(units):
@@ -853,8 +894,7 @@ def _dfpa_loop(phase: str, groups=None) -> tuple:
 
     for name in overhead_ms:
         setattr(store, name, timed(name, getattr(store, name)))
-    matmul_update_cuda.launches = 0
-    matmul_update_cuda.launches_by_route = dict.fromkeys(matmul_update_cuda.launches_by_route, 0)
+    _reset_matmul_counts()
     t0 = time.perf_counter()
     if groups is None:
         sched = Scheduler(store, backend="torch", device="cuda")
@@ -923,7 +963,7 @@ def _dfpa_loop(phase: str, groups=None) -> tuple:
         raise SystemExit(f"chip_smoke: {phase}: the DFPA panels launched {routes}, not every one on 'wgmma'")
     if median_imb > 2 * DFPA_EPS:
         raise SystemExit(f"chip_smoke: {phase}: the final distribution re-measures at imbalance {median_imb}")
-    return launches, routes
+    return out, sched
 
 
 # ---------------------------------------------------------------------------
@@ -1196,7 +1236,8 @@ def _grid_repartition(smi: str) -> None:
 
 def _grid_application() -> tuple:
     """(c) partition_grid (GRID2D) balancing matmul_update blocks on the
-    card.  After the counts are read, the kernel is held against its plain
+    card, each speed-function evaluation the median of ``app.samples``
+    timings.  After the counts are read, the kernel is held against its plain
     version at the blocks' shapes: the even first round's, and the final
     partition's largest and smallest."""
     app = MatmulGrid()
@@ -1204,8 +1245,7 @@ def _grid_application() -> tuple:
     torch.cuda.synchronize()
     app.reset_counts()
     sched = Scheduler(grid=app.grid(), policy=Policy.GRID2D, backend="torch", device="cuda")
-    matmul_update_cuda.launches = 0
-    matmul_update_cuda.launches_by_route = dict.fromkeys(matmul_update_cuda.launches_by_route, 0)
+    _reset_matmul_counts()
     t0 = time.perf_counter()
     part = sched.partition_grid(GRID_UNITS, GRID_UNITS, eps=GRID_EPS)
     torch.cuda.synchronize()
@@ -1241,7 +1281,8 @@ def _grid_application() -> tuple:
         "converged": part.converged, "final_imbalance": part.imbalance, "outer_iterations": part.iterations,
         "rounds": part.diagnostics["total_rounds"], "col_widths": part.col_widths,
         "row_heights": part.row_heights, "wall_s": wall_s,
-        "speed_fn_evaluations": evals, "speed_fn_s": eval_s, "scheduling_s": wall_s - eval_s,
+        "speed_fn_evaluations": evals, "samples_per_evaluation": app.samples, "speed_fn_s": eval_s,
+        "scheduling_s": wall_s - eval_s,
         "launches": launches, "launches_by_route": routes, "expected_launches": expected,
         "c_finite": c_finite, "block_parity_max_abs_err": parity,
         "final_remeasured_imbalance": remeasured_imb, "final_remeasured_imbalance_median": median_imb,
@@ -1403,7 +1444,201 @@ def _hier_bank(smi: str) -> None:
 
 def phase_hier(smi: str) -> tuple:
     _hier_bank(smi)
-    return _dfpa_loop("hier", groups=HIER_DFPA_GROUPS)
+    out, _ = _dfpa_loop("hier", groups=HIER_DFPA_GROUPS)
+    return out["launches"], out["launches_by_route"]
+
+
+# ---------------------------------------------------------------------------
+
+
+def _sink_cost(tel, store, reps: int = 5) -> dict:
+    """What a recording sink costs: the host seconds to record this run's
+    events into a fresh sink (per DFPA round), and ``partition_units`` on the
+    converged store with the sink on and off, in turns (medians, ms)."""
+    replay = Telemetry()
+    t0 = time.perf_counter()
+    for e in tel.events:
+        if e.kind == "span":
+            replay.span_at(e.name, e.t0, e.t1, **e.attrs)
+        elif e.kind == "event":
+            replay.event(e.name, **e.attrs)
+        else:
+            getattr(replay, e.kind)(e.name, e.value, **e.attrs)
+    record_s = time.perf_counter() - t0
+    ms = {"on": [], "off": []}
+    for _ in range(reps):
+        for state, sink in (("on", Telemetry()), ("off", None)):
+            with use(sink):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                store.partition_units(DFPA_UNITS, None, min_units=1)
+                ms[state].append((time.perf_counter() - t) * 1e3)
+    return {"record_events_s": record_s, "events": len(tel.events),
+            "partition_ms_median": {k: float(np.median(v)) for k, v in ms.items()},
+            "partition_ms": ms}
+
+
+def phase_obs() -> tuple:
+    """The ``dfpa`` phase's loop once more with a ``Telemetry`` sink
+    installed: its Chrome trace (``build/obs_trace.json``) must be valid
+    JSON with one ``scheduler.autotune`` span, one ``speedstore.partition``
+    span (``backend="torch"``) per call of the store's ``partition_units``
+    and none of ``scheduler.partition`` (autotune repartitions through the
+    store, as the reference's does), ``speedstore.fold_in`` must count the
+    rounds, and the loop keeps the ``dfpa`` phase's gates."""
+    tel = Telemetry()
+    with use(tel):
+        out, sched = _dfpa_loop("obs")
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    path = ARTIFACTS / "obs_trace.json"
+    export_chrome_trace(tel, str(path))
+    trace = json.loads(path.read_text())
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    count = {name: sum(e["name"] == name for e in spans)
+             for name in ("scheduler.autotune", "scheduler.partition", "speedstore.partition")}
+    snap = MetricsSnapshot.from_payload(tel.to_payload())
+    rounds, calls = len(out["rounds"]), len(out["partition_units_ms"])
+    checks = {
+        "trace_is_json_with_events": bool(trace["traceEvents"]),
+        "one_autotune_span": count["scheduler.autotune"] == 1,
+        "no_scheduler_partition_span": count["scheduler.partition"] == 0,
+        "one_partition_span_per_call": count["speedstore.partition"] == calls,
+        "partition_spans_on_torch": all(
+            e["args"]["backend"] == "torch" for e in spans if e["name"] == "speedstore.partition"),
+        "no_bisection_steps_gauge": "speedstore.bisection_steps" not in tel.gauges,
+        "fold_in_counts_rounds": tel.counters.get("speedstore.fold_in") == rounds == snap.fold_ins,
+        "autotune_span_iterations": next(
+            e["args"]["iterations"] for e in spans if e["name"] == "scheduler.autotune") == rounds,
+    }
+    emit({"phase": "obs", "trace": str(path.relative_to(ROOT)), "span_counts": count, "rounds": rounds,
+          "partition_units_calls": calls, "counters": tel.counters, "gauges": tel.gauges,
+          "span_wall_ms": {k: v * 1e3 for k, v in snap.span_totals.items()},
+          "sink_cost": _sink_cost(tel, sched.store), "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: the obs trace failed {checks}")
+    return out["launches"], out["launches_by_route"]
+
+
+def phase_straggler() -> tuple:
+    """The serving loop's order on the DFPA panels, with a ``FlightRecorder``
+    installed: each round runs the distribution, then
+    ``Scheduler.straggler_actions`` (REPROFILE applied by the scheduler),
+    then ``observe``.  (1) The eight processors converge; (2) processor
+    ``STRAGGLER_PROC`` runs its panel 2, 4, 8, ... times more each round
+    (capped at ``STRAGGLER_CAP``) until QUARANTINE lands on it, and
+    ``leave`` drops it (its function leaves the executor); (3) the seven
+    survivors converge.  Fails unless REPROFILE lands on the slowed
+    processor before QUARANTINE, a ``scheduler.reprofile`` event names it,
+    no other processor is quarantined, the survivors converge within eps
+    and their final distribution re-measures at median imbalance <= 2*eps,
+    the launches equal what the rounds account for, all ``"wgmma"``, and the
+    dumped recorder's ``straggler.verdict`` events name the slowed
+    processor."""
+    a, b, c = _dfpa_operands()
+    mult = [1] * len(DFPA_REPEATS)
+
+    def processor(i):
+        def run(units):
+            rows = units * DFPA_UNIT_ROWS
+            for _ in range(DFPA_REPEATS[i] * mult[i]):
+                matmul_update(c[:rows], a[:rows], b, **DFPA_BLOCKS)
+        return run
+
+    alive = list(range(len(DFPA_REPEATS)))  # original index of each live processor
+    executor = CallableExecutor([processor(i) for i in alive], device="cuda")
+    sched = Scheduler(
+        SpeedStore.empty(len(alive), backend="torch", device="cuda"), n_units=DFPA_UNITS,
+        eps=DFPA_EPS, min_units=1, backend="torch", device="cuda",
+    )
+    rec = FlightRecorder(capacity=8192, snapshot_capacity=64)
+    rounds, expected = [], 0
+    _reset_matmul_counts()
+    t0 = time.perf_counter()
+
+    def one_round(stage):
+        nonlocal expected
+        d = list(sched.d)
+        expected += sum(
+            DFPA_REPEATS[alive[i]] * mult[alive[i]] * ((i not in executor.warmed) + 1)
+            for i, di in enumerate(d) if di > 0
+        )
+        times = executor.run(d)
+        acts = [act.value for act in sched.straggler_actions(times)]
+        rec.snapshot(stage, {"d": d, "alive": list(alive)})
+        rounds.append({"stage": stage, "slowdown": mult[STRAGGLER_PROC], "alive": list(alive), "d": d,
+                       "times_ms": [v * 1e3 for v in times], "imbalance": imbalance(times),
+                       "actions": {alive[i]: act for i, act in enumerate(acts) if act != "none"},
+                       "strikes": {alive[g]: s for g, s in sched.detector.strikes.items() if s}})
+        return times, acts
+
+    def converge(stage):
+        for _ in range(DFPA_MAX_OBSERVE_ROUNDS):
+            times, acts = one_round(stage)
+            if "quarantine" in acts:
+                return False
+            sched.observe(times)
+            if imbalance(times) <= DFPA_EPS:
+                return True
+        return False
+
+    with use(rec):
+        converged = converge("healthy")
+        quarantined = None
+        if converged:
+            for _ in range(STRAGGLER_MAX_SLOW_ROUNDS):
+                mult[STRAGGLER_PROC] = min(2 * mult[STRAGGLER_PROC], STRAGGLER_CAP)
+                times, acts = one_round("slowed")
+                gone = [i for i, act in enumerate(acts) if act == "quarantine"]
+                if gone:
+                    quarantined = [alive[i] for i in gone]
+                    sched.leave(gone)
+                    alive = [p for i, p in enumerate(alive) if i not in gone]
+                    executor = CallableExecutor([processor(p) for p in alive], device="cuda")
+                    break
+                sched.observe(times)
+        survivors_converged = quarantined == [STRAGGLER_PROC] and converge("survivors")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = matmul_update_cuda.launches
+    routes = dict(matmul_update_cuda.launches_by_route)
+
+    remeasured = [executor.run(sched.d) for _ in range(5)] if survivors_converged else []
+    median_imb = float(np.median([imbalance(t) for t in remeasured])) if remeasured else None
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    path = ARTIFACTS / "straggler.flightrec.json"
+    rec.dump(str(path), reason="quarantine", context={"processor": STRAGGLER_PROC, "quarantined": quarantined})
+    dump = json.loads(path.read_text())
+    verdicts = [e["attrs"] for e in dump["events"] if e["name"] == "straggler.verdict"]
+    reprofiled = [e["attrs"]["group"] for e in dump["events"] if e["name"] == "scheduler.reprofile"]
+    slowed = [r for r in rounds if r["stage"] == "slowed"]
+    verdict_rounds = {
+        act: next((k for k, r in enumerate(slowed, 1) if r["actions"].get(STRAGGLER_PROC) == act), None)
+        for act in ("reprofile", "quarantine")
+    }
+    checks = {
+        "healthy_loop_converged": converged,
+        "quarantined_only_the_slowed_processor": quarantined == [STRAGGLER_PROC] and not any(
+            act == "quarantine" for r in rounds for p, act in r["actions"].items() if p != STRAGGLER_PROC),
+        "reprofile_before_quarantine": None not in verdict_rounds.values()
+        and verdict_rounds["reprofile"] < verdict_rounds["quarantine"],
+        "reprofile_event_names_it": STRAGGLER_PROC in reprofiled,
+        "survivors_converged": bool(survivors_converged),
+        "survivors_remeasure_within_2eps": median_imb is not None and median_imb <= 2 * DFPA_EPS,
+        "launches_accounted": launches == expected,
+        "all_wgmma": routes == {"tile": 0, "wgmma": launches},
+        "recorder_verdicts_name_it": bool(verdicts) and all(
+            v["group"] == STRAGGLER_PROC for v in verdicts),
+    }
+    emit({"phase": "straggler", "processor": STRAGGLER_PROC, "cap": STRAGGLER_CAP, "repeats": DFPA_REPEATS,
+          "eps": DFPA_EPS, "verdict_rounds_after_onset": verdict_rounds, "quarantined": quarantined,
+          "rounds": rounds, "wall_s": wall_s, "launches": launches, "launches_by_route": routes,
+          "expected_launches": expected, "final_d": sched.d, "final_alive": alive,
+          "final_d_remeasured_imbalance_median": median_imb,
+          "flight_recorder": str(path.relative_to(ROOT)), "recorder_events": len(dump["events"]),
+          "recorder_verdicts": verdicts, "reprofile_events": reprofiled, "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: the straggler phase failed {checks}")
+    return launches, routes
 
 
 def main() -> int:
@@ -1427,10 +1662,14 @@ def main() -> int:
     grid_launches, grid_routes = run("grid", phase_grid, smi)
     run("energy", phase_energy, smi)
     hier_launches, hier_routes = run("hier", phase_hier, smi)
-    by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches}
+    obs_launches, obs_routes = run("obs", phase_obs)
+    straggler_launches, straggler_routes = run("straggler", phase_straggler)
+    by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
+                "straggler": straggler_launches}
+    by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes]
     launches = {"matmul_update": sum(by_phase.values()), **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
     routes = {
-        "matmul_update": {r: dfpa_routes[r] + grid_routes[r] + hier_routes[r] for r in dfpa_routes},
+        "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},
         **serve["launches_by_route"],
     }
     sources = {

@@ -25,9 +25,14 @@ follows that structure:
 The reference's ``sharding="shard_map"`` (group blocks spread over several
 devices) has no counterpart on one card: this hierarchy takes no
 ``sharding=``, and :meth:`Hierarchy.max_shard_elems` counts all ``g``
-blocks.  Nor does it emit the reference's telemetry (``hier.outer``,
-``hier.inner``, ``hier.agg_cache.*``): that arrives with the port's
-``obs/``.
+blocks.
+
+Telemetry (``repro_torch.obs``) is the reference's: a ``hier.outer`` span
+around the outer solve, a ``hier.inner`` span around the inner solves and a
+``hier.agg_cache.hit`` / ``.miss`` counter per aggregation-cache lookup.
+On the torch backend ``hier.inner`` spans the one stacked ``[g, p_max, k]``
+device solve (which returns host allocations, so the span covers the
+device work), not the reference's per-group loop.
 
 Exactness tiers (held by ``tests/test_torch_hierarchy.py``):
 
@@ -67,6 +72,12 @@ from .partition import (
     _partition_units_bank,
     _prep_unit_caps,
 )
+
+try:  # telemetry is optional: the solver runs identically without obs/
+    from ..obs.telemetry import active as _obs_active
+except ImportError:  # pragma: no cover - obs layer absent
+    def _obs_active():
+        return None
 
 __all__ = ["Hierarchy"]
 
@@ -245,7 +256,14 @@ class Hierarchy:
             if np.any((caps_arr[idx] > 0) & (sub.counts == 0)):
                 raise ValueError("empty FPM")
 
+        tel = _obs_active()
+        rec = tel is not None and tel.enabled
+        if rec:
+            t0 = tel.clock()
         shares, t_outer, _ = self._outer_shares(n, caps_arr, min_units)
+        if rec:
+            t1 = tel.clock()
+            tel.span_at("hier.outer", t0, t1, groups=self.g, n=n)
 
         if self.backend == "torch":
             d_full = self._inner_torch(shares, caps_arr, min_units, completion, max_steps)
@@ -262,6 +280,9 @@ class Hierarchy:
                     completion=completion,
                 )
                 d_full[idx] = d_sub
+        if rec:
+            tel.span_at("hier.inner", t1, tel.clock(),
+                        groups=self.g, backend=self.backend)
         out = [int(v) for v in d_full]
         assert sum(out) == n
         return (out, float(t_outer)) if with_t else out
@@ -284,6 +305,12 @@ class Hierarchy:
         uncapped = bool(np.all(caps_arr >= n))
         key = "uncapped" if uncapped else caps_arr.tobytes()
         gbank = self._agg_cache.get(key)
+        tel = _obs_active()
+        if tel is not None and tel.enabled:
+            tel.counter(
+                "hier.agg_cache.hit" if gbank is not None
+                else "hier.agg_cache.miss"
+            )
         if gbank is None:
             caps_f = (
                 np.full(self.p, np.inf)

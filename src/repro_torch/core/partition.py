@@ -40,6 +40,11 @@ __all__ = [
 
 Models = Union[Sequence[SpeedModel], ModelBank]
 
+# Iteration count of the most recent host-side t* bisection (scalar or bank
+# kernel) — a telemetry tap read by SpeedStore.partition after a host solve.
+# The torch bank runs its bisection on the device and does not report here.
+_LAST_BISECTION_STEPS: int = 0
+
 
 def _total_alloc(models: Sequence[SpeedModel], t: float, caps: Sequence[float]) -> float:
     return sum(m.alloc_at_time(t, c) for m, c in zip(models, caps))
@@ -128,7 +133,9 @@ def _partition_continuous_scalar(
         raise RuntimeError("could not bracket t*")
     lo = 0.0
     # Bisection: invariant total(lo) < n <= total(hi).
+    steps = 0
     for _ in range(max_steps):
+        steps += 1
         mid = 0.5 * (lo + hi)
         if _total_alloc(models, mid, caps) >= n:
             hi = mid
@@ -136,6 +143,8 @@ def _partition_continuous_scalar(
             lo = mid
         if hi - lo <= rel_tol * hi:
             break
+    global _LAST_BISECTION_STEPS
+    _LAST_BISECTION_STEPS = steps
     t_star = hi
     xs = [m.alloc_at_time(t_star, c) for m, c in zip(models, caps)]
     total = sum(xs)
@@ -172,7 +181,9 @@ def _partition_continuous_bank(
     else:  # pragma: no cover - guarded by the feasibility check above
         raise RuntimeError("could not bracket t*")
     lo = 0.0
+    steps = 0
     for _ in range(max_steps):
+        steps += 1
         mid = 0.5 * (lo + hi)
         if bank.total_alloc(mid, caps_arr) >= n:
             hi = mid
@@ -180,6 +191,8 @@ def _partition_continuous_bank(
             lo = mid
         if hi - lo <= rel_tol * hi:
             break
+    global _LAST_BISECTION_STEPS
+    _LAST_BISECTION_STEPS = steps
     t_star = hi
     xs = bank.alloc_at_time(t_star, caps_arr)
     total = float(xs.sum())

@@ -15,10 +15,17 @@ once) plus a :class:`Policy`:
   * ``partition_grid(M, N)``         — the nested 2-D partitioner of §3.2,
     policy-selected CPM / FFMPA / DFPA-based, and ``repartition_grid``, its
     no-benchmark refresh of every column as one stacked ``[q, p, k]`` bank;
+  * ``straggler_actions(times)``     — the straggler detector
+    (``runtime/straggler.py``) over one round's times: REPROFILE is applied
+    (``reprofile``), QUARANTINE reported for the caller's ``leave``;
+  * ``resize`` / ``join`` / ``leave`` — elastic membership: survivors keep
+    their estimates, joiners borrow the fastest survivor's point, and the
+    session repartitions at once, on the same backend, dtype and device;
   * ``state_dict()`` / ``from_state()`` — config, estimates, EMA state and
     the current distribution round-trip, so a restored scheduler produces
     bit-identical next rounds.  ``from_state`` also reads the reference
     package's ``Scheduler.state_dict()`` as it is (``core/convert.py``).
+    Neither carries the straggler detector, as in the reference.
 
 A ``groups=`` assignment (``policy=Policy.HIER`` is its declarative
 spelling, but any policy may carry groups) sends ``partition``,
@@ -35,8 +42,14 @@ host.
 The reference runs the grid's per-column inner DFPA loops through its
 multi-tenant fleet scheduler, whose results are bit-identical to sequential
 child ``Scheduler`` loops; the port runs them as those sequential loops
-until its fleet slice lands.  Straggler handling and elastic membership
-(``resize``, ``join``, ``leave``) come with a later slice of the port.
+until its fleet slice lands.
+
+With a ``repro_torch.obs`` sink installed the session records the
+reference's telemetry: ``scheduler.partition`` and ``scheduler.autotune``
+spans, ``scheduler.observe`` counters and ``scheduler.reprofile`` events.
+``autotune`` and ``observe`` repartition through the store, so their rounds
+record ``speedstore.partition`` spans (or ``hier.*`` spans under
+``groups=``), not ``scheduler.partition``.
 """
 
 from __future__ import annotations
@@ -54,6 +67,12 @@ from .modelbank import ModelBank
 from .modelbank_torch import TorchModelBank, resolve_device
 from .partition2d import _col_times, _flat_imbalance, _rebalance_widths
 from .speedstore import BACKENDS, SpeedStore
+
+try:  # telemetry is optional: the scheduler runs identically without obs/
+    from ..obs.telemetry import active as _obs_active
+except ImportError:  # pragma: no cover - obs layer absent
+    def _obs_active():
+        return None
 
 __all__ = ["Policy", "Partition", "Scheduler"]
 
@@ -132,6 +151,9 @@ def _probe_neighbour(d, times, seen, caps, min_units):
     return None
 
 
+_UNSET = object()
+
+
 class Scheduler:
     """Session-style facade over the self-adaptable partitioning lifecycle.
 
@@ -154,6 +176,7 @@ class Scheduler:
         caps: Optional[Sequence[int]] = None,
         smooth: float = 0.5,
         backend: str = "torch",
+        detector: Optional[Any] = None,
         analytic_tol: Optional[float] = None,
         completion: str = "auto",
         groups: Optional[Sequence[int]] = None,
@@ -187,6 +210,7 @@ class Scheduler:
                 int(num_groups), backend=backend, dtype=dtype, device=self._device
             )
         self.store = store
+        self.detector = detector
         # two-level routing (core/hierarchy.py): a groups= assignment sends
         # every flat partition through the hierarchy
         self.groups = [int(v) for v in groups] if groups is not None else None
@@ -345,6 +369,10 @@ class Scheduler:
             if persist_caps:
                 self.caps = list(caps)
         mu = self.min_units if min_units is None else int(min_units)
+        tel = _obs_active()
+        rec = tel is not None and tel.enabled
+        if rec:
+            t0 = tel.clock()
         if self.groups is not None:
             if objective != "time" or energy_cap is not None:
                 raise ValueError("hierarchical scheduler: objective='time' only")
@@ -354,6 +382,10 @@ class Scheduler:
                 n, caps_now, min_units=mu, completion=self._completion_for(self.store),
                 objective=objective, energy_cap=energy_cap,
             )
+        if rec:
+            tel.span_at("scheduler.partition", t0, tel.clock(),
+                        n=n, objective=objective,
+                        hier=self.groups is not None)
         self.d = list(d)
         return self._flat_result(d, t_star, eps=self.eps if eps is None else eps)
 
@@ -430,6 +462,9 @@ class Scheduler:
             self._ema[key] = ema
             speeds[i], valid[i] = di / ema, True
         self.store.fold_in([float(di) for di in self.d], speeds, valid)
+        tel = _obs_active()
+        if tel is not None and tel.enabled:
+            tel.counter("scheduler.observe")
         if imbalance(times) <= self.eps:  # zero-allocation groups are ignored
             return False
         if self.groups is not None:
@@ -501,6 +536,9 @@ class Scheduler:
         if probe_budget is None:
             probe_budget = 2 * p
         probes_left = probe_budget
+        tel = _obs_active()
+        rec = tel is not None and tel.enabled
+        t_tune = tel.clock() if rec else 0.0
 
         def measure(d: List[int]) -> List[float]:
             times = executor.run(d)
@@ -536,6 +574,11 @@ class Scheduler:
             self.n_units = n
             self.d = list(d)
             self.eps = eps
+            if rec:
+                tel.span_at("scheduler.autotune", t_tune, tel.clock(),
+                            n=n, iterations=it, converged=bool(converged),
+                            imbalance=float(imb),
+                            probes_used=probe_budget - probes_left)
             return Partition(
                 allocations=list(d),
                 t_star=None,
@@ -580,6 +623,148 @@ class Scheduler:
             d = d_new
             times = measure(d)
             it += 1
+
+    # -- straggler detection --------------------------------------------------
+
+    def straggler_actions(self, times: Sequence[float], *, auto_reprofile: bool = True):
+        """Scan one round's observed times against the models' predictions
+        (the host bank, ``store.bank()``); returns one ``StragglerAction``
+        per group.  REPROFILE actions are applied automatically (stale
+        estimates invalidated) unless ``auto_reprofile=False``; QUARANTINE
+        is reported for the caller to act on (``leave(group)``)."""
+        from ..runtime.straggler import StragglerAction, StragglerDetector
+
+        if self.detector is None:
+            self.detector = StragglerDetector()
+        actions = self.detector.update_batch(self.store.bank(), self.d, times)
+        if auto_reprofile:
+            for g, act in enumerate(actions):
+                if act is StragglerAction.REPROFILE:
+                    self.reprofile(g)
+        return actions
+
+    def reprofile(self, group: int) -> None:
+        """Invalidate a group's estimate (keep only the point at its current
+        allocation, so the partitioner stays feasible), clear its EMA state
+        and drop the device carry, which is rebuilt lazily."""
+        tel = _obs_active()
+        if tel is not None and tel.enabled:
+            tel.event("scheduler.reprofile", group=int(group))
+        m = self.store.models[group]
+        if getattr(m, "num_points", 0) > 1:
+            di = self.d[group] if self.d else 0
+            pts = [(x, s) for x, s in m.as_points() if x == float(di)]
+            self.store.reset_row(group, pts)
+        for k in [k for k in self._ema if k[0] == group]:
+            del self._ema[k]
+        if self.store._tbank is not None:
+            self.store.drop_carry()
+
+    # -- elastic membership ---------------------------------------------------
+
+    def resize(
+        self,
+        surviving: Sequence[int],
+        joined: int = 0,
+        *,
+        caps=_UNSET,
+    ) -> "Scheduler":
+        """New scheduler for a changed group set: survivors keep their FPM
+        points (§3.2's reuse of previous benchmarks); joiners start from an
+        optimistic single-point estimate borrowed from the fastest survivor
+        (corrected by their first measurement).  The new store has this
+        session's backend, dtype and device, so a session on the card stays
+        on the card.  Re-partitions immediately when every group has at
+        least one point."""
+        old_models = self.store.models
+        models: List[PiecewiseLinearFPM] = [
+            PiecewiseLinearFPM.from_points(old_models[i].as_points()) for i in surviving
+        ]
+        donor = None
+        donor_pos = 0
+        for pos, m in enumerate(models):
+            if m.num_points:
+                cand = max(m.as_points(), key=lambda pt: pt[1])
+                if donor is None or cand[1] > donor[1]:
+                    donor, donor_pos = cand, pos
+        for _ in range(joined):
+            models.append(
+                PiecewiseLinearFPM.from_points([donor]) if donor else PiecewiseLinearFPM()
+            )
+        if caps is _UNSET:
+            if self.caps is None:
+                caps = None
+            else:
+                # joiners inherit n_units as their cap, or the most generous
+                # survivor cap while the session has no unit count yet
+                join_cap = (
+                    self.n_units
+                    if self.n_units is not None
+                    else max((self.caps[i] for i in surviving), default=None)
+                )
+                if joined and join_cap is None:  # no survivors, no n_units
+                    caps = None
+                else:
+                    caps = [self.caps[i] for i in surviving] + [join_cap] * joined
+        groups = None
+        if self.groups is not None:
+            # survivors keep their group ids; joiners enter the donor's group
+            groups = [self.groups[i] for i in surviving]
+            join_group = groups[donor_pos] if groups else 0
+            groups = groups + [join_group] * joined
+        # the detector's strike counts are keyed by group index: remap them
+        # (departed groups drop out, joiners start clean)
+        detector = (
+            self.detector.remap(surviving, joined)
+            if self.detector is not None
+            else None
+        )
+        store = self.store
+        new = Scheduler(
+            SpeedStore.from_models(
+                models, backend=self.backend, dtype=self.dtype, device=store.device
+            ),
+            policy=self.policy,
+            n_units=self.n_units,
+            eps=self.eps,
+            min_units=self.min_units,
+            caps=caps,
+            smooth=self.smooth,
+            backend=self.backend,
+            detector=detector,
+            completion=self.completion,
+            groups=groups,
+            max_group_knots=self.max_group_knots,
+            device=store.device,
+            dtype=self.dtype,
+        )
+        if all(m.num_points for m in models) and new.n_units is not None:
+            new.d = new.store.partition_units(
+                new.n_units, new.caps, min_units=new.min_units,
+                completion=new._completion_for(new.store),
+            )
+        return new
+
+    def _adopt(self, other: "Scheduler") -> None:
+        self.store = other.store
+        self.d = list(other.d)
+        self.caps = other.caps
+        self.groups = list(other.groups) if other.groups is not None else None
+        self._ema = {}  # group indices shifted; stale EMA keys are invalid
+        self.detector = other.detector  # remapped by resize() for the same reason
+
+    def join(self, count: int = 1, *, caps=_UNSET) -> "Scheduler":
+        """``count`` new groups join; warm re-partition, in place."""
+        self._adopt(self.resize(list(range(self.num_groups)), joined=count, caps=caps))
+        return self
+
+    def leave(self, groups, *, caps=_UNSET) -> "Scheduler":
+        """Group (or groups) leave; survivors keep their estimates and the
+        units are redistributed immediately, in place."""
+        gone = {int(groups)} if np.isscalar(groups) else {int(g) for g in groups}
+        surviving = [i for i in range(self.num_groups) if i not in gone]
+        self._adopt(self.resize(surviving, caps=caps))
+        return self
 
     # -- nested 2-D partitioning (paper §3.2) ---------------------------------
 

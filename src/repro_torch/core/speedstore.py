@@ -52,6 +52,12 @@ from .partition import (
     _prep_unit_caps,
 )
 
+try:  # telemetry is optional: the store runs identically without obs/
+    from ..obs.telemetry import active as _obs_active
+except ImportError:  # pragma: no cover - obs layer absent
+    def _obs_active():
+        return None
+
 __all__ = ["SpeedStore", "sample_analytic_points", "BACKENDS"]
 
 BACKENDS = ("scalar", "numpy", "torch")
@@ -412,6 +418,10 @@ class SpeedStore:
         if self.backend == "torch":
             self._tbank = self._carry().fold_in(xs, ss, vv)
         self.fold_generation += 1
+        tel = _obs_active()
+        if tel is not None and tel.enabled:
+            tel.counter("speedstore.fold_in")
+            tel.gauge("speedstore.fold_generation", self.fold_generation)
         return self
 
     # -- the energy sub-store (core/energy.py) -------------------------------
@@ -591,21 +601,39 @@ class SpeedStore:
             idx = front.pick(energy_cap)
             return [int(v) for v in front.allocations[idx]], float(front.times[idx])
         icaps = _prep_unit_caps(self.p, n, caps, min_units)
+        tel = _obs_active()
+        rec = tel is not None and tel.enabled
+        if rec:
+            t0 = tel.clock()
         if self.backend == "torch":
             d, t_star = self._carry().partition_units(
                 n, icaps, min_units=min_units, with_t=True, completion=completion
             )
+            if rec:
+                # the device bisection reports no host iteration count; the
+                # allocations are host arrays by now, so the span covers the
+                # device work
+                tel.span_at("speedstore.partition", t0, tel.clock(),
+                            n=int(n), backend="torch")
             return [int(v) for v in d], float(t_star)
         if self.backend == "numpy":
-            return _partition_units_bank(
+            out = _partition_units_bank(
                 self.bank(), n, icaps, min_units=min_units, completion=completion
             )
-        if completion == "threshold":
-            raise ValueError(
-                "the scalar backend has no threshold completion; use a banked "
-                "backend or completion='auto'/'greedy'"
-            )
-        return _partition_units_scalar(self.models, n, icaps, min_units=min_units)
+        else:
+            if completion == "threshold":
+                raise ValueError(
+                    "the scalar backend has no threshold completion; use a banked "
+                    "backend or completion='auto'/'greedy'"
+                )
+            out = _partition_units_scalar(self.models, n, icaps, min_units=min_units)
+        if rec:
+            from . import partition as _partition_mod
+
+            tel.gauge("speedstore.bisection_steps", _partition_mod._LAST_BISECTION_STEPS)
+            tel.span_at("speedstore.partition", t0, tel.clock(),
+                        n=int(n), backend=self.backend)
+        return out
 
     # -- derived metrics ------------------------------------------------------
 

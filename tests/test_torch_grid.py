@@ -272,3 +272,93 @@ def test_repartition_grid_refuses_missing_estimates():
         Scheduler(policy=Policy.GRID2D, backend="torch", device="cpu").repartition_grid(
             fpms, [[30, 30]], [30, 30], 16
         )
+
+
+# ---------------------------------------------------------------------------
+# MatmulGrid's launch accounting (the card's application, on the host)
+# ---------------------------------------------------------------------------
+
+
+class _HostEvent:
+    """Stands in for ``torch.cuda.Event`` on the host: an event records the
+    work launched so far (the multiply-adds of every block, ``WORK[0]``),
+    and a timing is the work between two events times a seeded jitter, so
+    repeated timings of one block differ and their median is not the first
+    of them.  Every timing is kept in ``TIMINGS``."""
+
+    WORK, TIMINGS, RNG = [0.0], [], np.random.default_rng(0)
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = self.WORK[0]
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        ms = (end.t - self.t) * float(self.RNG.uniform(0.8, 1.25))
+        self.TIMINGS.append(ms)
+        return ms
+
+
+@pytest.mark.parametrize("samples", [1, 3])
+def test_matmul_grid_counts_every_sample(monkeypatch, samples):
+    """Each evaluation of a speed function runs the block ``samples`` times
+    and returns ``r*w`` over the median timing; ``expected`` counts
+    ``repeats * samples`` launches per evaluation, exactly the launches made
+    while ``partition_grid`` balances the grid; ``measure`` times each block
+    once."""
+    import torch
+
+    from repro_torch.launch import matmul_grid as mg
+
+    launches = []
+    plain = mg.matmul_update
+
+    def counted(c, a, b, **blocks):
+        launches.append(1)
+        _HostEvent.WORK[0] += c.shape[0] * c.shape[1] * a.shape[1] * 1e-3
+        return plain(c, a, b, **blocks)
+
+    monkeypatch.setattr(mg, "matmul_update", counted)
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    repeats = [[1, 2, 3], [3, 2, 1]]
+    app = mg.MatmulGrid(repeats=repeats, unit=4, units=12, K=8, blocks=dict(bm=4, bn=4, bk=8),
+                        samples=samples, device="cpu")
+    assert app.samples == samples and app.a.device.type == "cpu"
+
+    evals = []
+    grid = [[(lambda i, j, g: lambda mb, nb: (evals.append((i, j)), g(mb, nb))[1])(i, j, g)
+             for j, g in enumerate(row)] for i, row in enumerate(app.grid())]
+    before = len(_HostEvent.TIMINGS)
+    speed = grid[1][0](5.0, 3.0)
+    timings = _HostEvent.TIMINGS[before:]
+    assert len(timings) == samples and len(launches) == repeats[1][0] * samples
+    assert speed == 5 * 3 / (float(np.median(timings)) / 1e3)
+    app.reset_counts()
+    del launches[:], evals[:]
+
+    part = Scheduler(grid=grid, policy=Policy.GRID2D, backend="numpy", device="cpu").partition_grid(
+        12, 12, eps=0.3
+    )
+    assert sum(part.col_widths) == 12 and all(sum(r) == 12 for r in part.row_heights)
+    assert app.evals == len(evals) > 0
+    assert len(launches) == app.expected == sum(repeats[i][j] * samples for i, j in evals)
+    del launches[:]
+    times = app.measure(part)
+    assert len(times) == 6 and len(launches) == sum(map(sum, repeats))
+    with pytest.raises(ValueError, match="samples"):
+        mg.MatmulGrid(samples=0, device="cpu")
+
+
+def test_matmul_grid_default_device_refuses_without_cuda():
+    import torch
+
+    from repro_torch.launch.matmul_grid import MatmulGrid
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs a machine without one")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MatmulGrid()

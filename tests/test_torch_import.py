@@ -32,6 +32,7 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.configs.recurrentgemma_2b, repro_torch.nn.convert\n"
         "import repro_torch.core.partition2d, repro_torch.launch.paper_tables\n"
         "import repro_torch.launch.matmul_grid, repro_torch.core.energy, repro_torch.core.hierarchy\n"
+        "import repro_torch.obs, repro_torch.obs.report, repro_torch.runtime.straggler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -1,0 +1,374 @@
+"""The port's telemetry (``repro_torch.obs``): the sink API, the Chrome
+trace, the flight recorder, the report, and the instrumentation of the
+port's ``Scheduler``, ``SpeedStore``, ``Hierarchy`` and straggler detector.
+
+The sink-level cases are the reference's (``tests/test_obs.py``, which does
+not collect on this toolchain, ROADMAP R1).  The reference's trace, report
+and read-only cases drive its fleet, which the port does not have yet; here
+they drive one port session instead: ``autotune`` on the HCL simulator,
+then serving rounds (``straggler_actions`` before ``observe``) in which one
+processor slows down more every round until it is quarantined and
+``leave`` s, then a grouped ``partition`` and ``observe`` and a ``join``.
+
+The invariants, on ``backend="numpy"`` and ``"torch"`` (``device="cpu"``):
+
+* a disabled sink receives zero calls;
+* with every ``_obs_active`` hook patched to ``None`` (the package absent)
+  and with a recording sink installed, the results are bit-identical;
+* the same calls through the reference's numpy ``Scheduler`` under
+  ``repro.obs`` record the same span, counter, gauge and event names, in
+  the same order, with equal counts and values and equal non-time
+  attributes — except that the torch backend records no
+  ``speedstore.bisection_steps`` gauge (its bisection runs on the device,
+  like the reference's jax backend) and its ``backend`` attributes read
+  ``"torch"``.
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+import repro.core as ref_core
+import repro.obs as ref_obs
+
+import repro_torch.core as port_core
+import repro_torch.runtime.straggler as port_straggler
+from repro_torch import obs
+from repro_torch.core import PiecewiseLinearFPM
+from repro_torch.obs.report import MetricsSnapshot
+from repro_torch.runtime.straggler import StragglerAction, StragglerDetector
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BACKENDS = ["numpy", "torch"]
+
+
+# ---------------------------------------------------------------------------
+# Telemetry sink API (the reference's cases)
+# ---------------------------------------------------------------------------
+
+
+def test_telemetry_records_all_kinds():
+    tel = obs.Telemetry()
+    tel.span_at("work", 1.0, 1.5, n=3)
+    tel.counter("hits")
+    tel.counter("hits", 2)
+    tel.gauge("theta", 0.25)
+    tel.gauge("theta", 0.75)  # last value wins
+    tel.event("boom", who="r2")
+    assert tel.enabled
+    assert tel.counters["hits"] == 3
+    assert tel.gauges["theta"] == 0.75
+    spans = tel.spans()
+    assert [s.name for s in spans] == ["work"]
+    assert spans[0].t1 - spans[0].t0 == pytest.approx(0.5)
+    assert spans[0].attrs == {"n": 3}
+    kinds = sorted(e.kind for e in tel.events)
+    assert kinds == ["counter", "counter", "event", "gauge", "gauge", "span"]
+    payload = tel.to_payload()
+    assert payload["counters"]["hits"] == 3
+    tel.clear()
+    assert not tel.events and not tel.counters and not tel.gauges
+
+
+def test_telemetry_ring_bound():
+    tel = obs.Telemetry(capacity=4)
+    for i in range(10):
+        tel.event("e", i=i)
+    assert len(tel.events) == 4
+    assert [e.attrs["i"] for e in tel.events] == [6, 7, 8, 9]
+    # counters/gauges aggregate regardless of the ring
+    for i in range(10):
+        tel.counter("c")
+    assert tel.counters["c"] == 10
+
+
+def test_install_active_use():
+    assert obs.active() is obs.NOOP
+    assert not obs.NOOP.enabled
+    tel = obs.Telemetry()
+    obs.install(tel)
+    try:
+        assert obs.active() is tel
+    finally:
+        obs.uninstall()
+    assert obs.active() is obs.NOOP
+    with obs.use(tel) as got:
+        assert got is tel and obs.active() is tel
+    assert obs.active() is obs.NOOP
+    # NOOP swallows every call without recording
+    obs.NOOP.span_at("x", 0.0, 1.0)
+    obs.NOOP.counter("x")
+    obs.NOOP.gauge("x", 1.0)
+    obs.NOOP.event("x")
+
+
+def test_lazy_metrics_snapshot_attribute():
+    import repro_torch.obs as pkg
+    assert pkg.MetricsSnapshot is MetricsSnapshot
+    with pytest.raises(AttributeError):
+        pkg.no_such_symbol
+
+
+def test_flight_recorder_ring_and_snapshot_bounds():
+    flight = obs.FlightRecorder(capacity=8, snapshot_capacity=2)
+    for i in range(20):
+        flight.event("e", i=i)
+        flight.snapshot(f"s{i}", {"i": i})
+    assert len(flight.events) == 8
+    assert len(flight.snapshots) == 2
+    assert [s["label"] for s in flight.snapshots] == ["s18", "s19"]
+
+
+# ---------------------------------------------------------------------------
+# straggler events + flight recorder (the reference's cases, port detector)
+# ---------------------------------------------------------------------------
+
+
+def _quarantine_under(sink):
+    det = StragglerDetector(factor=1.5, patience=3, patience_hard=6)
+    model = PiecewiseLinearFPM.from_points([(1.0, 1000.0), (100.0, 1000.0)])
+    with obs.use(sink):
+        for _ in range(8):
+            act = det.update(2, model, d_units=10, observed_t=0.04)
+            if act is StragglerAction.QUARANTINE:
+                return act
+    return act
+
+
+def test_straggler_strike_events_carry_evidence():
+    tel = obs.Telemetry()
+    act = _quarantine_under(tel)
+    assert act is StragglerAction.QUARANTINE
+    strikes = [e for e in tel.events if e.name == "straggler.strike"]
+    verdicts = [e for e in tel.events if e.name == "straggler.verdict"]
+    assert strikes and verdicts
+    ev = strikes[-1].attrs
+    assert ev["group"] == 2
+    assert ev["ratio"] == pytest.approx(4.0)
+    assert ev["predicted"] == pytest.approx(0.01)
+    assert ev["observed"] == pytest.approx(0.04)
+    assert verdicts[-1].attrs["action"] == "quarantine"
+    assert tel.counters["straggler.quarantine"] == 1
+
+
+def test_flight_recorder_dump_names_offender(tmp_path):
+    flight = obs.FlightRecorder(capacity=64, snapshot_capacity=4)
+    flight.snapshot("pre", {"allocations": [10, 10, 10]})
+    act = _quarantine_under(flight)
+    assert act is StragglerAction.QUARANTINE
+    path = tmp_path / "incident.flightrec.json"
+    flight.dump(str(path), reason="quarantine",
+                context={"replica": 2, "epoch": 5})
+    dump = json.loads(path.read_text())
+    assert dump["kind"] == "flight-recorder"
+    assert dump["reason"] == "quarantine"
+    assert dump["context"]["replica"] == 2
+    assert dump["snapshots"][0]["label"] == "pre"
+    strikes = [e for e in dump["events"] if e["name"] == "straggler.strike"]
+    assert strikes and strikes[-1]["attrs"]["group"] == 2
+    assert strikes[-1]["attrs"]["observed"] == pytest.approx(0.04)
+
+
+# ---------------------------------------------------------------------------
+# one session through every instrumented layer
+# ---------------------------------------------------------------------------
+
+N, EPS, SLOW = 2048, 0.05, 3
+
+
+def _row_fns(tfns, n):
+    return [(lambda tf: lambda r: tf(r * n))(tf) for tf in tfns]
+
+
+def _session(core, backend):
+    """autotune, serving rounds with a slowing processor until it leaves,
+    then a grouped partition, grouped observe rounds and a join.  Returns
+    every distribution and verdict along the way."""
+    kw = {"device": "cpu"} if core is port_core else {}
+    _, tfns = core.make_hcl_time_fns(N)
+    fns = _row_fns(tfns, N)
+    sched = core.Scheduler(backend=backend, **kw)
+    res = sched.autotune(core.SimulatedExecutor(time_fns=fns), N, EPS, min_units=1)
+    out = [("autotune", res.allocations, res.iterations, res.converged)]
+    slow = [1.0] * len(fns)
+    for k in range(1, 12):
+        slow[SLOW] = 2.0 ** k  # doubles every round
+        times = [fn(d) * s if d > 0 else 0.0 for fn, d, s in zip(fns, sched.d, slow)]
+        acts = [a.value for a in sched.straggler_actions(times)]
+        out.append(("actions", acts))
+        gone = [g for g, a in enumerate(acts) if a == "quarantine"]
+        if gone:
+            sched.leave(gone)
+            fns = [fn for g, fn in enumerate(fns) if g not in gone]
+            slow = [s for g, s in enumerate(slow) if g not in gone]
+            out.append(("leave", gone, list(sched.d)))
+            break
+        sched.observe(times)
+        out.append(("observe", list(sched.d)))
+    sched.set_groups([i % 4 for i in range(sched.num_groups)])
+    part = sched.partition()
+    out.append(("hier", part.allocations, part.t_star))
+    for _ in range(3):
+        sched.observe([fn(d) if d > 0 else 0.0 for fn, d in zip(fns, sched.d)])
+        out.append(("observe", list(sched.d)))
+    sched.join(1)
+    out.append(("join", list(sched.d), [m.as_points() for m in sched.models]))
+    return out
+
+
+def test_session_quarantines_the_slowed_processor():
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        out = _session(port_core, "numpy")
+    verdicts = [e.attrs for e in tel.events if e.name == "straggler.verdict"]
+    assert [v["group"] for v in verdicts] == [SLOW] * len(verdicts)
+    assert [v["action"] for v in verdicts][-1] == "quarantine"
+    assert "reprofile" in [v["action"] for v in verdicts]
+    assert [e.attrs["group"] for e in tel.events if e.name == "scheduler.reprofile"]
+    assert ("leave", [SLOW]) == out[[s[0] for s in out].index("leave")][:2]
+
+
+class _CountingDisabledSink:
+    """enabled=False stub: any recording call is an instrumentation bug."""
+
+    enabled = False
+
+    def __init__(self):
+        self.calls = 0
+
+    def _bump(self, *a, **k):
+        self.calls += 1
+
+    span = span_at = counter = gauge = event = _bump
+    clock = staticmethod(lambda: 0.0)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_disabled_sink_means_zero_obs_calls(backend):
+    """Every site checks ``enabled`` before calling any recording method
+    (the clock included)."""
+    stub = _CountingDisabledSink()
+    with obs.use(stub):
+        _session(port_core, backend)
+    assert stub.calls == 0
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_absent_obs_package_bit_identical(backend, monkeypatch):
+    """Every guarded ``_obs_active`` hook returning None (as the ImportError
+    fallback does) leaves every result bit-identical."""
+    import repro_torch.core.hierarchy as hierarchy
+    import repro_torch.core.scheduler as scheduler
+    import repro_torch.core.speedstore as speedstore
+
+    want = _session(port_core, backend)
+    for mod in (scheduler, speedstore, hierarchy, port_straggler):
+        monkeypatch.setattr(mod, "_obs_active", lambda: None)
+    assert _session(port_core, backend) == want
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_telemetry_is_read_only(backend):
+    want = _session(port_core, backend)
+    with obs.use(obs.Telemetry()):
+        got = _session(port_core, backend)
+    assert got == want
+
+
+def _records(tel, backend):
+    """(kind, name, value unless a span's duration, attributes) per event,
+    rewritten to what the port's ``backend`` records when ``tel`` is the
+    reference's numpy session."""
+    out = []
+    for e in tel.events:
+        attrs = dict(e.attrs)
+        if backend == "torch" and tel.__module__.startswith("repro.obs"):
+            if e.name == "speedstore.bisection_steps":
+                continue
+            if attrs.get("backend") == "numpy":
+                attrs["backend"] = "torch"
+        out.append((e.kind, e.name, None if e.kind == "span" else e.value, attrs))
+    return out
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_names_counts_and_attributes_match_the_reference(backend):
+    ref_tel, port_tel = ref_obs.Telemetry(), obs.Telemetry()
+    with ref_obs.use(ref_tel):
+        want = _session(ref_core, "numpy")
+    with obs.use(port_tel):
+        got = _session(port_core, backend)
+    assert got == want
+    assert _records(port_tel, backend) == _records(ref_tel, backend)
+    names = {e.name for e in port_tel.events}
+    assert {"scheduler.autotune", "scheduler.partition", "scheduler.observe", "scheduler.reprofile",
+            "speedstore.partition", "speedstore.fold_in", "speedstore.fold_generation",
+            "hier.outer", "hier.inner", "hier.agg_cache.miss",
+            "straggler.strike", "straggler.verdict", "straggler.reprofile",
+            "straggler.quarantine"} <= names
+    assert ("speedstore.bisection_steps" in names) == (backend == "numpy")
+    counts = dict(port_tel.counters)
+    if backend == "torch":
+        assert counts == {k: v for k, v in ref_tel.counters.items()}
+        assert port_tel.gauges == {k: v for k, v in ref_tel.gauges.items()
+                                   if k != "speedstore.bisection_steps"}
+    else:
+        assert counts == ref_tel.counters and port_tel.gauges == ref_tel.gauges
+
+
+def test_chrome_trace_is_valid(tmp_path):
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        _session(port_core, "torch")
+        tel.gauge("demo.gauge", 0.5)
+    path = tmp_path / "trace.json"
+    obs.export_chrome_trace(tel, str(path))
+    trace = json.loads(path.read_text())
+    evs = trace["traceEvents"]
+    assert evs, "empty trace"
+    for e in evs:
+        assert e["ph"] in ("X", "C", "i", "M")
+        assert "name" in e and "pid" in e
+    xs = [e for e in evs if e["ph"] == "X"]
+    assert xs and all(e["dur"] >= 0 and "ts" in e for e in xs)
+    assert {e["name"] for e in xs} >= {
+        "scheduler.autotune", "scheduler.partition", "speedstore.partition", "hier.outer", "hier.inner",
+    }
+    assert sum(e["name"] == "scheduler.autotune" for e in xs) == 1
+    assert all(e["args"]["backend"] == "torch" for e in xs if e["name"] == "speedstore.partition")
+    # the sidecar block carries the aggregates for the report
+    assert trace["repro"]["gauges"]["demo.gauge"] == 0.5
+    assert trace["repro"]["counters"]["speedstore.fold_in"] == tel.counters["speedstore.fold_in"]
+
+
+def test_report_snapshot_roundtrip(tmp_path):
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        _session(port_core, "numpy")
+    path = tmp_path / "trace.json"
+    obs.export_chrome_trace(tel, str(path))
+    snap = MetricsSnapshot.from_file(str(path))
+    assert snap.fold_ins == tel.counters["speedstore.fold_in"] > 0
+    assert snap.strikes == tel.counters["straggler.strike"] > 0
+    assert snap.reprofiles == tel.counters["straggler.reprofile"] > 0
+    assert snap.quarantines == tel.counters["straggler.quarantine"] == 1
+    assert snap.span_counts["scheduler.autotune"] == 1
+    assert snap.span_counts["speedstore.partition"] == len(tel.spans("speedstore.partition"))
+    assert snap.rounds is None  # no fleet in the port yet
+    assert snap.table() and "fold-ins" in snap.table() and "span wall totals" in snap.table()
+    # the payload of the sink itself reads the same way
+    assert MetricsSnapshot.from_payload(tel.to_payload()).span_counts == snap.span_counts
+    # the module CLI parses the same file, in process and as ``python -m``
+    from repro_torch.obs import report
+    assert report.main([str(path)]) == 0
+    cli = subprocess.run(
+        [sys.executable, "-W", "error::RuntimeWarning", "-m", "repro_torch.obs.report", str(path)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert cli.returncode == 0, cli.stderr
+    assert "fold-ins" in cli.stdout and "speedstore.partition" in cli.stdout

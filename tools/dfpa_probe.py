@@ -1,13 +1,13 @@
 """Probe the DFPA loop's kernel and rounds on one NVIDIA H100.
 
-    python3 tools/dfpa_probe.py [--src DIR] [--only rows,dfpa] [--runs 8]
+    python3 tools/dfpa_probe.py [--src DIR] [--only rows,dfpa,straggler] [--runs 8]
                                 [--out chiprun_out/dfpa_probe.jsonl]
 
 Run on a machine with the card.  It builds ``matmul_update`` from the
 ``repro_torch`` package under ``--src`` (default: this checkout's ``src``;
-point it at another checkout's to measure that one) and makes up to two
+point it at another checkout's to measure that one) and makes up to three
 measurements, each written as JSON lines to ``--out`` and summed up on
-standard output:
+standard output (``--only`` picks them; ``rows,dfpa`` by default):
 
 1. ``rows`` — one launch through ``ops.matmul_update`` against the panel's
    rows, 32 to 4096 in steps of 32 (every panel a processor of the DFPA loop
@@ -22,7 +22,13 @@ standard output:
    time over the rounds that gave it the same units.  After each run the
    final distribution is measured 30 times as the loop measures it, and 30
    times with the launches queued behind a device-side sleep, so that the
-   card's clock sees no gap left by the host between them.
+   card's clock sees no gap left by the host between them;
+3. ``straggler`` — this checkout's ``chip_smoke.py`` ``straggler`` phase
+   (the DFPA panels under ``straggler_actions`` before ``observe``, one
+   processor slowing until it is quarantined and leaves, the survivors
+   converging again), ``--runs`` times, each run's gates and verdict rounds,
+   and the number of runs that passed every gate.  It always runs this
+   checkout's package (``--src`` does not apply).
 
 ``rows`` counts blocks of the ``"wgmma"`` route's 64x128 tiles; ``dfpa``
 runs on any checkout of the port.
@@ -31,6 +37,8 @@ runs on any checkout of the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import pathlib
 import subprocess
@@ -200,6 +208,39 @@ def probe_dfpa(write, runs: int) -> None:
         del executor
 
 
+def probe_straggler(write, runs: int) -> None:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    passed = 0
+    for i in range(runs):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            try:
+                chip_smoke.phase_straggler()
+                failure = None
+            except SystemExit as exc:
+                failure = str(exc)
+        seconds = time.perf_counter() - t0
+        line = next(json.loads(ln) for ln in reversed(buf.getvalue().splitlines())
+                    if ln.startswith("{") and '"phase": "straggler"' in ln)
+        stages = {}
+        for r in line["rounds"]:
+            stages[r["stage"]] = stages.get(r["stage"], 0) + 1
+        summary = {
+            "probe": "straggler", "run": i, "passed": failure is None, "failure": failure, "seconds": seconds,
+            "verdict_rounds_after_onset": line["verdict_rounds_after_onset"],
+            "quarantined": line["quarantined"], "rounds_by_stage": stages,
+            "final_d_remeasured_imbalance_median": line["final_d_remeasured_imbalance_median"],
+            "launches": line["launches"], "checks": line["checks"],
+        }
+        passed += failure is None
+        write({**line, "probe": "straggler_run", "run": i, "failure": failure})
+        print(json.dumps(summary), flush=True)
+    print(json.dumps({"probe": "straggler", "runs": runs, "passed": passed}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src/ directory that holds repro_torch")
@@ -218,7 +259,8 @@ def main() -> int:
     ).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "src": args.src, "package": _build.__file__}), flush=True)
     _build.build(["matmul_update"])
-    probes = {"rows": probe_rows, "dfpa": lambda w: probe_dfpa(w, args.runs)}
+    probes = {"rows": probe_rows, "dfpa": lambda w: probe_dfpa(w, args.runs),
+              "straggler": lambda w: probe_straggler(w, args.runs)}
     path = pathlib.Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     with path.open("w") as f:

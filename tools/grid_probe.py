@@ -8,7 +8,8 @@ times: a 2 x 4 grid of processors sharing the card, processor (i, j)
 running ``matmul_update`` on its (r*128) x (w*128) x 4096 bf16 block
 r_ij times (r = [[1, 2, 3, 4], [4, 3, 2, 1]]), balanced by
 ``Scheduler(grid=..., policy=Policy.GRID2D, backend="torch").partition_grid``
-at eps 0.1 over M = N = 128 units.  For each run it prints one JSON line:
+at eps 0.1 over M = N = 128 units, each speed-function evaluation the
+median of ``MatmulGrid.samples`` timings.  For each run it prints one JSON line:
 convergence, outer iterations, inner rounds, wall seconds, the seconds
 inside the speed functions (the timed blocks), and the rest of the wall
 split into the device bank's ``SpeedStore.partition`` and
@@ -94,7 +95,8 @@ def one_run(app: mg.MatmulGrid) -> dict:
         "rounds": part.diagnostics["total_rounds"], "col_widths": part.col_widths, "row_heights": part.row_heights,
         "wall_s": wall, "speed_fn_s": eval_s, "partition_s": timed.s["partition"], "fold_in_s": timed.s["fold_in"],
         "other_s": wall - eval_s - timed.s["partition"] - timed.s["fold_in"],
-        "speed_fn_evaluations": evals, "launches": launches, "launches_expected": expected,
+        "speed_fn_evaluations": evals, "samples": app.samples, "launches": launches,
+        "launches_expected": expected,
         "remeasured_imbalance_median": float(np.median([imbalance(t) for t in measured["dfpa"]])),
         "makespan_ms_median": {n: float(np.median([max(t) for t in ts])) * 1e3 for n, ts in measured.items()},
         "cpm_col_widths": cpm.col_widths, "cpm_row_heights": cpm.row_heights,
