@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs thirteen phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs fourteen phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -95,7 +95,10 @@ the first fault:
                       4], [4, 3, 2, 1]]), each evaluation of a speed
                       function the median of three CUDA-event timings,
                       balanced by ``partition_grid`` (GRID2D, eps 0.1,
-                      M = N = 128 units of 128).  It must converge, launch
+                      M = N = 128 units of 128), whose columns' inner loops
+                      run as jobs of one ``FleetScheduler`` per outer round
+                      (the fleet rounds are counted from a telemetry sink's
+                      ``fleet.round`` spans and printed).  It must converge, launch
                       the kernel exactly as often as the speed functions'
                       evaluations times their repeats times three, every
                       launch on ``"wgmma"``, and the
@@ -141,11 +144,33 @@ the first fault:
                       survivors converge within eps and re-measure within
                       2*eps; launches as the rounds account for, all
                       ``"wgmma"``; the recorder's dump
-                      (``build/straggler.flightrec.json``) names it.
+                      (``build/straggler.flightrec.json``) names it;
+ 14. ``fleet``      — the multi-tenant fleet (``repro_torch.fleet``), carry
+                      on the card: (a) in float64, the reference's
+                      ``parity_gate`` (q = 8 jobs, p = 100: equal to eight
+                      numpy ``autotune`` loops and the numpy fleet bit for
+                      bit, and as many device solves as the reference's
+                      fleet counts), ``hier_parity_gate`` (q = 4: one group
+                      equals flat, four groups within 1.05x its makespan and
+                      equal to numpy) and ``bucket_gate`` (lane buckets equal
+                      no buckets, with the reference's restack count); (b)
+                      ``make_tenants(q=16, p=1000)`` measurement rounds,
+                      torch fleet (CUDA events and host walls) beside the
+                      numpy fleet, under exact times (with 16 sequential
+                      torch sessions beside them) and under 2 % noise, the
+                      torch fleet's allocations equal to numpy's after
+                      every round; (c) three tenants with their own repeats
+                      sharing the ``dfpa`` phase's eight processors and
+                      panels, measured through a ``BatchedSimulatedExecutor2D``
+                      that times each panel with CUDA events after one
+                      warm-up per tenant and processor: all converge at
+                      eps 0.1, launches as the rounds and warm-ups account
+                      for, all ``"wgmma"``, each tenant's final distribution
+                      re-measured within 2*eps.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, and ``matmul_update``'s by phase, ``dfpa``,
-``grid``, ``hier``, ``obs`` and ``straggler``), the card's name and power limit
+``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -168,6 +193,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import _build  # noqa: E402  (needs the checkout's src/ on the path)
 from repro_torch.core import (  # noqa: E402
+    BatchedSimulatedExecutor2D,
     CallableExecutor,
     Hierarchy,
     ModelBank,
@@ -184,6 +210,7 @@ from repro_torch.core.energy import energy_model  # noqa: E402
 from repro_torch.core.modelbank_torch import numpy_sum_block, np_order_sum  # noqa: E402
 from repro_torch.core.partition import _partition_units_bank  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.fleet import FleetScheduler, JobSpec  # noqa: E402
 from repro_torch.kernels import flash_attention, matmul_update, ops, rglru_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
@@ -293,6 +320,18 @@ HIER_DFPA_GROUPS = [0, 0, 1, 1, 2, 2, 3, 3]
 # runs its panel 2, 4, 8, ... times more from the round after the loop
 # converges (doubling each round, capped at 256x) until QUARANTINE lands
 STRAGGLER_PROC, STRAGGLER_CAP, STRAGGLER_MAX_SLOW_ROUNDS = 0, 256, 12
+# the fleet: the reference's fleet_scale.py fixtures (parity_gate,
+# hier_parity_gate, bucket_gate; make_tenants for the scale rounds), and
+# three tenants sharing the DFPA phase's eight processors and panels
+FLEET_PARITY = dict(q=8, p=100, seed=11)
+FLEET_HIER = dict(q=4, p=100, seed=23)
+FLEET_BUCKET = dict(p=50, seed=41)
+FLEET_EPS, FLEET_MAX_ITER = 0.03, 8
+# what the reference's jax fleet counts on parity_gate and bucket_gate
+# (tests/test_torch_fleet.py holds these numbers against it)
+FLEET_PARITY_DISPATCHES, FLEET_BUCKET_RESTACKS = 15, 2
+FLEET_SCALE_Q, FLEET_SCALE_P, FLEET_SCALE_ROUNDS = 16, 1000, 3
+FLEET_TENANT_REPEATS = [DFPA_REPEATS, DFPA_REPEATS[::-1], [2, 3, 4, 1, 2, 3, 4, 1]]
 ARTIFACTS = ROOT / "build"  # the obs trace and the flight recorder's dump
 
 
@@ -1245,9 +1284,11 @@ def _grid_application() -> tuple:
     torch.cuda.synchronize()
     app.reset_counts()
     sched = Scheduler(grid=app.grid(), policy=Policy.GRID2D, backend="torch", device="cuda")
+    tel = Telemetry()  # counts the fleet rounds the columns' inner loops ran
     _reset_matmul_counts()
     t0 = time.perf_counter()
-    part = sched.partition_grid(GRID_UNITS, GRID_UNITS, eps=GRID_EPS)
+    with use(tel):
+        part = sched.partition_grid(GRID_UNITS, GRID_UNITS, eps=GRID_EPS)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = matmul_update_cuda.launches
@@ -1279,7 +1320,9 @@ def _grid_application() -> tuple:
         "phase": "grid", "part": "c", "repeats": app.repeats, "unit": app.unit, "M_units": GRID_UNITS,
         "N_units": GRID_UNITS, "K": app.K, "blocks": app.blocks, "dtype": "bfloat16", "eps": GRID_EPS,
         "converged": part.converged, "final_imbalance": part.imbalance, "outer_iterations": part.iterations,
-        "rounds": part.diagnostics["total_rounds"], "col_widths": part.col_widths,
+        "rounds": part.diagnostics["total_rounds"], "fleet_rounds": len(tel.spans("fleet.round")),
+        "fleet_round_jobs_measured": [e.attrs["measured"] for e in tel.spans("fleet.round")],
+        "col_widths": part.col_widths,
         "row_heights": part.row_heights, "wall_s": wall_s,
         "speed_fn_evaluations": evals, "samples_per_evaluation": app.samples, "speed_fn_s": eval_s,
         "scheduling_s": wall_s - eval_s,
@@ -1641,6 +1684,349 @@ def phase_straggler() -> tuple:
     return launches, routes
 
 
+# ---------------------------------------------------------------------------
+
+
+def fleet_knee_case(q: int, p: int, seed: int):
+    """``parity_gate``'s and ``hier_parity_gate``'s tenants
+    (``benchmarks/fleet_scale.py``): per-(job, processor) knee time
+    functions as one ``[q, p]`` array function and as scalar ones, and
+    ``n_j = 20 p + 13 j``."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(1e-5, 9e-5, (q, p))
+    knee = rng.uniform(50.0, 500.0, (q, p))
+
+    def batch_fn(X):
+        return X * base * (1.0 + np.where(X > knee, 3.0 * (X - knee) / knee, 0.0))
+
+    def scalar_fns(j):
+        return [
+            (lambda b, k: lambda x: float(x * b * (1.0 + (3.0 * (x - k) / k if x > k else 0.0))))(
+                base[j, i], knee[j, i])
+            for i in range(p)
+        ]
+
+    return batch_fn, scalar_fns, [20 * p + 13 * j for j in range(q)]
+
+
+def fleet_make_tenants(q: int, p: int, seed: int = 0):
+    """``make_tenants`` of ``benchmarks/fleet_scale.py``: per-(job,
+    processor) plateau/knee ground truth and 6-point warm models sampled
+    from it."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(1e-6, 3e-6, (q, p))
+    knee = rng.uniform(2e3, 2e4, (q, p))
+
+    def time_fn(X):  # X[q, p] -> T[q, p]
+        return X * base * (1.0 + np.where(X > knee, 3.0 * (X - knee) / knee, 0.0))
+
+    warm = []
+    for j in range(q):
+        models = []
+        for i in range(p):
+            xs = np.geomspace(16.0, 8.0 * knee[j, i], 6)
+            ts = xs * base[j, i] * (
+                1.0 + np.where(xs > knee[j, i], 3.0 * (xs - knee[j, i]) / knee[j, i], 0.0)
+            )
+            models.append(PiecewiseLinearFPM.from_points(list(zip(xs, xs / ts))))
+        warm.append(models)
+    return time_fn, warm
+
+
+def _fleet_knee_run(p, ns, batch_fn, *, backend, device, groups=None):
+    names = [f"t{j}" for j in range(len(ns))]
+    fleet = FleetScheduler(p, backend=backend, device=device, groups=groups)
+    for nm, n in zip(names, ns):
+        fleet.admit(JobSpec(name=nm, n=n, eps=FLEET_EPS, min_units=1, max_iter=FLEET_MAX_ITER))
+    res = fleet.run(BatchedSimulatedExecutor2D(time_fn_batch_2d=batch_fn, p=p, q=len(ns), job_names=names))
+    return fleet, [res[nm] for nm in names]
+
+
+def _same_job(a, b) -> bool:
+    return (a.allocations == b.allocations and a.times == b.times
+            and a.diagnostics["history"] == b.diagnostics["history"])
+
+
+def fleet_parity_gate(device="cuda") -> dict:
+    """parity_gate: the torch fleet (float64, bank on ``device``) against
+    eight independent numpy ``Scheduler.autotune`` loops and the numpy
+    fleet — allocations, times, histories, bench costs and folded models —
+    and its device solves against the reference's count."""
+    q, p, seed = FLEET_PARITY["q"], FLEET_PARITY["p"], FLEET_PARITY["seed"]
+    batch_fn, scalar_fns, ns = fleet_knee_case(q, p, seed)
+    indep = [
+        Scheduler(SpeedStore.empty(p, backend="numpy"), backend="numpy").autotune(
+            SimulatedExecutor(time_fns=scalar_fns(j)), ns[j], FLEET_EPS, max_iter=FLEET_MAX_ITER, min_units=1)
+        for j in range(q)
+    ]
+    host, host_res = _fleet_knee_run(p, ns, batch_fn, backend="numpy", device="cpu")
+    card, card_res = _fleet_knee_run(p, ns, batch_fn, backend="torch", device=device)
+    names = [f"t{j}" for j in range(q)]
+    return {
+        "rounds": card.rounds, "device_dispatches": card.device_dispatches,
+        "iterations": [r.iterations for r in card_res],
+        "checks": {
+            "equals_independent_autotune": all(map(_same_job, card_res, indep)),
+            "equals_numpy_fleet": all(map(_same_job, card_res, host_res)) and all(
+                card.bench_cost(nm) == host.bench_cost(nm)
+                and [m.as_points() for m in card.models(nm)] == [m.as_points() for m in host.models(nm)]
+                for nm in names),
+            "dispatches_as_reference": card.device_dispatches == FLEET_PARITY_DISPATCHES,
+        },
+    }
+
+
+def fleet_hier_gate(device="cuda") -> dict:
+    """hier_parity_gate on the torch fleet: one group equals the flat
+    fleet, four groups of 25 come within 1.05x its makespan with every
+    allocation summing to n, and the four-group fleet equals the numpy
+    one."""
+    q, p, seed = FLEET_HIER["q"], FLEET_HIER["p"], FLEET_HIER["seed"]
+    batch_fn, _, ns = fleet_knee_case(q, p, seed)
+    four = [i % 4 for i in range(p)]
+    _, flat = _fleet_knee_run(p, ns, batch_fn, backend="torch", device=device)
+    _, one = _fleet_knee_run(p, ns, batch_fn, backend="torch", device=device, groups=[0] * p)
+    card, grouped = _fleet_knee_run(p, ns, batch_fn, backend="torch", device=device, groups=four)
+    _, grouped_host = _fleet_knee_run(p, ns, batch_fn, backend="numpy", device="cpu", groups=four)
+    return {
+        "makespan_ratio_to_flat": [g.makespan / f.makespan for g, f in zip(grouped, flat)],
+        "device_dispatches": card.device_dispatches, "rounds": card.rounds,
+        "checks": {
+            "one_group_equals_flat": all(o.allocations == f.allocations for o, f in zip(one, flat)),
+            "four_groups_within_1.05x": all(
+                g.makespan <= f.makespan * 1.05 + 1e-12 for g, f in zip(grouped, flat)),
+            "four_groups_sum_to_n": all(sum(g.allocations) == n for g, n in zip(grouped, ns)),
+            "four_groups_equal_numpy": all(map(_same_job, grouped, grouped_host)),
+        },
+    }
+
+
+def fleet_bucket_gate(device="cuda") -> dict:
+    """bucket_gate on the torch fleet: with ``lane_buckets`` the q = 3 stack
+    is padded to 4 lanes and serves allocations bit-identical to an
+    unbucketed fleet, before and after an admit within the bucket, with
+    the reference's restack count."""
+    p, seed = FLEET_BUCKET["p"], FLEET_BUCKET["seed"]
+    _, warm = fleet_make_tenants(4, p, seed=seed)
+    ns = [100 * p + 7 * j for j in range(4)]
+    names = [f"t{j}" for j in range(4)]
+
+    def spec(j):
+        return JobSpec(name=names[j], n=ns[j], eps=1e-12, min_units=1)
+
+    def mk(buckets):
+        fl = FleetScheduler(p, backend="torch", device=device, reserve_knots=16, lane_buckets=buckets)
+        for j in range(3):
+            fl.admit(spec(j), models=warm[j])
+        return fl
+
+    plain, bucketed = mk(False), mk(True)
+    before = plain.rebalance() == bucketed.rebalance()
+    padded = int(bucketed._stacked.counts.shape[0])
+    obs = {names[0]: [0.1 * (i + 1) for i in range(p)]}
+    bucketed.observe(obs)
+    bucketed.rebalance()
+    bucketed.admit(spec(3), models=warm[3])
+    ds = bucketed.rebalance()
+    bucketed.observe({names[3]: [0.1 * (i + 1) for i in range(p)]})
+    plain.observe(obs)
+    plain.admit(spec(3), models=warm[3])
+    after = plain.rebalance() == ds
+    return {
+        "restacks": [plain.restacks, bucketed.restacks], "padded_lanes": padded,
+        "checks": {
+            "bucketed_equals_plain": before,
+            "padded_to_4": padded == 4,
+            "admit_sums_to_n": sum(ds[names[3]]) == ns[3],
+            "equals_plain_after_admit": after,
+            "restacks_as_reference": plain.restacks == bucketed.restacks == FLEET_BUCKET_RESTACKS,
+        },
+    }
+
+
+def _fleet_scale() -> dict:
+    """(b) make_tenants(q=16, p=1000), warm 6-point banks, n = 100 p + 7 j:
+    stacked measurement rounds of the torch fleet (CUDA events and host
+    walls) and of the numpy fleet, one untimed round first, under exact
+    times and under 2 % noise.  Exact times keep every lane's bank
+    monotone (the threshold completion); noisy observations turn them
+    non-monotone, and the completion takes the greedy per-unit loop.  Under
+    exact times 16 sequential torch sessions (a partition and a fold-in
+    each per round) run the same rounds beside them.  Gate: the torch
+    fleet's allocations equal the numpy fleet's after every round."""
+    q, p, rounds = FLEET_SCALE_Q, FLEET_SCALE_P, FLEET_SCALE_ROUNDS
+    time_fn, warm = fleet_make_tenants(q, p, seed=0)
+    ns = [100 * p + 7 * j for j in range(q)]
+    names = [f"t{j}" for j in range(q)]
+
+    def drive(noise):
+        fleets = {}
+        for backend in ("torch", "numpy"):
+            fl = FleetScheduler(p, backend=backend, device="cuda" if backend == "torch" else "cpu")
+            for j in range(q):
+                fl.admit(JobSpec(name=names[j], n=ns[j], eps=1e-12, min_units=1, max_iter=10**9,
+                                 probe_budget=10**9), models=warm[j])
+            fleets[backend] = fl, BatchedSimulatedExecutor2D(
+                time_fn_batch_2d=time_fn, p=p, q=q, job_names=names, noise=noise, rng=np.random.default_rng(1))
+        (card, card_ex), (host, host_ex) = fleets["torch"], fleets["numpy"]
+        ms = {"torch_fleet_events": [], "torch_fleet_host": [], "numpy_fleet_host": []}
+        same = []
+        for r in range(rounds + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            card.step(card_ex)
+            end.record()
+            end.synchronize()
+            t1 = time.perf_counter()
+            host.step(host_ex)
+            t2 = time.perf_counter()
+            same.append(all(card.distribution(nm) == host.distribution(nm) for nm in names))
+            if r:
+                ms["torch_fleet_events"].append(start.elapsed_time(end))
+                ms["torch_fleet_host"].append((t1 - t0) * 1e3)
+                ms["numpy_fleet_host"].append((t2 - t1) * 1e3)
+        return {
+            "round_ms": ms, "round_ms_median": {k: float(np.median(v)) for k, v in ms.items()},
+            "dispatches_per_round": card.device_dispatches / card.rounds,
+            "monotone_lanes_after": int(card._stacked.monotone_lanes().sum()),
+            "equal_every_round": all(same), "all_measuring": len(card.active_jobs) == q,
+        }
+
+    exact = drive(0.0)
+    stores = [SpeedStore.from_models([PiecewiseLinearFPM.from_points(m.as_points()) for m in warm[j]],
+                                     backend="torch", device="cuda") for j in range(q)]
+    seq_ms = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j, store in enumerate(stores):
+            X = np.zeros((q, p))
+            X[j] = x = np.asarray(store.partition_units(ns[j], min_units=1), dtype=np.float64)
+            t = time_fn(X)[j]
+            ok = x > 0
+            store.fold_in(x, np.where(ok, x / np.where(ok, t, 1.0), 1.0), ok)
+        torch.cuda.synchronize()
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+    exact["round_ms"]["sequential_torch_host"] = seq_ms
+    exact["round_ms_median"]["sequential_torch_host"] = float(np.median(seq_ms))
+    noisy = drive(0.02)
+    return {
+        "q": q, "p": p, "n": ns, "rounds_timed": rounds, "exact": exact, "noise_2pct": noisy,
+        "dispatches_per_round_sequential": 2 * q,
+        "checks": {
+            "torch_equals_numpy_every_round": exact["equal_every_round"] and noisy["equal_every_round"],
+            "all_jobs_measuring": exact["all_measuring"] and noisy["all_measuring"],
+        },
+    }
+
+
+def _fleet_tenants() -> tuple:
+    """(c) three tenants on the DFPA phase's eight processors and panels,
+    each with its own repeats, measured through a BatchedSimulatedExecutor2D
+    whose time function times every nonzero (tenant, processor) panel with
+    CUDA events after one untimed warm-up per (tenant, processor).  Gates:
+    all converge, launches as the rounds and warm-ups account for, all
+    ``"wgmma"``, each tenant's final distribution re-measures at median
+    imbalance <= 2*eps."""
+    a, b, c = _dfpa_operands()
+    repeats = FLEET_TENANT_REPEATS
+    names = [f"tenant{j}" for j in range(len(repeats))]
+    p = len(DFPA_REPEATS)
+    warmed = set()
+
+    def panel(j, i, units):
+        rows = units * DFPA_UNIT_ROWS
+        for _ in range(repeats[j][i]):
+            matmul_update(c[:rows], a[:rows], b, **DFPA_BLOCKS)
+
+    def seconds(j, i, units):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        panel(j, i, units)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    def time_fn(X):
+        T = np.zeros_like(X)
+        busy = [(int(j), int(i)) for j, i in zip(*np.nonzero(X > 0))]
+        cold = [ji for ji in busy if ji not in warmed]
+        for j, i in cold:
+            panel(j, i, int(X[j, i]))
+            warmed.add((j, i))
+        if cold:
+            torch.cuda.synchronize()
+        for j, i in busy:
+            T[j, i] = seconds(j, i, int(X[j, i]))
+        return T
+
+    fleet = FleetScheduler(p, backend="torch", device="cuda")
+    for nm in names:
+        fleet.admit(JobSpec(name=nm, n=DFPA_UNITS, eps=DFPA_EPS, min_units=1))
+    executor = BatchedSimulatedExecutor2D(time_fn_batch_2d=time_fn, p=p, q=len(names), job_names=names)
+    _reset_matmul_counts()
+    t0 = time.perf_counter()
+    res = fleet.run(executor)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = matmul_update_cuda.launches
+    routes = dict(matmul_update_cuda.launches_by_route)
+    expected = sum(repeats[j][i] for j, i in warmed) + sum(
+        r for j, nm in enumerate(names) for d, _ in res[nm].diagnostics["history"]
+        for di, r in zip(d, repeats[j]) if di > 0
+    )
+    remeasured = {
+        nm: [imbalance([seconds(j, i, di) if di > 0 else 0.0 for i, di in enumerate(res[nm].allocations)])
+             for _ in range(5)]
+        for j, nm in enumerate(names)
+    }
+    median_imb = {nm: float(np.median(v)) for nm, v in remeasured.items()}
+    out = {
+        "repeats": repeats, "eps": DFPA_EPS, "fleet_rounds": fleet.rounds,
+        "device_dispatches": fleet.device_dispatches, "wall_s": wall_s,
+        "tenants": {nm: {"iterations": res[nm].iterations, "converged": res[nm].converged,
+                         "allocations": res[nm].allocations, "imbalance": res[nm].imbalance,
+                         "rounds": [{"d": d, "times_ms": [v * 1e3 for v in t]}
+                                    for d, t in res[nm].diagnostics["history"]]}
+                    for nm in names},
+        "launches": launches, "launches_by_route": routes, "expected_launches": expected,
+        "final_remeasured_imbalance": remeasured, "final_remeasured_imbalance_median": median_imb,
+        "checks": {
+            "all_converged": all(res[nm].converged for nm in names),
+            "launches_accounted": launches == expected,
+            "all_wgmma": routes == {"tile": 0, "wgmma": launches},
+            "remeasure_within_2eps": all(v <= 2 * DFPA_EPS for v in median_imb.values()),
+        },
+    }
+    return out, launches, routes
+
+
+def phase_fleet() -> tuple:
+    """The multi-tenant fleet (``repro_torch.fleet``) on the card: (a) the
+    reference's parity, hierarchy and lane-bucket gates in float64, (b)
+    q = 16 x p = 1000 measurement rounds beside the numpy fleet and 16
+    sequential sessions, (c) three tenants balancing ``matmul_update``
+    panels through one fleet."""
+    rows = {}
+    for name, gate in (("parity_gate", fleet_parity_gate), ("hier_parity_gate", fleet_hier_gate),
+                       ("bucket_gate", fleet_bucket_gate)):
+        t0 = time.perf_counter()
+        rows[name] = gate("cuda")
+        emit({"phase": "fleet", "part": "a", "gate": name, "seconds": time.perf_counter() - t0, **rows[name]})
+    t0 = time.perf_counter()
+    rows["scale"] = _fleet_scale()
+    emit({"phase": "fleet", "part": "b", "seconds": time.perf_counter() - t0, **rows["scale"]})
+    rows["tenants"], launches, routes = _fleet_tenants()
+    emit({"phase": "fleet", "part": "c", **rows["tenants"]})
+    failed = {name: {k: v for k, v in row["checks"].items() if not v}
+              for name, row in rows.items() if not all(row["checks"].values())}
+    if failed:
+        raise SystemExit(f"chip_smoke: the fleet phase failed {failed}")
+    return launches, routes
+
+
 def main() -> int:
     seconds = {}
 
@@ -1664,9 +2050,10 @@ def main() -> int:
     hier_launches, hier_routes = run("hier", phase_hier, smi)
     obs_launches, obs_routes = run("obs", phase_obs)
     straggler_launches, straggler_routes = run("straggler", phase_straggler)
+    fleet_launches, fleet_routes = run("fleet", phase_fleet)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
-                "straggler": straggler_launches}
-    by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes]
+                "straggler": straggler_launches, "fleet": fleet_launches}
+    by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
     launches = {"matmul_update": sum(by_phase.values()), **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},

@@ -15,14 +15,19 @@ The entry point is the ``Scheduler`` facade (``scheduler.py``) over a
 also carries the nested 2-D grid partitioner (``partition2d.py`` holds its
 helpers), the two-level partitioner (``hierarchy.py``) and the time/energy
 front (``energy.py``).  ``convert.py`` carries the reference package's
-banks and checkpoints over.
+banks and checkpoints over.  The fleet's measurement primitives
+(``FleetExecutor``, ``BatchedSimulatedExecutor2D``, ``FleetRoundLog``)
+live in ``executor.py``; the fleet itself is ``repro_torch.fleet``.
 """
 
 from .convert import bank_from_arrays
 from .executor import (
     BatchedSimulatedExecutor,
+    BatchedSimulatedExecutor2D,
     CallableExecutor,
     Executor,
+    FleetExecutor,
+    FleetRoundLog,
     RoundLog,
     SimulatedExecutor,
 )
@@ -45,17 +50,22 @@ from .simulator import (
     speed_fn_1d,
     speed_fn_1d_batch,
     speed_fn_2d,
+    speed_fn_2d_batch,
     time_fn_1d,
     time_fn_1d_batch,
+    time_fn_2d_batch,
 )
 from .speedstore import SpeedStore, sample_analytic_points
 
 __all__ = [
     "AnalyticModel",
     "BatchedSimulatedExecutor",
+    "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "ConstantModel",
     "Executor",
+    "FleetExecutor",
+    "FleetRoundLog",
     "HCL_SPECS",
     "Hierarchy",
     "ModelBank",
@@ -88,6 +98,8 @@ __all__ = [
     "speed_fn_1d",
     "speed_fn_1d_batch",
     "speed_fn_2d",
+    "speed_fn_2d_batch",
     "time_fn_1d",
     "time_fn_1d_batch",
+    "time_fn_2d_batch",
 ]

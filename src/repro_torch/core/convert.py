@@ -6,7 +6,8 @@ The port reads what the JAX package writes, without importing it:
     numpy arrays (``ModelBank.xs/ss/counts``, or ``np.asarray`` of a
     ``JaxModelBank``'s);
   * :func:`store_state_from_reference` / :func:`scheduler_state_from_reference`
-    — a ``SpeedStore.state_dict()`` / ``Scheduler.state_dict()`` written by
+    / :func:`fleet_state_from_reference` — a ``SpeedStore.state_dict()`` /
+    ``Scheduler.state_dict()`` / ``FleetScheduler.state_dict()`` written by
     the reference, as it is, turned into the port's schema (the same keys;
     the reference's device backend ``"jax"`` becomes ``"torch"``).  The
     port's ``from_state`` constructors run them, so a checkpoint of either
@@ -16,7 +17,10 @@ Energy models (``energy_points``) and the two-level assignment
 (``groups``, ``max_group_knots``) carry over as they are.  The reference's
 ``sharding="shard_map"`` spreads the hierarchy's group blocks over several
 devices; the port runs on one card and has no counterpart, so a state that
-names it raises ``NotImplementedError`` rather than being dropped.
+names it raises ``NotImplementedError`` rather than being dropped.  A
+fleet checkpointed with ``pipeline=True`` raises the same way: the port's
+fleet runs synchronous rounds only (ROADMAP queue 1, item 7b), and a
+pipelined session at depth 1 would not continue the same trajectory.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .modelbank_torch import TorchModelBank
 
 __all__ = [
     "bank_from_arrays",
+    "fleet_state_from_reference",
     "scheduler_state_from_reference",
     "store_state_from_reference",
 ]
@@ -59,16 +64,39 @@ def store_state_from_reference(state: Dict) -> Dict:
     return out
 
 
+def _refuse_sharding(sharding) -> None:
+    if sharding is not None:
+        raise NotImplementedError(
+            f"sharding={sharding!r} spreads the hierarchy's group blocks "
+            "over several devices; the port runs on a single card and has no "
+            "counterpart (ROADMAP queue 1, item 4: the two-level hierarchy)"
+        )
+
+
 def scheduler_state_from_reference(state: Dict) -> Dict:
     """A ``Scheduler.state_dict()`` of either package in the port's schema."""
     if state.get("version", 1) != 1:
         raise ValueError(f"unknown scheduler state version {state.get('version')!r}")
-    if state.get("sharding") is not None:
-        raise NotImplementedError(
-            f"sharding={state['sharding']!r} spreads the hierarchy's group blocks "
-            "over several devices; the port runs on a single card and has no "
-            "counterpart (ROADMAP queue 1, item 4: the two-level hierarchy)"
-        )
+    _refuse_sharding(state.get("sharding"))
     out = store_state_from_reference(state)
     out.pop("sharding", None)
     return out
+
+
+def fleet_state_from_reference(state: Dict) -> Dict:
+    """A ``FleetScheduler.state_dict()`` of either package in the port's
+    schema: the same keys, ``"jax"`` read as ``"torch"``.  A state that
+    names ``sharding`` or ``pipeline=True`` raises ``NotImplementedError``."""
+    if int(state.get("version", 0)) != 1:
+        raise ValueError(f"unknown fleet state version {state.get('version')!r}")
+    cfg = dict(state["config"])
+    _refuse_sharding(cfg.get("sharding"))
+    if cfg.get("pipeline"):
+        raise NotImplementedError(
+            "the state comes from a pipelined fleet (pipeline=True); the port "
+            "runs synchronous rounds only (ROADMAP queue 1, item 7b: the "
+            "fleet's pipelined rounds)"
+        )
+    cfg["backend"] = _backend(cfg.get("backend", "numpy"))
+    cfg.pop("sharding", None)
+    return {**state, "config": cfg}

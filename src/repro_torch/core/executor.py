@@ -8,19 +8,22 @@ so one DFPA loop drives:
   simulator (benchmarks, tests);
 * ``CallableExecutor`` — real per-processor callables, such as the
   ``matmul_update`` kernel on row panels, timed by the clock of the device
-  they run on.
+  they run on;
+* ``BatchedSimulatedExecutor2D`` — a :class:`FleetExecutor`: every
+  measuring job of a fleet round (``fleet/scheduler.py``) in one call.
 
 ``run`` returns per-processor execution times for one parallel round; the
 round's wall-clock cost is ``max(times)`` plus the collective overhead the
-executor models.  The fleet, 2-D, delayed and trace executors belong to
-later slices of the port.
+executor models.  The reference's ``DelayedBatchedExecutor`` comes with
+the fleet's pipelined rounds (ROADMAP queue 1, item 7b) and
+``TraceExecutor2D`` with the serving dispatch (item 8).
 """
 
 from __future__ import annotations
 
 import time as _time
 from dataclasses import dataclass, field
-from typing import Callable, List, Protocol, Sequence, Set
+from typing import Callable, List, Optional, Protocol, Sequence, Set
 
 import numpy as np
 import torch
@@ -29,10 +32,13 @@ from .modelbank_torch import resolve_device
 
 __all__ = [
     "Executor",
+    "FleetExecutor",
     "SimulatedExecutor",
     "BatchedSimulatedExecutor",
+    "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "RoundLog",
+    "FleetRoundLog",
 ]
 
 
@@ -45,6 +51,26 @@ class RoundLog:
     wall_cost: float  # max(times) + modelled collective overhead
 
 
+@dataclass
+class FleetRoundLog:
+    """One multi-tenant fleet round on a TIME-SLICED fleet: every measuring
+    tenant's distribution and per-processor times, costed by the busiest
+    processor's SUM across tenants — the round's true wall-clock when each
+    processor serves its tenants back to back.  (Logging one ``RoundLog``
+    per tenant at ``max(times)`` each under-reports the round by up to q×:
+    a tenant's own slice finishing fast does not free the processor that is
+    still working through the other tenants' slices.)"""
+
+    names: List[str]
+    D: List[List[int]]  # D[k][i]: units of tenant k on processor i
+    times: List[List[float]]  # per-(tenant, processor) slice times
+    proc_busy: List[float]  # per-processor sum across tenants
+    wall_cost: float  # max(proc_busy) + modelled collective overhead
+    # monotonic clock of the logging component (0.0 when not stamped);
+    # excluded from equality so replay comparisons ignore it
+    t_wall: float = field(default=0.0, compare=False)
+
+
 class Executor(Protocol):
     @property
     def num_procs(self) -> int: ...
@@ -55,6 +81,24 @@ class Executor(Protocol):
 
     def round_cost(self, times: Sequence[float]) -> float:
         """Wall-clock cost of one parallel round (incl. collectives)."""
+        ...
+
+
+class FleetExecutor(Protocol):
+    """Multi-job executor: one round runs several jobs' distributions over
+    the SAME fleet of ``num_procs`` processors at once (the
+    ``FleetScheduler``'s measurement primitive).  ``run_jobs`` receives the
+    NAME of every job measuring this round (names are the stable identity —
+    stack lanes shift when jobs retire) plus their distributions
+    ``D[len(names), p]`` and returns the matching times — the batched
+    analogue of ``Executor.run``."""
+
+    @property
+    def num_procs(self) -> int: ...
+
+    def run_jobs(self, names: Sequence[str], D) -> "object":
+        """Run ``D[k, i]`` units of job ``names[k]`` on processor ``i``;
+        return times of the same ``[len(names), p]`` shape."""
         ...
 
 
@@ -125,6 +169,78 @@ class BatchedSimulatedExecutor:
         times = [float(v) for v in t]
         self.logs.append(RoundLog(list(map(int, d)), times, self.round_cost(times)))
         return times
+
+    def round_cost(self, times: Sequence[float]) -> float:
+        return max(times) + self.alpha + self.beta * self.num_procs
+
+    @property
+    def total_cost(self) -> float:
+        return sum(l.wall_cost for l in self.logs)
+
+
+@dataclass
+class BatchedSimulatedExecutor2D:
+    """Multi-job fleet simulator: ONE ``[q, p]``-valued time function for all
+    ``q`` jobs x ``p`` processors, so a whole fleet round — every admitted
+    job's measurement — costs one array op instead of ``q * p`` Python
+    calls.  This is the measurement half of the stacked-bank round driver
+    (``fleet/scheduler.py``); the 2-D grid partitioner drives its per-column
+    inner DFPA loops through it too (one executor for all ``q`` columns).
+
+    ``time_fn_batch_2d(X) -> T`` must accept the full ``[q, p]`` row space
+    (rows of jobs not measuring this round are zero; its values there are
+    discarded).  ``job_names`` maps job names to rows of that space (row =
+    index into the list); without it, names must be integer-like and index
+    the rows directly.  Mirrors ``SimulatedExecutor``'s collective-overhead
+    and noise model per job: one job's round costs ``max(times) + alpha +
+    beta * p``.
+    """
+
+    time_fn_batch_2d: Callable  # X[q, p] -> T[q, p], values at X <= 0 ignored
+    p: int
+    q: int
+    job_names: Optional[Sequence[str]] = None  # row k serves job_names[k]
+    alpha: float = 1e-4
+    beta: float = 1e-6
+    noise: float = 0.0
+    rng: object = None
+    logs: List[RoundLog] = field(default_factory=list)  # one per (job, round)
+
+    @property
+    def num_procs(self) -> int:
+        return self.p
+
+    def _row(self, name) -> int:
+        if self.job_names is not None:
+            rows = getattr(self, "_row_of", None)
+            if rows is None:
+                rows = {nm: i for i, nm in enumerate(self.job_names)}
+                self._row_of = rows  # job_names is fixed at construction
+            return rows[name]
+        return int(name)
+
+    def run_jobs(self, names: Sequence[str], D):
+        rows = [self._row(nm) for nm in names]
+        X = np.zeros((self.q, self.p), dtype=np.float64)
+        X[rows] = np.asarray(D, dtype=np.float64)
+        T = np.asarray(self.time_fn_batch_2d(X), dtype=np.float64)
+        T = np.where(X > 0, T, 0.0)
+        if self.noise > 0.0 and self.rng is not None:
+            jitter = 1.0 + self.noise * self.rng.standard_normal((self.q, self.p))
+            T = np.where(X > 0, np.maximum(T * jitter, 1e-12), 0.0)
+        out = T[rows]
+        for k, r in enumerate(rows):
+            times = [float(v) for v in out[k]]
+            self.logs.append(
+                RoundLog([int(v) for v in X[r]], times, self.round_cost(times))
+            )
+        return out
+
+    def run(self, d: Sequence[int]) -> List[float]:
+        """Single-job adapter (row 0), so the 2-D executor also satisfies
+        the plain ``Executor`` protocol for one-job fleets."""
+        name = self.job_names[0] if self.job_names is not None else 0
+        return [float(v) for v in self.run_jobs([name], [list(d)])[0]]
 
     def round_cost(self, times: Sequence[float]) -> float:
         return max(times) + self.alpha + self.beta * self.num_procs

@@ -39,10 +39,12 @@ construction.  ``backend="numpy"`` / ``"scalar"`` keep their host meaning
 (the parity references), and ``device="cpu"`` runs the torch bank on the
 host.
 
-The reference runs the grid's per-column inner DFPA loops through its
-multi-tenant fleet scheduler, whose results are bit-identical to sequential
-child ``Scheduler`` loops; the port runs them as those sequential loops
-until its fleet slice lands.
+The grid's per-column inner DFPA loops run through the multi-tenant fleet
+(``repro_torch.fleet.FleetScheduler``), as the reference's do: every column
+re-benchmarked in an outer round is one job of one fleet, so on the torch
+backend each inner round is one stacked ``[q, p, k]`` partition and one
+stacked fold-in, with results bit-identical to sequential child
+``autotune`` loops.
 
 With a ``repro_torch.obs`` sink installed the session records the
 reference's telemetry: ``scheduler.partition`` and ``scheduler.autotune``
@@ -60,7 +62,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .executor import Executor, SimulatedExecutor
+from .executor import BatchedSimulatedExecutor2D, Executor
 from .fpm import AnalyticModel, PiecewiseLinearFPM, imbalance
 from .hierarchy import Hierarchy
 from .modelbank import ModelBank
@@ -836,39 +838,6 @@ class Scheduler:
         session's device bank on ``"torch"``, the host bank otherwise."""
         return "torch" if self._backend == "torch" else "numpy"
 
-    def _grid_column(self, j, w, M, eps, warm, warm_rows, *, inner_max_iter, min_units):
-        """One column's inner DFPA loop: a child ``Scheduler.autotune`` over
-        the column's rows at width ``w``, measured through a
-        :class:`SimulatedExecutor` over the column's processors.  Its
-        rounds' costs ``max(times) + alpha + beta * p``, added one by one in
-        round order, are the column's benchmark cost (not ``sum()``, whose
-        compensated float summation rounds differently)."""
-        grid = self.grid
-        p = len(grid)
-        ex = SimulatedExecutor(
-            time_fns=[(lambda i_: lambda r: (r * w) / grid[i_][j](r, float(w)))(i) for i in range(p)]
-        )
-        models = warm if warm is not None else [PiecewiseLinearFPM() for _ in range(p)]
-        store = SpeedStore.from_models(
-            models, backend=self._backend, dtype=self.dtype, device=self._device
-        )
-        child = Scheduler(
-            store, policy=Policy.DFPA, backend=self._backend, completion=self.completion,
-            device=self._device, dtype=self.dtype,
-        )
-        res = child.autotune(
-            ex, M, eps, max_iter=inner_max_iter, min_units=min_units,
-            warm_start_d=warm_rows,
-            # Probe fixed points only on the COLD first partition of a
-            # column; warm refinements rely on the outer width update for
-            # fresh information (unbounded probing churns rounds).
-            probe_budget=p if warm is None else 0,
-        )
-        cost = 0.0
-        for log in ex.logs:
-            cost += log.wall_cost
-        return res, cost
-
     def _grid_dfpa(
         self, M, N, eps, *, max_outer, inner_max_iter, width_tol, min_units
     ) -> Partition:
@@ -889,8 +858,19 @@ class Scheduler:
         prev_widths: Optional[List[int]] = None
         best: Optional[Partition] = None
 
+        # The per-column inner DFPA loops run through the fleet driver: the
+        # columns re-benchmarked in an outer round become jobs of ONE
+        # FleetScheduler on the session's backend, dtype and device, so
+        # their measurement rounds advance in lock-step (one stacked device
+        # partition and fold-in per inner round on the torch backend).  Per
+        # column the results are bit-identical to sequential child
+        # Scheduler.autotune loops, and each job's bench cost sums its
+        # rounds' max(times) + alpha + beta * p in round order.
+        from ..fleet import FleetScheduler, JobSpec
+
         for outer in range(1, max_outer + 1):
             col_round_costs = [0.0] * q
+            run_cols: List[int] = []
             for j in range(q):
                 if (
                     prev_widths is not None
@@ -900,30 +880,67 @@ class Scheduler:
                     # Paper's optimization: width unchanged -> keep the
                     # column's partition; no re-benchmark needed.
                     times[j] = _col_times(grid, j, widths, rows[j])
-                    continue
-                w = widths[j]
-                # Rescale surviving FPM points to the new width (g ~ const
-                # in w): one batched speed-scale over the column's bank.
-                warm = None
-                if all(
-                    fpm_width[i][j] is not None and fpms[i][j].num_points > 0
-                    for i in range(p)
-                ):
-                    col_bank = ModelBank.from_models([fpms[i][j] for i in range(p)])
-                    scale = [fpm_width[i][j] / w for i in range(p)]
-                    warm = col_bank.scaled(scale).to_models()
-                res, cost = self._grid_column(
-                    j, w, M, eps, warm, rows[j],
-                    inner_max_iter=inner_max_iter, min_units=min_units,
+                else:
+                    run_cols.append(j)
+            if run_cols:
+                fleet = FleetScheduler(
+                    p, backend=self._backend, dtype=self.dtype, device=self._device
                 )
-                rows[j] = list(res.allocations)
-                times[j] = list(res.times)
-                col_models = res.diagnostics["models"]
-                for i in range(p):
-                    fpms[i][j] = col_models[i]
-                    fpm_width[i][j] = widths[j]
-                total_rounds += res.iterations
-                col_round_costs[j] = cost
+                for j in run_cols:
+                    w = widths[j]
+                    # Rescale surviving FPM points to the new width (g ~
+                    # const in w): one batched speed-scale over the column's
+                    # bank.
+                    warm = None
+                    if all(
+                        fpm_width[i][j] is not None and fpms[i][j].num_points > 0
+                        for i in range(p)
+                    ):
+                        col_bank = ModelBank.from_models([fpms[i][j] for i in range(p)])
+                        scale = [fpm_width[i][j] / w for i in range(p)]
+                        warm = col_bank.scaled(scale).to_models()
+                    fleet.admit(
+                        JobSpec(
+                            name=f"col{j}", n=M, eps=eps, min_units=min_units,
+                            max_iter=inner_max_iter, completion=self.completion,
+                            warm_start_d=rows[j],
+                            # Probe fixed points only on the COLD first
+                            # partition of a column; warm refinements rely on
+                            # the outer width update for fresh information
+                            # (unbounded probing churns rounds).
+                            probe_budget=p if warm is None else 0,
+                        ),
+                        models=warm,
+                    )
+
+                def col_batch_time(X, cols=tuple(run_cols), ws=tuple(widths)):
+                    # one speed-function call per measured (column, row)
+                    T = np.zeros_like(X)
+                    for k, j in enumerate(cols):
+                        w = ws[j]
+                        for i in range(p):
+                            r = X[k, i]
+                            T[k, i] = (
+                                (r * w) / grid[i][j](float(r), float(w)) if r > 0 else 0.0
+                            )
+                    return T
+
+                fleet.run(
+                    BatchedSimulatedExecutor2D(
+                        time_fn_batch_2d=col_batch_time, p=p, q=len(run_cols),
+                        job_names=[f"col{j}" for j in run_cols],
+                    )
+                )
+                for j in run_cols:
+                    res = fleet.result(f"col{j}")
+                    rows[j] = list(res.allocations)
+                    times[j] = list(res.times)
+                    col_models = res.diagnostics["models"]
+                    for i in range(p):
+                        fpms[i][j] = col_models[i]
+                        fpm_width[i][j] = widths[j]
+                    total_rounds += res.iterations
+                    col_round_costs[j] = res.diagnostics["bench_cost"]
             # Columns run their inner DFPA in parallel -> cost = slowest col.
             bench_cost += max(col_round_costs) if col_round_costs else 0.0
 

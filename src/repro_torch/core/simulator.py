@@ -18,9 +18,10 @@ cluster (§3.1: {658, 667, ..., 695} for n_b=20, n=2048; 1 unit = 1 add + 1 mul
 paper's *phenomena* (iteration counts, cost ratios, paging-borderline
 convergence); absolute seconds are the same order as the paper's tables.
 
-The device-group time functions (``make_tpu_group_time_fns``) come with
-the hierarchy slice of the port, the batched 2-D ground truth
-(``speed_fn_2d_batch``, ``time_fn_2d_batch``) with the fleet slice.
+``speed_fn_2d_batch`` / ``time_fn_2d_batch`` evaluate the 2-D ground truth
+of a whole grid in one array call (the fleet's batched measurements).  The
+reference's device-group time functions (``make_tpu_group_time_fns``) are
+not ported: nothing in the reference calls them.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ __all__ = [
     "speed_fn_1d_batch",
     "time_fn_1d_batch",
     "speed_fn_2d",
+    "speed_fn_2d_batch",
+    "time_fn_2d_batch",
     "HCL_SPECS",
     "make_hcl_time_fns",
     "make_hcl_time_fn_batch",
@@ -190,6 +193,62 @@ def speed_fn_2d(spec: NodeSpec, b: int = 32) -> Callable[[float, float], float]:
         return base
 
     return g
+
+
+def speed_fn_2d_batch(
+    specs: Sequence[NodeSpec], b: int = 32
+) -> Callable[["object", "object"], "object"]:
+    """Batched 2-D ground truth: ``g_i(mb_i, nb_i)`` for the WHOLE grid in one
+    vector call — the simulator-side prerequisite of the ``[q, p, k]``
+    stacked-bank partitioner (a ``p x q`` grid flattens to one spec list).
+    Elementwise identical to :func:`speed_fn_2d`.
+    """
+    import numpy as np
+
+    flops_per_unit = 2.0 * b * b * b
+    s_units = np.array([s.s_mem for s in specs]) * 2.0 / flops_per_unit * (b * b)
+    boost0 = np.array([s.cache_boost for s in specs])
+    disk = np.array([s.disk_factor for s in specs])
+    aniso = np.array([s.anisotropy for s in specs])
+    avail = np.array([s.ram_bytes - s.os_bytes for s in specs])
+    units_page = np.maximum(avail / (24.0 * b * b), 1.0)
+    units_ref = np.array([s.ram_bytes for s in specs]) / (24.0 * b * b)
+    x_cache = np.maximum(np.array([s.l2_bytes for s in specs]) / (24.0 * b * b), 1.0)
+
+    def g(mb, nb):
+        mb = np.asarray(mb, dtype=np.float64)
+        nb = np.asarray(nb, dtype=np.float64)
+        u = mb * nb
+        w = np.clip((u - x_cache) / (2.0 * x_cache), 0.0, 1.0)
+        boost = boost0 + w * (1.0 - boost0)
+        base = s_units * boost
+        z = np.maximum(u - units_page, 0.0) / units_ref
+        miss = z / (1.0 + z)
+        base = base / (1.0 + (disk - 1.0) * miss)
+        denom = np.where(mb + nb > 0.0, mb + nb, 1.0)
+        aspect = nb / denom
+        base = np.where(aniso != 0.0, base * (1.0 + aniso * (aspect - 0.5)), base)
+        return np.where(u <= 0.0, s_units * boost0, base)
+
+    return g
+
+
+def time_fn_2d_batch(
+    specs: Sequence[NodeSpec], b: int = 32
+) -> Callable[["object", "object"], "object"]:
+    """Batched ``t_i(mb_i, nb_i) = mb_i * nb_i / g_i(mb_i, nb_i)`` (0 where
+    the block is empty)."""
+    import numpy as np
+
+    g = speed_fn_2d_batch(specs, b)
+
+    def t(mb, nb):
+        mb = np.asarray(mb, dtype=np.float64)
+        nb = np.asarray(nb, dtype=np.float64)
+        u = mb * nb
+        return np.where(u > 0.0, u / g(mb, nb), 0.0)
+
+    return t
 
 
 # --------------------------------------------------------------------------

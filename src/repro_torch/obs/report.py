@@ -47,7 +47,8 @@ def _load_counters_gauges(payload: Dict[str, Any]) -> Tuple[Dict, Dict, List]:
 class MetricsSnapshot:
     """One summarized recording (all fields optional: a recording made by a
     bare ``Scheduler`` simply leaves the fleet/serving rows None; the port
-    has no fleet or serving dispatch yet, so they stay None here)."""
+    has no serving dispatch yet, so its serving rows stay None, and its
+    fleet never records recompiles, so those read 0)."""
 
     rounds: Optional[float] = None
     device_dispatches: Optional[float] = None

@@ -7,11 +7,12 @@ and the reference's numpy ``partition_grid`` runs it on the same grid.
 
 Contract (tolerance zero): column widths, row heights, the per-processor
 times, outer iterations, ``total_rounds``, ``bench_cost`` and the imbalance
-are equal, for ``GRID2D``, ``CPM`` and ``FFMPA``.  The reference runs its
-per-column inner loops through its fleet scheduler and the port through
-sequential child ``Scheduler``s; the reference states the two are
-bit-identical, and these cases hold the port to it.  The 2-D simulator
-equals the reference's; the properties of
+are equal, for ``GRID2D``, ``CPM`` and ``FFMPA``.  Both run GRID2D's
+per-column inner loops as jobs of one fleet per outer round, and the
+fleets' ``fleet.round`` spans (round, jobs measured, jobs finished) are
+equal under each package's telemetry sink.  The 2-D simulator
+equals the reference's; the batched 2-D simulator equals the scalar one;
+the properties of
 ``tests/test_partition2d.py`` hold on the port; ``repartition_grid`` on the
 stacked ``[q, p, k]`` torch bank equals the numpy per-column path.
 """
@@ -118,6 +119,44 @@ def test_partition_grid_matches_reference(policy, n, backend):
     _assert_same_partition(got, want)
     assert got.backend == backend and got.policy is getattr(Policy, policy)
     assert app_time_2d(_grid(4, 4), got, K=n) == ref_app_time_2d(_ref_grid(4, 4), want, K=n)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("n", [256, 512])
+def test_grid_fleet_rounds_match_reference(n, backend):
+    """GRID2D's inner loops run through the fleet on both sides: the same
+    fleet rounds, with the same jobs measured and finished in each."""
+    import repro.obs as ref_obs
+
+    from repro_torch import obs
+
+    def rounds(tel):
+        return [(e.attrs["round"], e.attrs["measured"], e.attrs["finished"]) for e in tel.spans("fleet.round")]
+
+    ref_tel, port_tel = ref_obs.Telemetry(), obs.Telemetry()
+    with ref_obs.use(ref_tel):
+        want = RefScheduler(grid=_ref_grid(4, 4), policy=RefPolicy.GRID2D).partition_grid(n, n, eps=0.1)
+    with obs.use(port_tel):
+        got = _port(_grid(4, 4), Policy.GRID2D, backend).partition_grid(n, n, eps=0.1)
+    _assert_same_partition(got, want)
+    assert rounds(port_tel) == rounds(ref_tel) and rounds(ref_tel)
+    assert sum(m for _, m, _ in rounds(port_tel)) == got.diagnostics["total_rounds"]
+
+
+def test_2d_batch_simulator_matches_scalar():
+    from repro_torch.core import speed_fn_2d_batch, time_fn_2d_batch
+
+    rng = np.random.default_rng(1)
+    mb = np.concatenate([[0.0, 1.0, 2.0], rng.uniform(0.0, 3000.0, 13)])
+    nb = np.concatenate([[5.0, 0.0, 3.0], rng.uniform(0.0, 3000.0, 13)])
+    for b in (16, 32):
+        g, t = speed_fn_2d_batch(HCL_SPECS, b), time_fn_2d_batch(HCL_SPECS, b)
+        want = [speed_fn_2d(spec, b)(float(x), float(y)) for spec, x, y in zip(HCL_SPECS, mb, nb)]
+        assert np.allclose(g(mb, nb), want, rtol=1e-12, atol=0.0)
+        tt = t(mb, nb)
+        assert all(v == 0.0 for v, x, y in zip(tt, mb, nb) if x * y <= 0)
+        assert np.allclose([v for v, x, y in zip(tt, mb, nb) if x * y > 0],
+                           [x * y / w for w, x, y in zip(want, mb, nb) if x * y > 0], rtol=1e-12, atol=0.0)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

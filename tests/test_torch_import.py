@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` (every module, the model stack
-and its serving path included) and ``chip_smoke.py`` import no JAX and
-nothing of the reference package, and the smoke script refuses to run
-without a CUDA device."""
+and its serving path, and the fleet included) and ``chip_smoke.py`` import
+no JAX and nothing of the reference package, and the smoke script refuses
+to run without a CUDA device."""
 
 import os
 import pathlib
@@ -33,6 +33,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.core.partition2d, repro_torch.launch.paper_tables\n"
         "import repro_torch.launch.matmul_grid, repro_torch.core.energy, repro_torch.core.hierarchy\n"
         "import repro_torch.obs, repro_torch.obs.report, repro_torch.runtime.straggler\n"
+        "import repro_torch.fleet, repro_torch.fleet.registry, repro_torch.fleet.scheduler\n"
+        "from repro_torch.core import BatchedSimulatedExecutor2D, FleetExecutor, FleetRoundLog\n"
+        "from repro_torch.core import speed_fn_2d_batch, time_fn_2d_batch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -46,6 +49,22 @@ def test_import_leaves_jax_and_reference_unloaded():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_has_no_reference_import(path):
     assert not _FORBIDDEN.search(path.read_text()), path
+
+
+def test_fleet_defaults_to_the_card():
+    """``FleetScheduler()`` defaults to the torch backend on ``"cuda"``: on
+    a machine without a card it raises instead of running on the host."""
+    import torch
+
+    from repro_torch.fleet import FleetScheduler
+
+    if torch.cuda.is_available():
+        fleet = FleetScheduler(4)
+        assert fleet.backend == "torch" and fleet._device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        FleetScheduler(4)
+    assert FleetScheduler(4, device="cpu").backend == "torch"
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -3,25 +3,30 @@ trace, the flight recorder, the report, and the instrumentation of the
 port's ``Scheduler``, ``SpeedStore``, ``Hierarchy`` and straggler detector.
 
 The sink-level cases are the reference's (``tests/test_obs.py``, which does
-not collect on this toolchain, ROADMAP R1).  The reference's trace, report
-and read-only cases drive its fleet, which the port does not have yet; here
-they drive one port session instead: ``autotune`` on the HCL simulator,
+not collect on this toolchain, ROADMAP R1).  The trace, report and
+read-only cases drive one port session: ``autotune`` on the HCL simulator,
 then serving rounds (``straggler_actions`` before ``observe``) in which one
 processor slows down more every round until it is quarantined and
 ``leave`` s, then a grouped ``partition`` and ``observe`` and a ``join``.
+A second session drives the fleet (``repro_torch.fleet``): registry
+warnings and a stale profile, measured rounds, rebalances, serving epochs
+with a reprofiled replica, a power cap and a hierarchical fleet.
 
 The invariants, on ``backend="numpy"`` and ``"torch"`` (``device="cpu"``):
 
 * a disabled sink receives zero calls;
 * with every ``_obs_active`` hook patched to ``None`` (the package absent)
   and with a recording sink installed, the results are bit-identical;
-* the same calls through the reference's numpy ``Scheduler`` under
-  ``repro.obs`` record the same span, counter, gauge and event names, in
-  the same order, with equal counts and values and equal non-time
-  attributes — except that the torch backend records no
-  ``speedstore.bisection_steps`` gauge (its bisection runs on the device,
-  like the reference's jax backend) and its ``backend`` attributes read
-  ``"torch"``.
+* the same calls through the reference's numpy ``Scheduler`` (and numpy
+  ``FleetScheduler``) under ``repro.obs`` record the same span, counter,
+  gauge and event names, in the same order, with equal counts and values
+  and equal non-time attributes — except that the torch backend records
+  no ``speedstore.bisection_steps`` gauge (its bisection runs on the
+  device, like the reference's jax backend), its ``backend`` attributes
+  read ``"torch"``, and its fleet counts the restacks of its device carry
+  (``fleet.restack`` counters, the ``fleet.restacks`` gauge) and its
+  device solves (``fleet.device_dispatches``), which the host backends
+  leave at 0.
 """
 
 import json
@@ -30,6 +35,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import repro.core as ref_core
@@ -358,7 +364,7 @@ def test_report_snapshot_roundtrip(tmp_path):
     assert snap.quarantines == tel.counters["straggler.quarantine"] == 1
     assert snap.span_counts["scheduler.autotune"] == 1
     assert snap.span_counts["speedstore.partition"] == len(tel.spans("speedstore.partition"))
-    assert snap.rounds is None  # no fleet in the port yet
+    assert snap.rounds is None  # this session runs no fleet
     assert snap.table() and "fold-ins" in snap.table() and "span wall totals" in snap.table()
     # the payload of the sink itself reads the same way
     assert MetricsSnapshot.from_payload(tel.to_payload()).span_counts == snap.span_counts
@@ -372,3 +378,129 @@ def test_report_snapshot_roundtrip(tmp_path):
     )
     assert cli.returncode == 0, cli.stderr
     assert "fold-ins" in cli.stdout and "speedstore.partition" in cli.stdout
+
+
+# ---------------------------------------------------------------------------
+# one fleet session through every fleet site
+# ---------------------------------------------------------------------------
+
+
+def _fleet_session(pkg, core, backend, tmp_path):
+    """The fleet's sites in one session: a registry that is missing on disk,
+    a stale warm profile dropped on the first round, measured rounds of
+    three tenants (one warm), a rebalance with a drifted load, serving
+    epochs with replica 2 slowing until it is reprofiled, a power-capped
+    rebalance, and a hierarchical fleet's rounds.  Returns what the fleet
+    computed."""
+    from repro.core.energy import energy_model as ref_energy_model
+
+    from repro_torch.core.energy import energy_model
+
+    emodel = energy_model if core is port_core else ref_energy_model
+    kw = {"backend": backend, "device": "cpu"} if core is port_core else {"backend": "numpy"}
+    p, q = 6, 3
+    rng = np.random.default_rng(800)
+    base = rng.uniform(1e-4, 2e-3, (q, p))
+    knee = rng.uniform(5.0, 80.0, (q, p))
+
+    def batch(X):
+        return X * base + np.where(X > knee, (X - knee) * base * 4.0, 0.0)
+
+    with pytest.warns(UserWarning, match="not found"):
+        reg = pkg.ProfileRegistry.load(str(tmp_path / "profiles.json"))  # never written
+    reg.record("X", "w", [(10.0, 1000.0), (500.0, 1000.0)])
+    fleet = pkg.FleetScheduler(p, registry=reg, device_classes=["X"] * p, staleness_tol=0.5, **kw)
+    names = [f"j{j}" for j in range(q)]
+    for j, nm in enumerate(names):
+        fleet.admit(pkg.JobSpec(name=nm, n=90 + 20 * j, eps=0.05, min_units=1, max_iter=6,
+                                workload="w" if j == 0 else None))
+    with pytest.warns(UserWarning, match="stale warm profile"):
+        res = fleet.run(core.BatchedSimulatedExecutor2D(time_fn_batch_2d=batch, p=p, q=q, job_names=names))
+    out = [("run", {nm: (r.allocations, r.diagnostics["history"]) for nm, r in res.items()})]
+    out.append(("rebalance", fleet.rebalance({"j1": 150})))
+    slow = 1.0
+    for _ in range(5):
+        ds = fleet.rebalance()
+        slow *= 2.0
+        times = {nm: [0.01 * (i + 1) * d[i] * (slow if i == 2 else 1.0) for i in range(p)]
+                 for nm, d in ds.items()}
+        out.append(("actions", [a.value for a in fleet.straggler_actions(times)]))
+        fleet.observe(times)
+    out.append(("stats", {k: v for k, v in fleet.stats().items() if k not in ("restacks", "device_dispatches")}))
+    capped = pkg.FleetScheduler(4, power_cap=50.0, **kw)
+    for j, n in enumerate((200, 300)):
+        sm = [core.PiecewiseLinearFPM.from_points([(x, 1.0 + 0.5 * i + 0.1 * j) for x in (1.0, 50.0, 400.0)])
+              for i in range(4)]
+        em = [emodel([(x, 2.0 * (i + 1) + 0.3 * x) for x in (1.0, 50.0, 400.0)]) for i in range(4)]
+        capped.admit(pkg.JobSpec(f"c{j}", n), models=sm, energy_models=em)
+    out.append(("capped", capped.rebalance()))
+    hier = pkg.FleetScheduler(p, groups=[0, 0, 1, 1, 2, 2], **kw)
+    for j, nm in enumerate(names):
+        hier.admit(pkg.JobSpec(name=nm, n=80 + 10 * j, eps=0.03, min_units=1, max_iter=4))
+    res = hier.run(core.BatchedSimulatedExecutor2D(time_fn_batch_2d=batch, p=p, q=q, job_names=names))
+    out.append(("hier", {nm: r.allocations for nm, r in res.items()}))
+    return out
+
+
+def _fleet_records(tel, backend):
+    """``_records`` with the torch backend's own fleet counts set aside: it
+    restacks its device carry (``fleet.restack`` counters, the
+    ``fleet.restacks`` gauge) and counts its device solves
+    (``fleet.device_dispatches``), which the host backends leave at 0."""
+    out = []
+    for kind, name, value, attrs in _records(tel, backend):
+        if backend == "torch":
+            if name == "fleet.restack":
+                continue
+            if name in ("fleet.restacks", "fleet.device_dispatches"):
+                value = None
+        out.append((kind, name, value, attrs))
+    return out
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_fleet_events_match_the_reference(backend, tmp_path):
+    """The same fleet session through the reference's numpy fleet under
+    ``repro.obs`` and through the port's under ``repro_torch.obs``: equal
+    results, and equal event names, order, counts and non-time attributes
+    (on the torch backend, beside its restack and device-solve counts)."""
+    import repro.fleet as ref_fleet
+
+    import repro_torch.fleet as port_fleet
+
+    ref_tel, port_tel = ref_obs.Telemetry(), obs.Telemetry()
+    with ref_obs.use(ref_tel):
+        want = _fleet_session(ref_fleet, ref_core, "numpy", tmp_path)
+    with obs.use(port_tel):
+        got = _fleet_session(port_fleet, port_core, backend, tmp_path)
+    assert got == want
+    assert _fleet_records(port_tel, backend) == _fleet_records(ref_tel, backend)
+    names = {e.name for e in port_tel.events}
+    assert {"fleet.partition", "fleet.measure", "fleet.fold", "fleet.round", "fleet.rebalance",
+            "fleet.observe", "fleet.power_cap", "fleet.power_cap.theta", "fleet.reprofile_replica",
+            "fleet.rounds", "registry.warning", "registry.stale_profile", "straggler.strike",
+            "hier.outer", "hier.inner"} <= names
+    assert not any(n.startswith("fleet.recompile") for n in names)
+    restacks = sum(e.name == "fleet.restack" for e in port_tel.events)
+    assert (restacks > 0) == (backend == "torch")
+    snap = MetricsSnapshot.from_payload(port_tel.to_payload())
+    assert snap.rounds == port_tel.gauges["fleet.rounds"] > 0
+    assert snap.recompiles_partition == snap.recompiles_fold == 0
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_fleet_telemetry_read_only_and_disabled_sink(backend, tmp_path, monkeypatch):
+    import repro_torch.fleet as port_fleet
+    import repro_torch.fleet.registry as registry
+    import repro_torch.fleet.scheduler as scheduler
+
+    want = _fleet_session(port_fleet, port_core, backend, tmp_path)
+    stub = _CountingDisabledSink()
+    with obs.use(stub):
+        assert _fleet_session(port_fleet, port_core, backend, tmp_path) == want
+    assert stub.calls == 0
+    with obs.use(obs.Telemetry()):
+        assert _fleet_session(port_fleet, port_core, backend, tmp_path) == want
+    for mod in (scheduler, registry):
+        monkeypatch.setattr(mod, "_obs_active", lambda: None)
+    assert _fleet_session(port_fleet, port_core, backend, tmp_path) == want

@@ -1,6 +1,6 @@
 """Probe the 2-D grid partitioner's application on one NVIDIA H100.
 
-    python3 tools/grid_probe.py [--runs 10]
+    python3 tools/grid_probe.py [--runs 10] [--src DIR]
 
 Run on a machine with the card, from the root of a checkout.  It runs the
 ``grid`` phase's application of ``chip_smoke.py`` (part c) ``--runs``
@@ -12,12 +12,17 @@ at eps 0.1 over M = N = 128 units, each speed-function evaluation the
 median of ``MatmulGrid.samples`` timings.  For each run it prints one JSON line:
 convergence, outer iterations, inner rounds, wall seconds, the seconds
 inside the speed functions (the timed blocks), and the rest of the wall
-split into the device bank's ``SpeedStore.partition`` and
-``SpeedStore.fold_in`` (host clock, the card drained around each call)
-and everything else; then the final partition and the CPM partition
+split into the device bank's ``TorchModelBank.partition_units`` and
+``TorchModelBank.fold_in`` (host clock, the card drained around each call;
+the columns' inner loops reach the bank through the fleet, or through
+child sessions' ``SpeedStore`` in a checkout from before the fleet), the
+number of those calls, and everything else; then the final partition and
+the CPM partition
 (one benchmark round, proportional split) each measured five times in
 turns, as the imbalance and makespan medians.  The last line sums the
-runs up: converged runs, and min/median/max of each number.
+runs up: converged runs, and min/median/max of each number.  ``--src``
+names the ``src/`` directory whose ``repro_torch`` is probed (default:
+this checkout's), so an unpacked parent is measured by the same probe.
 """
 
 from __future__ import annotations
@@ -33,11 +38,6 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-from repro_torch.core import Policy, Scheduler, SpeedStore, imbalance  # noqa: E402
-from repro_torch.launch import matmul_grid as mg  # noqa: E402
-from repro_torch.kernels.matmul_update import matmul_update_cuda  # noqa: E402
 
 
 def _spread(xs) -> dict:
@@ -46,32 +46,43 @@ def _spread(xs) -> dict:
 
 
 class _Timed:
-    """Host seconds spent in ``SpeedStore.partition`` and ``fold_in``
-    while active, the card drained before and after each call."""
+    """Host seconds spent in ``TorchModelBank.partition_units`` and
+    ``fold_in``, and their calls, while active, the card drained before and
+    after each call."""
 
     def __init__(self):
-        self.s = {"partition": 0.0, "fold_in": 0.0}
-        self._orig = {name: getattr(SpeedStore, name) for name in self.s}
+        from repro_torch.core import TorchModelBank
+
+        self.s = {"partition_units": 0.0, "fold_in": 0.0}
+        self.calls = dict.fromkeys(self.s, 0)
+        self._cls = TorchModelBank
+        self._orig = {name: getattr(TorchModelBank, name) for name in self.s}
 
     def __enter__(self):
         for name, method in self._orig.items():
-            def timed(store, *args, _name=name, _method=method, **kwargs):
+            def timed(bank, *args, _name=name, _method=method, **kwargs):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = _method(store, *args, **kwargs)
+                out = _method(bank, *args, **kwargs)
                 torch.cuda.synchronize()
                 self.s[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
                 return out
-            setattr(SpeedStore, name, timed)
+            setattr(self._cls, name, timed)
         return self
 
     def __exit__(self, *exc):
         for name, method in self._orig.items():
-            setattr(SpeedStore, name, method)
+            setattr(self._cls, name, method)
         return False
 
 
-def one_run(app: mg.MatmulGrid) -> dict:
+def one_run(app) -> dict:
+    # imported here: main() puts --src on the path first
+    from repro_torch.core import Policy, Scheduler, imbalance
+    from repro_torch.kernels.matmul_update import matmul_update_cuda
+    from repro_torch.launch import matmul_grid as mg
+
     app.reset_counts()
     before = matmul_update_cuda.launches
     sched = Scheduler(grid=app.grid(), policy=Policy.GRID2D, backend="torch", device="cuda")
@@ -93,8 +104,10 @@ def one_run(app: mg.MatmulGrid) -> dict:
     return {
         "converged": part.converged, "final_imbalance": part.imbalance, "outer_iterations": part.iterations,
         "rounds": part.diagnostics["total_rounds"], "col_widths": part.col_widths, "row_heights": part.row_heights,
-        "wall_s": wall, "speed_fn_s": eval_s, "partition_s": timed.s["partition"], "fold_in_s": timed.s["fold_in"],
-        "other_s": wall - eval_s - timed.s["partition"] - timed.s["fold_in"],
+        "wall_s": wall, "speed_fn_s": eval_s, "partition_s": timed.s["partition_units"],
+        "fold_in_s": timed.s["fold_in"], "partition_calls": timed.calls["partition_units"],
+        "fold_in_calls": timed.calls["fold_in"],
+        "other_s": wall - eval_s - timed.s["partition_units"] - timed.s["fold_in"],
         "speed_fn_evaluations": evals, "samples": app.samples, "launches": launches,
         "launches_expected": expected,
         "remeasured_imbalance_median": float(np.median([imbalance(t) for t in measured["dfpa"]])),
@@ -107,7 +120,10 @@ def one_run(app: mg.MatmulGrid) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--src", default=str(ROOT / "src"), help="the src/ directory that holds repro_torch")
     args = ap.parse_args()
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+    from repro_torch.launch import matmul_grid as mg
     if not torch.cuda.is_available():
         raise SystemExit("grid_probe: no CUDA device")
     smi = subprocess.run(
@@ -122,10 +138,10 @@ def main() -> int:
         row = {"run": i, "card": smi, **one_run(app)}
         rows.append(row)
         print(json.dumps(row), flush=True)
-    keys = ("outer_iterations", "rounds", "wall_s", "speed_fn_s", "partition_s", "fold_in_s", "other_s",
-            "remeasured_imbalance_median")
+    keys = ("outer_iterations", "rounds", "wall_s", "speed_fn_s", "partition_s", "fold_in_s", "partition_calls",
+            "fold_in_calls", "other_s", "remeasured_imbalance_median")
     summary = {
-        "card": smi, "runs": len(rows), "converged": sum(r["converged"] for r in rows),
+        "card": smi, "src": args.src, "runs": len(rows), "converged": sum(r["converged"] for r in rows),
         "launches_match": all(r["launches"] == r["launches_expected"] for r in rows),
         **{k: _spread([r[k] for r in rows]) for k in keys},
         "makespan_ms_dfpa": _spread([r["makespan_ms_median"]["dfpa"] for r in rows]),
