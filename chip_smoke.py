@@ -166,7 +166,19 @@ the first fault:
                       warm-up per tenant and processor: all converge at
                       eps 0.1, launches as the rounds and warm-ups account
                       for, all ``"wgmma"``, each tenant's final distribution
-                      re-measured within 2*eps.
+                      re-measured within 2*eps; (d) the pipelined rounds:
+                      ``parity_gate``'s case with ``pipeline=True`` at depth
+                      0 and 1, each bit-identical to the sync fleet with the
+                      reference's counts (``FLEET_PIPELINE_*``), every
+                      pre-dispatched partition queued under sync debug mode
+                      ``"error"`` (host ms beside its CUDA-event ms); the
+                      q = 16 x p = 1000 serving cycle (``rebalance`` +
+                      ``observe``), sync beside depth 1 under exact times and
+                      2 % noise and depth 0 under exact times (equal to
+                      sync), every allocation summing to n and no
+                      pre-dispatch reading a carry more than one generation
+                      old; and (c) again at ``pipeline_depth=0``, its
+                      launches counted in the phase's.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, and ``matmul_update``'s by phase, ``dfpa``,
@@ -207,6 +219,7 @@ from repro_torch.core import (  # noqa: E402
     make_hcl_time_fns,
 )
 from repro_torch.core.energy import energy_model  # noqa: E402
+from repro_torch.core import modelbank_torch as mbt  # noqa: E402
 from repro_torch.core.modelbank_torch import numpy_sum_block, np_order_sum  # noqa: E402
 from repro_torch.core.partition import _partition_units_bank  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
@@ -330,6 +343,11 @@ FLEET_EPS, FLEET_MAX_ITER = 0.03, 8
 # what the reference's jax fleet counts on parity_gate and bucket_gate
 # (tests/test_torch_fleet.py holds these numbers against it)
 FLEET_PARITY_DISPATCHES, FLEET_BUCKET_RESTACKS = 15, 2
+# ... and on parity_gate's case with pipeline=True at depth 0 and 1
+# (tests/test_torch_fleet_pipeline.py holds these against it)
+FLEET_PIPELINE_DEPTH0 = dict(rounds=8, device_dispatches=15, predispatches=7, stale_reads=0, speculative_misses=0)
+FLEET_PIPELINE_DEPTH1 = dict(rounds=8, device_dispatches=21, predispatches=7, stale_reads=0, speculative_misses=6)
+FLEET_SERVE_WARMUP, FLEET_SERVE_EPOCHS = 2, 3  # part (d)'s serving epochs: untimed, then timed
 FLEET_SCALE_Q, FLEET_SCALE_P, FLEET_SCALE_ROUNDS = 16, 1000, 3
 FLEET_TENANT_REPEATS = [DFPA_REPEATS, DFPA_REPEATS[::-1], [2, 3, 4, 1, 2, 3, 4, 1]]
 ARTIFACTS = ROOT / "build"  # the obs trace and the flight recorder's dump
@@ -1733,9 +1751,53 @@ def fleet_make_tenants(q: int, p: int, seed: int = 0):
     return time_fn, warm
 
 
-def _fleet_knee_run(p, ns, batch_fn, *, backend, device, groups=None):
+class PredispatchProbe:
+    """Wraps a fleet's pre-dispatch (``_predispatch_next``): on the card each
+    pre-dispatched partition is queued under ``torch.cuda.set_sync_debug_mode
+    ("error")``, so a device-to-host read inside it raises, and CUDA events
+    around it give its solve's device time beside the host time the call
+    took.  ``fetch_ms`` collects the host time of the rounds that fetched
+    one."""
+
+    def __init__(self, fleet, device):
+        self.calls = []  # (host_ms, (start, end) events or None)
+        self.cuda = torch.device(device).type == "cuda"
+        real = fleet._predispatch_next
+
+        def wrapped(*args, **kw):
+            before = fleet.predispatches
+            events = None
+            if self.cuda:
+                events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                torch.cuda.set_sync_debug_mode("error")
+                events[0].record()
+            t0 = time.perf_counter()
+            try:
+                real(*args, **kw)
+            finally:
+                host_ms = (time.perf_counter() - t0) * 1e3
+                if self.cuda:
+                    events[1].record()
+                    torch.cuda.set_sync_debug_mode("default")
+            if fleet.predispatches > before:
+                self.calls.append((host_ms, events))
+
+        fleet._predispatch_next = wrapped
+
+    def rows(self) -> dict:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return {
+            "host_ms": [h for h, _ in self.calls],
+            "device_ms": [e[0].elapsed_time(e[1]) if e else None for _, e in self.calls],
+        }
+
+
+def _fleet_knee_run(p, ns, batch_fn, *, backend, device, groups=None, probe=False, **kw):
     names = [f"t{j}" for j in range(len(ns))]
-    fleet = FleetScheduler(p, backend=backend, device=device, groups=groups)
+    fleet = FleetScheduler(p, backend=backend, device=device, groups=groups, **kw)
+    if probe:
+        fleet.probe = PredispatchProbe(fleet, device)
     for nm, n in zip(names, ns):
         fleet.admit(JobSpec(name=nm, n=n, eps=FLEET_EPS, min_units=1, max_iter=FLEET_MAX_ITER))
     res = fleet.run(BatchedSimulatedExecutor2D(time_fn_batch_2d=batch_fn, p=p, q=len(ns), job_names=names))
@@ -1844,6 +1906,145 @@ def fleet_bucket_gate(device="cuda") -> dict:
     }
 
 
+def sync_debug_catches_a_read() -> bool:
+    """Whether a device-to-host read raises under sync debug mode "error"
+    on this card (the guard the pre-dispatch probe relies on)."""
+    x = torch.ones(4, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        float(x.sum())
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return False
+
+
+def fleet_pipeline_gate(device="cuda") -> dict:
+    """parity_gate's case with ``pipeline=True`` at depth 0 and depth 1
+    (float64, carry on ``device``): both bit-identical to the sync fleet —
+    allocations, times, histories, bench costs, folded models — with the
+    reference's counts, every pre-dispatched partition queued without a
+    device-to-host read (sync debug mode ``"error"`` on the card)."""
+    q, p, seed = FLEET_PARITY["q"], FLEET_PARITY["p"], FLEET_PARITY["seed"]
+    batch_fn, _, ns = fleet_knee_case(q, p, seed)
+    names = [f"t{j}" for j in range(q)]
+    sync, sync_res = _fleet_knee_run(p, ns, batch_fn, backend="torch", device=device)
+    out, checks = {}, {}
+    if torch.device(device).type == "cuda":
+        checks["sync_debug_mode_catches_a_read"] = sync_debug_catches_a_read()
+    for depth, pins in ((0, FLEET_PIPELINE_DEPTH0), (1, FLEET_PIPELINE_DEPTH1)):
+        fleet, res = _fleet_knee_run(p, ns, batch_fn, backend="torch", device=device, probe=True,
+                                     pipeline=True, pipeline_depth=depth)
+        counts = {k: fleet.stats()[k] for k in pins}
+        out[f"depth{depth}"] = {**counts, "deferred": fleet.probe.rows()}
+        checks[f"depth{depth}_equals_sync"] = all(map(_same_job, res, sync_res)) and all(
+            fleet.bench_cost(nm) == sync.bench_cost(nm)
+            and [m.as_points() for m in fleet.models(nm)] == [m.as_points() for m in sync.models(nm)]
+            for nm in names)
+        checks[f"depth{depth}_counts_as_reference"] = counts == pins
+        checks[f"depth{depth}_every_predispatch_probed"] = len(fleet.probe.calls) == counts["predispatches"]
+    return {**out, "checks": checks}
+
+
+def _serving_cycle(noise: float, **kw) -> dict:
+    """One q = 16 x p = 1000 serving session (make_tenants' warm banks,
+    n = 100 p + 7 j, ``reserve_knots=16`` as a serving deployment fixes its
+    carry's shape): epochs of ``rebalance()`` then ``observe()`` of the
+    allocations' times (times 1 + noise * N(0, 1), seeded), the first
+    ``FLEET_SERVE_WARMUP`` untimed (a pre-dispatched shape runs eagerly
+    once and is captured as a CUDA graph the next time).  The epochs run
+    back to back with no synchronization, so a timed epoch's wall includes
+    waiting for the solve its rebalance needs; beside it, each timed
+    rebalance's and observe's host milliseconds and the rebalance's
+    CUDA-event milliseconds; every pre-dispatched partition's host and
+    device milliseconds (under sync debug mode "error"); the carry
+    generation each pre-dispatch read against the newest."""
+    q, p = FLEET_SCALE_Q, FLEET_SCALE_P
+    time_fn, warm = fleet_make_tenants(q, p, seed=0)
+    ns = [100 * p + 7 * j for j in range(q)]
+    names = [f"t{j}" for j in range(q)]
+    fl = FleetScheduler(p, backend="torch", device="cuda", reserve_knots=16, **kw)
+    for j in range(q):
+        fl.admit(JobSpec(name=names[j], n=ns[j], eps=1e-12, min_units=1), models=warm[j])
+    probe = PredispatchProbe(fl, "cuda")
+    lags = []
+    real = fl._stacked_partition
+
+    def lag(jobs, carry, defer=False):
+        if defer:
+            lags.append(fl._stacked.generation - carry.generation)
+        return real(jobs, carry, defer)
+
+    fl._stacked_partition = lag
+    rng = np.random.default_rng(1)
+    starts, rebalance_host, observe_host, rebalance_events, allocations = [], [], [], [], []
+    torch.cuda.synchronize()
+    for e in range(FLEET_SERVE_WARMUP + FLEET_SERVE_EPOCHS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        ds = fl.rebalance()
+        end.record()
+        t1 = time.perf_counter()
+        X = np.asarray([ds[nm] for nm in names], dtype=np.float64)
+        T = time_fn(X) * (1.0 + noise * rng.standard_normal(X.shape))
+        fl.observe({nm: T[j] for j, nm in enumerate(names)})
+        t2 = time.perf_counter()
+        allocations.append([ds[nm] for nm in names])
+        starts.append(t0)
+        if e >= FLEET_SERVE_WARMUP:
+            rebalance_host.append((t1 - t0) * 1e3)
+            observe_host.append((t2 - t1) * 1e3)
+            rebalance_events.append((start, end))
+    starts.append(time.perf_counter())  # the last epoch ends here, its solve still queued
+    torch.cuda.synchronize()
+    epochs = [(b - a) * 1e3 for a, b in zip(starts[FLEET_SERVE_WARMUP:-1], starts[FLEET_SERVE_WARMUP + 1:])]
+    return {
+        "epoch_ms": epochs, "epoch_ms_median": float(np.median(epochs)),
+        "rebalance_host_ms": rebalance_host, "observe_host_ms": observe_host,
+        "rebalance_device_ms": [a.elapsed_time(b) for a, b in rebalance_events],
+        "predispatch": probe.rows(), "predispatch_lag": lags,
+        "counts": {k: fl.stats()[k] for k in ("device_dispatches", "predispatches", "stale_reads",
+                                              "speculative_misses")},
+        "monotone_lanes_after": int(fl._stacked.monotone_lanes().sum()),
+        "sums_to_n": all(sum(d) == n for ds in allocations for d, n in zip(ds, ns)),
+        "allocations": allocations,
+    }
+
+
+def _fleet_pipeline_serving(eager: bool = False) -> dict:
+    """(d) the serving cycle at q = 16 x p = 1000, sync beside depth 1 under
+    exact times and under 2 % noise, and depth 0 under exact times.  Gates:
+    every allocation sums to n, no pre-dispatch read a carry more than one
+    generation old, depth 0 equals sync epoch by epoch.  ``eager`` adds
+    depth 1 with the deferred program run eagerly, not replayed as a CUDA
+    graph, and gates that it equals the replayed run
+    (``tools/fleet_pipeline_probe.py``)."""
+    out, checks = {}, {}
+    for label, noise in (("exact", 0.0), ("noise_2pct", 0.02)):
+        runs = {"sync": _serving_cycle(noise), "depth1": _serving_cycle(noise, pipeline=True, pipeline_depth=1)}
+        if noise == 0.0:
+            runs["depth0"] = _serving_cycle(noise, pipeline=True, pipeline_depth=0)
+            checks["depth0_equals_sync"] = runs["depth0"]["allocations"] == runs["sync"]["allocations"]
+        if eager:
+            mbt.GRAPH_DEFERRED = False
+            try:
+                runs["depth1_eager"] = _serving_cycle(noise, pipeline=True, pipeline_depth=1)
+            finally:
+                mbt.GRAPH_DEFERRED = True
+            checks[f"{label}_eager_equals_graph"] = runs["depth1_eager"]["allocations"] == runs["depth1"]["allocations"]
+        checks[f"{label}_sums_to_n"] = all(r["sums_to_n"] for r in runs.values())
+        checks[f"{label}_staleness_at_most_1"] = all(0 <= g <= 1 for r in runs.values() for g in r["predispatch_lag"])
+        checks[f"{label}_depth1_predispatched"] = runs["depth1"]["counts"]["predispatches"] > 0
+        for r in runs.values():
+            r.pop("allocations")
+        out[label] = runs
+    return {"q": FLEET_SCALE_Q, "p": FLEET_SCALE_P, "epochs_untimed": FLEET_SERVE_WARMUP,
+            "epochs_timed": FLEET_SERVE_EPOCHS, **out, "checks": checks}
+
+
 def _fleet_scale() -> dict:
     """(b) make_tenants(q=16, p=1000), warm 6-point banks, n = 100 p + 7 j:
     stacked measurement rounds of the torch fleet (CUDA events and host
@@ -1922,14 +2123,15 @@ def _fleet_scale() -> dict:
     }
 
 
-def _fleet_tenants() -> tuple:
+def _fleet_tenants(**kw) -> tuple:
     """(c) three tenants on the DFPA phase's eight processors and panels,
     each with its own repeats, measured through a BatchedSimulatedExecutor2D
     whose time function times every nonzero (tenant, processor) panel with
     CUDA events after one untimed warm-up per (tenant, processor).  Gates:
     all converge, launches as the rounds and warm-ups account for, all
     ``"wgmma"``, each tenant's final distribution re-measures at median
-    imbalance <= 2*eps."""
+    imbalance <= 2*eps.  ``kw`` go to the fleet (part (d) runs it again at
+    ``pipeline_depth=0``, its pre-dispatches probed)."""
     a, b, c = _dfpa_operands()
     repeats = FLEET_TENANT_REPEATS
     names = [f"tenant{j}" for j in range(len(repeats))]
@@ -1962,7 +2164,8 @@ def _fleet_tenants() -> tuple:
             T[j, i] = seconds(j, i, int(X[j, i]))
         return T
 
-    fleet = FleetScheduler(p, backend="torch", device="cuda")
+    fleet = FleetScheduler(p, backend="torch", device="cuda", **kw)
+    probe = PredispatchProbe(fleet, "cuda") if kw.get("pipeline") else None
     for nm in names:
         fleet.admit(JobSpec(name=nm, n=DFPA_UNITS, eps=DFPA_EPS, min_units=1))
     executor = BatchedSimulatedExecutor2D(time_fn_batch_2d=time_fn, p=p, q=len(names), job_names=names)
@@ -1986,6 +2189,8 @@ def _fleet_tenants() -> tuple:
     out = {
         "repeats": repeats, "eps": DFPA_EPS, "fleet_rounds": fleet.rounds,
         "device_dispatches": fleet.device_dispatches, "wall_s": wall_s,
+        "fleet_kwargs": kw, "predispatches": fleet.predispatches,
+        **({"predispatch": probe.rows()} if probe else {}),
         "tenants": {nm: {"iterations": res[nm].iterations, "converged": res[nm].converged,
                          "allocations": res[nm].allocations, "imbalance": res[nm].imbalance,
                          "rounds": [{"d": d, "times_ms": [v * 1e3 for v in t]}
@@ -2008,7 +2213,8 @@ def phase_fleet() -> tuple:
     reference's parity, hierarchy and lane-bucket gates in float64, (b)
     q = 16 x p = 1000 measurement rounds beside the numpy fleet and 16
     sequential sessions, (c) three tenants balancing ``matmul_update``
-    panels through one fleet."""
+    panels through one fleet, (d) the pipelined rounds: parity at depth 0
+    and 1, the q = 16 x p = 1000 serving cycle, and (c) again at depth 0."""
     rows = {}
     for name, gate in (("parity_gate", fleet_parity_gate), ("hier_parity_gate", fleet_hier_gate),
                        ("bucket_gate", fleet_bucket_gate)):
@@ -2020,11 +2226,23 @@ def phase_fleet() -> tuple:
     emit({"phase": "fleet", "part": "b", "seconds": time.perf_counter() - t0, **rows["scale"]})
     rows["tenants"], launches, routes = _fleet_tenants()
     emit({"phase": "fleet", "part": "c", **rows["tenants"]})
+    t0 = time.perf_counter()
+    rows["pipeline_gate"] = fleet_pipeline_gate("cuda")
+    emit({"phase": "fleet", "part": "d", "gate": "pipeline_parity_gate", "seconds": time.perf_counter() - t0,
+          **rows["pipeline_gate"]})
+    t0 = time.perf_counter()
+    rows["pipeline_serving"] = _fleet_pipeline_serving()
+    emit({"phase": "fleet", "part": "d", "seconds": time.perf_counter() - t0, **rows["pipeline_serving"]})
+    t0 = time.perf_counter()
+    rows["tenants_depth0"], launches0, routes0 = _fleet_tenants(pipeline=True, pipeline_depth=0)
+    rows["tenants_depth0"]["checks"]["predispatched"] = rows["tenants_depth0"]["predispatches"] > 0
+    emit({"phase": "fleet", "part": "d", "tenants": "pipeline_depth=0", "seconds": time.perf_counter() - t0,
+          **rows["tenants_depth0"]})
     failed = {name: {k: v for k, v in row["checks"].items() if not v}
               for name, row in rows.items() if not all(row["checks"].values())}
     if failed:
         raise SystemExit(f"chip_smoke: the fleet phase failed {failed}")
-    return launches, routes
+    return launches + launches0, {r: routes[r] + routes0[r] for r in routes}
 
 
 def main() -> int:

@@ -16,8 +16,9 @@ also carries the nested 2-D grid partitioner (``partition2d.py`` holds its
 helpers), the two-level partitioner (``hierarchy.py``) and the time/energy
 front (``energy.py``).  ``convert.py`` carries the reference package's
 banks and checkpoints over.  The fleet's measurement primitives
-(``FleetExecutor``, ``BatchedSimulatedExecutor2D``, ``FleetRoundLog``)
-live in ``executor.py``; the fleet itself is ``repro_torch.fleet``.
+(``FleetExecutor``, ``BatchedSimulatedExecutor2D``, ``FleetRoundLog``,
+``DelayedBatchedExecutor``) live in ``executor.py``; the fleet itself is
+``repro_torch.fleet``.
 """
 
 from .convert import bank_from_arrays
@@ -25,6 +26,7 @@ from .executor import (
     BatchedSimulatedExecutor,
     BatchedSimulatedExecutor2D,
     CallableExecutor,
+    DelayedBatchedExecutor,
     Executor,
     FleetExecutor,
     FleetRoundLog,
@@ -34,7 +36,7 @@ from .executor import (
 from .fpm import AnalyticModel, ConstantModel, PiecewiseLinearFPM, SpeedModel, imbalance
 from .hierarchy import Hierarchy
 from .modelbank import ModelBank, aggregate_groups, group_members
-from .modelbank_torch import TorchModelBank, fetch_partition
+from .modelbank_torch import DeferredPartition, TorchModelBank, fetch_partition
 from .partition import cpm_partition, partition_continuous, partition_units
 from .partition2d import app_time_2d
 from .scheduler import Partition, Policy, Scheduler
@@ -63,6 +65,8 @@ __all__ = [
     "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "ConstantModel",
+    "DeferredPartition",
+    "DelayedBatchedExecutor",
     "Executor",
     "FleetExecutor",
     "FleetRoundLog",

@@ -18,9 +18,9 @@ Energy models (``energy_points``) and the two-level assignment
 ``sharding="shard_map"`` spreads the hierarchy's group blocks over several
 devices; the port runs on one card and has no counterpart, so a state that
 names it raises ``NotImplementedError`` rather than being dropped.  A
-fleet checkpointed with ``pipeline=True`` raises the same way: the port's
-fleet runs synchronous rounds only (ROADMAP queue 1, item 7b), and a
-pipelined session at depth 1 would not continue the same trajectory.
+fleet checkpointed with ``pipeline=True`` resumes pipelined, at its
+``pipeline_depth``: the reference drains its pipeline before it writes the
+state, so nothing in flight is lost.
 """
 
 from __future__ import annotations
@@ -86,17 +86,11 @@ def scheduler_state_from_reference(state: Dict) -> Dict:
 def fleet_state_from_reference(state: Dict) -> Dict:
     """A ``FleetScheduler.state_dict()`` of either package in the port's
     schema: the same keys, ``"jax"`` read as ``"torch"``.  A state that
-    names ``sharding`` or ``pipeline=True`` raises ``NotImplementedError``."""
+    names ``sharding`` raises ``NotImplementedError``."""
     if int(state.get("version", 0)) != 1:
         raise ValueError(f"unknown fleet state version {state.get('version')!r}")
     cfg = dict(state["config"])
     _refuse_sharding(cfg.get("sharding"))
-    if cfg.get("pipeline"):
-        raise NotImplementedError(
-            "the state comes from a pipelined fleet (pipeline=True); the port "
-            "runs synchronous rounds only (ROADMAP queue 1, item 7b: the "
-            "fleet's pipelined rounds)"
-        )
     cfg["backend"] = _backend(cfg.get("backend", "numpy"))
     cfg.pop("sharding", None)
     return {**state, "config": cfg}

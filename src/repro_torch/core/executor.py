@@ -10,13 +10,15 @@ so one DFPA loop drives:
   ``matmul_update`` kernel on row panels, timed by the clock of the device
   they run on;
 * ``BatchedSimulatedExecutor2D`` — a :class:`FleetExecutor`: every
-  measuring job of a fleet round (``fleet/scheduler.py``) in one call.
+  measuring job of a fleet round (``fleet/scheduler.py``) in one call;
+* ``DelayedBatchedExecutor`` — wraps a :class:`FleetExecutor` and records
+  when each job's measurement would have completed on an asynchronous
+  platform, for the fleet's pipelined rounds.
 
 ``run`` returns per-processor execution times for one parallel round; the
 round's wall-clock cost is ``max(times)`` plus the collective overhead the
-executor models.  The reference's ``DelayedBatchedExecutor`` comes with
-the fleet's pipelined rounds (ROADMAP queue 1, item 7b) and
-``TraceExecutor2D`` with the serving dispatch (item 8).
+executor models.  The reference's ``TraceExecutor2D`` comes with the
+serving dispatch (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ __all__ = [
     "BatchedSimulatedExecutor",
     "BatchedSimulatedExecutor2D",
     "CallableExecutor",
+    "DelayedBatchedExecutor",
     "RoundLog",
     "FleetRoundLog",
 ]
@@ -248,6 +251,80 @@ class BatchedSimulatedExecutor2D:
     @property
     def total_cost(self) -> float:
         return sum(l.wall_cost for l in self.logs)
+
+
+@dataclass
+class DelayedBatchedExecutor:
+    """Async-completion test double for the pipelined fleet rounds: wraps an
+    inner :class:`FleetExecutor` and models WHEN each job's measurement would
+    have completed on a real asynchronous platform — without perturbing the
+    returned times, so every bit-parity check against the bare inner executor
+    still holds.
+
+    Each ``run_jobs`` call delegates to ``inner`` unchanged, then computes a
+    simulated finish instant per job: the job's slowest lane time plus a
+    configurable per-job ``lane_latency`` (dict or callable ``name ->
+    seconds``, e.g. a straggler NIC on one replica).  Ties are broken by a
+    seeded permutation, so runs with equal latencies still exercise a
+    reproducible *non-submission* completion order.  The observed order is
+    appended to ``completions`` as ``(finish_clock, name)`` events and the
+    simulated ``clock`` advances to the round's last finish — tests replay
+    exact interleavings from these events instead of relying on real
+    asynchronous timing.
+    """
+
+    inner: object  # FleetExecutor (e.g. BatchedSimulatedExecutor2D)
+    lane_latency: object = None  # dict/callable name -> extra seconds, or None
+    seed: int = 0
+    completions: List[tuple] = field(default_factory=list)  # (clock, name)
+    clock: float = 0.0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+
+    @property
+    def num_procs(self) -> int:
+        return self.inner.num_procs
+
+    def _latency(self, name) -> float:
+        lat = self.lane_latency
+        if lat is None:
+            return 0.0
+        if callable(lat):
+            return float(lat(name))
+        return float(lat.get(name, 0.0))
+
+    def run_jobs(self, names: Sequence[str], D):
+        T = self.inner.run_jobs(names, D)
+        arr = np.asarray(T, dtype=np.float64)
+        finish = [
+            self.clock + float(arr[k].max()) + self._latency(nm)
+            for k, nm in enumerate(names)
+        ]
+        tie = self._rng.permutation(len(finish))
+        for k in sorted(range(len(finish)), key=lambda k: (finish[k], int(tie[k]))):
+            self.completions.append((float(finish[k]), str(names[k])))
+        if finish:
+            self.clock = max(finish)
+        return T
+
+    def run(self, d: Sequence[int]) -> List[float]:
+        times = self.inner.run(d)
+        finish = self.clock + float(np.max(np.asarray(times))) if times else self.clock
+        self.completions.append((float(finish), "job"))
+        self.clock = finish
+        return times
+
+    def round_cost(self, times: Sequence[float]) -> float:
+        return self.inner.round_cost(times)
+
+    @property
+    def logs(self):
+        return self.inner.logs
+
+    @property
+    def total_cost(self) -> float:
+        return self.inner.total_cost
 
 
 @dataclass

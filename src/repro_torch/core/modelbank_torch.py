@@ -40,10 +40,29 @@ solves run as one stacked ``[g, p_max, k]`` partition whose float sums
 follow each group's own row length (:func:`ragged_order_sum`).
 
 The loops that the reference runs as device ``while_loop``s are Python loops
-over tensor ops here: the doubling and bisection loops read their exit
-condition back from the device once per step, and the greedy completion
-reads its leftover count once and then runs that many masked steps without
-further reads.
+over tensor ops here.  ``partition_units`` runs them in one of two forms:
+
+  * the sync program (``defer=False``): the doubling and bisection loops
+    read their exit condition back from the device once per step, and the
+    greedy completion reads its leftover count once and then runs that many
+    masked steps without further reads;
+  * the deferred program (``defer=True``, :func:`_partition_units_fixed`):
+    every loop runs a count fixed on the host — the doubling's 200, the
+    bisections' ``max_steps``, the take-back's bit length from the host
+    caps, and a host bound on the greedy's leftover — with finished lanes
+    masked so that the extra steps are exact no-ops, and the ``"auto"``
+    completion routing is a boolean mask computed on the device.  Nothing
+    is read back until :func:`fetch_partition`, so the whole solve is
+    queued on the device and left there (the fleet's pipelined rounds
+    overlap it with the host's bookkeeping).  Its allocations and ``t*``
+    are bit-identical to the sync program's.  To keep the launch count
+    down, it evaluates several steps of a loop in one pass where the
+    later steps' inputs are known in advance: eight doublings per pass,
+    four bisection levels per pass (the 15 midpoints of the next four
+    steps' binary tree), and the greedy's next-unit times in tables of 16
+    units per row.  On the card the program is replayed as a CUDA graph
+    from a shape's second call (:class:`_GraphedSolve`): eager, its many
+    small kernels would keep the host busy for as long as the card.
 
 The device is explicit: constructors take ``device=`` (default ``"cuda"``)
 and raise when CUDA is requested but not available; the CPU is used only
@@ -53,8 +72,9 @@ when the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +82,7 @@ import torch
 from .modelbank import ModelBank
 
 __all__ = [
+    "DeferredPartition",
     "TorchModelBank",
     "fetch_partition",
     "np_order_sum",
@@ -170,10 +191,20 @@ def _np_sum_plan(n: int, block: Optional[int]):
     return main, tail, levels, [node_id(r) for r in roots]
 
 
+def upload(v, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host data on ``device``.  A CUDA upload goes through pinned memory
+    without blocking the host, so it is legal inside a queued solve (under
+    ``torch.cuda.set_sync_debug_mode("error")`` and in stream order)."""
+    t = torch.as_tensor(np.array(v), dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @functools.lru_cache(maxsize=64)
 def _np_sum_plan_on(n: int, block: Optional[int], device: torch.device):
     main, tail, levels, roots = _np_sum_plan(n, block)
-    put = functools.partial(torch.as_tensor, device=device)
+    put = functools.partial(upload, device=device)
     used_tail = int((tail != n).sum(axis=0).nonzero()[0].max(initial=-1)) + 1
     return (
         put(main),
@@ -406,32 +437,100 @@ def _monotone_lanes(xs, ss, counts):
 # ---------------------------------------------------------------------------
 
 
-def _partition_continuous(xs, ss, counts, caps, n, rel_tol, max_steps, row_sum=np_order_sum):
+_DOUBLING_STEPS = 200  # the doubling loops' step limit
+_DOUBLING_CHUNK = 8  # deferred program: doublings evaluated per pass (divides 200)
+_BISECT_LEVELS = 4  # deferred program: bisection steps resolved per pass
+_GREEDY_WINDOW = 16  # deferred program: greedy steps per table of next-unit times
+
+
+def _double_fixed(hi, need_at):
+    """The early-exit doubling ``while need(hi): hi *= 2`` (at most
+    ``_DOUBLING_STEPS`` times, per lane) with no read: ``hi * 2**m``, ``m``
+    the first ``j < _DOUBLING_STEPS`` with ``not need_at(hi * 2**j)``.  Each
+    pass evaluates ``need_at`` on the next ``_DOUBLING_CHUNK`` candidates at
+    once (a leading dim), each one the previous doubled, as the loop
+    computes them; a lane whose need has ended keeps its ``hi`` through the
+    later passes."""
+    chunk = _DOUBLING_CHUNK
+    for _ in range(_DOUBLING_STEPS // chunk):  # 200 doublings, 25 passes
+        cands = [hi]
+        for _ in range(chunk - 1):
+            cands.append(cands[-1] * 2.0)
+        c = torch.stack(cands)
+        run = (~need_at(c)).to(torch.int64).cumsum(dim=0).eq(0).sum(dim=0)  # leading needs
+        pick = torch.gather(c, 0, torch.clamp(run, max=chunk - 1).unsqueeze(0)).squeeze(0)
+        hi = torch.where(run == chunk, cands[-1] * 2.0, pick)
+    return hi
+
+
+def _bisect_fixed(lo, hi, done, ge_at, rel_tol, steps: int):
+    """``steps`` steps of the masked bisection with its after-update exit
+    (``done`` lanes keep ``lo``/``hi``), with no read.  A pass resolves
+    ``_BISECT_LEVELS`` steps: it builds the binary tree of the midpoints the
+    next steps can visit (node ``j``'s children are ``(lo_j, mid_j)`` and
+    ``(mid_j, hi_j)``, each midpoint computed as the step computes it),
+    evaluates ``ge_at`` on all of them at once, and walks the tree."""
+    for s in range(0, steps, _BISECT_LEVELS):
+        levels = min(_BISECT_LEVELS, steps - s)
+        los, his, mids = lo.unsqueeze(0), hi.unsqueeze(0), []
+        for lvl in range(levels):
+            mid = 0.5 * (los + his)
+            mids.append(mid)
+            if lvl + 1 < levels:
+                los = torch.stack([los, mid], dim=1).flatten(0, 1)
+                his = torch.stack([mid, his], dim=1).flatten(0, 1)
+        ge_all = ge_at(torch.cat(mids))
+        node = torch.zeros(lo.shape, dtype=torch.int64, device=lo.device)
+        for lvl in range(levels):
+            at = node.unsqueeze(0)
+            mid = torch.gather(mids[lvl], 0, at).squeeze(0)
+            ge = torch.gather(ge_all[(1 << lvl) - 1:(2 << lvl) - 1], 0, at).squeeze(0)
+            hi2 = torch.where(~done & ge, mid, hi)
+            lo2 = torch.where(~done & ~ge, mid, lo)
+            done = done | (hi2 - lo2 <= rel_tol * hi2)
+            lo, hi = lo2, hi2
+            node = 2 * node + (~ge).to(torch.int64)
+    return lo, hi, done
+
+
+def _partition_continuous(
+    xs, ss, counts, caps, n, rel_tol, max_steps, row_sum=np_order_sum, fixed=False,
+):
     active = caps > 0.0
 
     # Exponential search for an upper bound on t* (per batch element).
     t_init = _time(xs, ss, counts, torch.clamp(caps, max=1.0))
     hi = torch.where(active, t_init, float("-inf")).amax(dim=-1)
     hi = torch.clamp(torch.clamp(hi, min=0.0), min=1e-9)
-    for _ in range(200):
-        need = _total_alloc(xs, ss, counts, hi, caps, row_sum) < n
-        if not bool(need.any()):
-            break
-        hi = torch.where(need, hi * 2.0, hi)
+    if fixed:
+        hi = _double_fixed(hi, lambda t: _total_alloc(xs, ss, counts, t, caps, row_sum) < n)
+    else:
+        for _ in range(_DOUBLING_STEPS):
+            need = _total_alloc(xs, ss, counts, hi, caps, row_sum) < n
+            if not bool(need.any()):
+                break
+            hi = torch.where(need, hi * 2.0, hi)
 
     # Bisection; `done` is set AFTER the update, like the host loop's break.
     # Lanes with n <= 0 start done (the excess rescale zeroes them anyway).
     lo = torch.zeros_like(hi)
     done = (n <= 0.0).expand(hi.shape)
-    for _ in range(max_steps):
-        if bool(done.all()):
-            break
-        mid = 0.5 * (lo + hi)
-        ge = _total_alloc(xs, ss, counts, mid, caps, row_sum) >= n
-        hi2 = torch.where(~done & ge, mid, hi)
-        lo2 = torch.where(~done & ~ge, mid, lo)
-        done = done | (hi2 - lo2 <= rel_tol * hi2)
-        lo, hi = lo2, hi2
+    if fixed:
+        lo, hi, done = _bisect_fixed(
+            lo, hi, done,
+            lambda t: _total_alloc(xs, ss, counts, t, caps, row_sum) >= n,
+            rel_tol, max_steps,
+        )
+    else:
+        for _ in range(max_steps):
+            if bool(done.all()):
+                break
+            mid = 0.5 * (lo + hi)
+            ge = _total_alloc(xs, ss, counts, mid, caps, row_sum) >= n
+            hi2 = torch.where(~done & ge, mid, hi)
+            lo2 = torch.where(~done & ~ge, mid, lo)
+            done = done | (hi2 - lo2 <= rel_tol * hi2)
+            lo, hi = lo2, hi2
     t_star = hi
 
     alloc = _alloc_at_time(xs, ss, counts, t_star, caps)
@@ -447,7 +546,7 @@ def _partition_continuous(xs, ss, counts, caps, n, rel_tol, max_steps, row_sum=n
 # ---------------------------------------------------------------------------
 
 
-def _take_back(xs, ss, counts, d, leftover, min_units):
+def _take_back(xs, ss, counts, d, leftover, min_units, steps=None):
     """``min_units`` overshoot: take units back round-robin in the stable
     descending per-unit-time order, skipping rows at their floor, until the
     overshoot is gone — the reference's sequential loop in closed form.
@@ -458,16 +557,21 @@ def _take_back(xs, ss, counts, d, leftover, min_units):
     count with ``T(k) <= deficit`` (an integer bisection), and the remaining
     ``deficit - T(k)`` units come from the first rows in order with
     ``g > k``.
+
+    ``steps`` (the deferred program) fixes the bisection's step count on the
+    host, at least ``int(hi.max()).bit_length()``, and drops the early exit:
+    ``T(lo) <= deficit`` holds throughout, so once ``hi - lo == 1`` a step
+    keeps ``lo`` and ``hi``, and a lane without deficit takes nothing.
     """
     deficit = torch.clamp(-leftover, min=0)
-    if not bool((deficit > 0).any()):
+    if steps is None and not bool((deficit > 0).any()):
         return d, leftover
     per_unit = _time(xs, ss, counts, d.to(xs.dtype)) / torch.clamp(d, min=1)
     order = torch.argsort(-per_unit, dim=-1, stable=True)
     g = d - min_units
     lo = torch.zeros_like(deficit)
     hi = g.amax(dim=-1) + 1
-    for _ in range(int(hi.max()).bit_length()):
+    for _ in range(int(hi.max()).bit_length() if steps is None else steps):
         mid = (lo + hi) // 2
         fits = torch.minimum(g, mid.unsqueeze(-1)).sum(dim=-1) <= deficit
         lo = torch.where(fits, mid, lo)
@@ -481,7 +585,8 @@ def _take_back(xs, ss, counts, d, leftover, min_units):
 
 
 def _threshold_prefill(
-    xs, ss, counts, caps_i, d0, leftover, t_star, rel_tol, max_steps, fast_mask
+    xs, ss, counts, caps_i, d0, leftover, t_star, rel_tol, max_steps, fast_mask,
+    fixed=False,
 ):
     """Batched threshold-count bulk completion (monotone-time banks).
 
@@ -490,10 +595,11 @@ def _threshold_prefill(
     strict bracket ``count(lo) < leftover <= count(hi)``, grant everything
     counted at ``lo``, and hand the boundary-tied remainder (at least 1) to
     the exact greedy.  Lanes with no leftover, or routed to the exact loop by
-    ``fast_mask``, pass through untouched.
+    ``fast_mask``, pass through untouched (``fixed``: the deferred program's
+    loops, run whether or not a lane is active).
     """
     active = (leftover > 0) & fast_mask
-    if not bool(active.any()):
+    if not fixed and not bool(active.any()):
         return d0, leftover
     caps_f = caps_i.to(xs.dtype)
     base_total = d0.sum(dim=-1)
@@ -504,25 +610,31 @@ def _threshold_prefill(
         return g.sum(dim=-1) - base_total, g
 
     hi = torch.clamp(t_star, min=1e-9)
-    for _ in range(200):
-        c, _ = count(hi)
-        need = active & (c < leftover)
-        if not bool(need.any()):
-            break
-        hi = torch.where(need, hi * 2.0, hi)
-
     lo = torch.zeros_like(hi)
     done = ~active
-    for _ in range(max_steps):
-        if bool(done.all()):
-            break
-        mid = 0.5 * (lo + hi)
-        c, _ = count(mid)
-        ge = c >= leftover
-        hi2 = torch.where(~done & ge, mid, hi)
-        lo2 = torch.where(~done & ~ge, mid, lo)
-        done = done | (hi2 - lo2 <= rel_tol * hi2)
-        lo, hi = lo2, hi2
+    if fixed:
+        hi = _double_fixed(hi, lambda t: active & (count(t)[0] < leftover))
+        lo, hi, done = _bisect_fixed(
+            lo, hi, done, lambda t: count(t)[0] >= leftover, rel_tol, max_steps
+        )
+    else:
+        for _ in range(_DOUBLING_STEPS):
+            c, _ = count(hi)
+            need = active & (c < leftover)
+            if not bool(need.any()):
+                break
+            hi = torch.where(need, hi * 2.0, hi)
+
+        for _ in range(max_steps):
+            if bool(done.all()):
+                break
+            mid = 0.5 * (lo + hi)
+            c, _ = count(mid)
+            ge = c >= leftover
+            hi2 = torch.where(~done & ge, mid, hi)
+            lo2 = torch.where(~done & ~ge, mid, lo)
+            done = done | (hi2 - lo2 <= rel_tol * hi2)
+            lo, hi = lo2, hi2
     c_lo, g_lo = count(lo)
     d = torch.where(active.unsqueeze(-1), g_lo, d0)
     return d, torch.where(active, leftover - c_lo, leftover)
@@ -568,6 +680,104 @@ def _complete_greedy(xs, ss, counts, caps_i, d, rem, leftover):
         left = torch.where(active, torch.where(feasible, left - 1, 0), left)
         ok = ok & (feasible | ~active)
     return d, ok
+
+
+def _complete_greedy_fixed(xs, ss, counts, caps_i, d, rem, leftover, steps: int):
+    """:func:`_complete_greedy` with ``steps`` (a host bound on the leftover)
+    fixed on the host.  Returns ``(d, ok, left)``; ``left`` is what remains
+    after the ``steps`` (0 on every lane when the bound held).
+
+    The same grants as the sync loop, in fewer kernels a step:
+
+    * the winner is the first index of the largest ``rem`` among the rows
+      at the minimal key — the sync loop's pick when the minimum is tied,
+      and the minimum's own index when it is not;
+    * a step that grants nothing ends its lane for good (no units left, or
+      no feasible row, which sets ``left`` to -1 and ``ok`` to False), so
+      such a lane's key is never read again and the step rewrites it
+      without a mask;
+    * the winner's refreshed key ``time(d_i + 1)`` (``inf`` past its cap) is
+      read from a table of every row's next ``_GREEDY_WINDOW + 1`` keys,
+      rebuilt every ``_GREEDY_WINDOW`` steps: within a window a row is
+      granted at most once a step, so ``d_i + 1`` stays inside its row of
+      the table.  Each entry is the same elementwise computation as the
+      sync loop's single-row evaluation."""
+    inf = float("inf")
+    key = torch.where(d + 1 <= caps_i, _time(xs, ss, counts, (d + 1).to(xs.dtype)), inf)
+    left = leftover
+    width = _GREEDY_WINDOW + 1
+    units = torch.arange(1, width + 1, device=d.device)
+    row_shape = (*xs.shape[:-1], width, xs.shape[-1])
+    for s in range(0, steps, _GREEDY_WINDOW):
+        nxt = d.unsqueeze(-1) + units  # [..., p, width]: d_i + 1 .. d_i + width
+        table = torch.where(
+            nxt <= caps_i.unsqueeze(-1),
+            _time(
+                xs.unsqueeze(-2).expand(row_shape),
+                ss.unsqueeze(-2).expand(row_shape),
+                counts.unsqueeze(-1),
+                nxt.to(xs.dtype),
+            ),
+            inf,
+        ).flatten(-2)
+        taken = torch.zeros_like(d)  # units granted to each row in this window
+        for _ in range(min(_GREEDY_WINDOW, steps - s)):
+            m1 = key.amin(dim=-1)
+            feasible = torch.isfinite(m1)
+            active = left > 0
+            i = torch.argmax(torch.where(key == m1.unsqueeze(-1), rem, -inf), dim=-1, keepdim=True)
+            grant = (feasible & active).to(d.dtype).unsqueeze(-1)
+            d = d.scatter_add(-1, i, grant)
+            taken = taken.scatter_add(-1, i, grant)
+            key = key.scatter(-1, i, torch.gather(table, -1, i * width + torch.gather(taken, -1, i)))
+            left = torch.where(feasible | ~active, left - grant.squeeze(-1), -1)
+    return d, left >= 0, torch.clamp(left, min=0)
+
+
+def _partition_units_fixed(
+    xs, ss, counts, caps_i, n, min_units, rel_tol, max_steps, fast_mask,
+    completion_fast, take_back_steps: int, greedy_steps: int,
+):
+    """The deferred program: :func:`_partition_units` with every loop count
+    fixed on the host and nothing read back (see the module docstring).
+    ``fast_mask`` may be computed on the device; ``completion_fast`` (host)
+    says whether any lane can take the threshold prefill at all.  Returns
+    ``(d, ok, t_star, left)``, bit-identical to the sync program's
+    ``(d, ok, t_star)`` when ``left`` is 0 everywhere.
+
+    ``greedy_steps`` is the host bound on the leftover the greedy completes:
+    the most rows with positive caps in any lane.  Proof: the continuous
+    allocations ``a_i`` are 0 on rows with cap 0, and ``a_i <= min(cap_i,
+    n)``, so ``floor(a_i) <= cap_i`` and the floored-and-clipped ``d_i >=
+    floor(a_i)``.  Without a ``min_units`` overshoot the leftover is
+    ``n - sum(d) <= n - sum(floor(a_i)) < (n - sum(a_i)) + A``, ``A`` the
+    number of rows whose ``a_i`` is not an integer, at most the rows with
+    positive caps; with an overshoot the take-back leaves it at 0.  The
+    bisection keeps a ``t*`` whose allocations sum (in float) to at least
+    ``n`` and the rescale brings the sum back to ``n``, so ``n - sum(a_i)``
+    is a few rounding errors of ``n`` — below one unit while ``n * p`` stays
+    under about 2**50 — and the leftover, an integer below ``1 + A``, is at
+    most ``A``.  ``left`` is the tripwire: :func:`fetch_partition` raises if
+    a lane still has units left (a doubling that never reached ``n``, or a
+    rounding error of a unit or more)."""
+    dt = xs.dtype
+    n_f = n.to(dt)
+    caps_f = torch.minimum(caps_i.to(dt), n_f.unsqueeze(-1))  # continuous clip
+    alloc, t_star = _partition_continuous(
+        xs, ss, counts, caps_f, n_f, rel_tol, max_steps, fixed=True
+    )
+    d = torch.maximum(min_units, torch.floor(alloc).to(caps_i.dtype))
+    d = torch.minimum(d, caps_i)
+    leftover = n - d.sum(dim=-1)
+    d, leftover = _take_back(xs, ss, counts, d, leftover, min_units, steps=take_back_steps)
+    rem = alloc - torch.floor(alloc)
+    if completion_fast:
+        d, leftover = _threshold_prefill(
+            xs, ss, counts, caps_i, d, leftover, t_star, rel_tol, max_steps,
+            fast_mask, fixed=True,
+        )
+    d, ok, left = _complete_greedy_fixed(xs, ss, counts, caps_i, d, rem, leftover, greedy_steps)
+    return d, ok, t_star, left
 
 
 def _partition_units(
@@ -930,7 +1140,7 @@ class TorchModelBank:
     def partition_units(
         self, n, caps=None, *, min_units=0, max_steps: int = 200,
         with_t: bool = False, completion: str = "auto",
-        completion_lanes=None, defer: bool = False,
+        completion_lanes=None, auto_lanes=None, defer: bool = False,
     ):
         """Integer partition on the device; host-side feasibility checks
         raise the same ``ValueError`` s as the scalar and numpy-bank paths.
@@ -941,29 +1151,22 @@ class TorchModelBank:
         threshold-count bulk grant where the bank (per lane, on a stacked
         bank) is monotone-time, ``"greedy"`` forces the exact per-unit loop,
         ``"threshold"`` forces the bulk grant; ``completion_lanes`` (a
-        ``[q]`` bool mask) overrides the routing per lane.
+        ``[q]`` bool mask) overrides the routing per lane, except on the
+        lanes ``auto_lanes`` (a ``[q]`` bool mask) marks, which follow the
+        bank's monotonicity as ``"auto"`` does.
 
-        ``defer=True`` returns the device tensors ``(d, ok[, t_star])``
-        without reading them back; :func:`fetch_partition` reads them and
-        runs the feasibility check this call would have run.
+        ``defer=True`` queues the deferred program (see the module
+        docstring) and returns a :class:`DeferredPartition` of device
+        tensors without any device-to-host read: uploads are non-blocking,
+        and ``"auto"`` routing the host does not already know is computed
+        on the device.  :func:`fetch_partition` makes the one read and
+        raises what this call would have raised.
         """
         if completion not in ("auto", "threshold", "greedy"):
             raise ValueError(f"unknown completion mode {completion!r}")
         shape = self.counts.shape
         p = shape[-1]
-        if completion_lanes is not None:
-            lanes_host = np.array(
-                np.broadcast_to(np.asarray(completion_lanes, dtype=bool), shape[:-1])
-            )
-        elif completion == "threshold":
-            lanes_host = np.ones(shape[:-1], dtype=bool)
-        elif completion == "greedy":
-            lanes_host = np.zeros(shape[:-1], dtype=bool)
-        elif self.counts.ndim >= 2:
-            lanes_host = self.monotone_lanes()  # per-column auto routing
-        else:
-            lanes_host = np.full(shape[:-1], self.is_monotone(), dtype=bool)
-        fast = bool(np.any(lanes_host))
+        lanes_host, auto_host = self._routing(completion, completion_lanes, auto_lanes)
         n_host = np.broadcast_to(np.asarray(n), shape[:-1])
         if np.any(n_host < 0):
             raise ValueError("n must be non-negative")
@@ -993,8 +1196,15 @@ class TorchModelBank:
                 f"infeasible: sum(caps)={float(clipped.reshape(-1, p)[i].sum())} "
                 f"< n={float(np.reshape(n_host, (-1,))[i])}"
             )
-        self._check_feasible(caps_host.astype(np.float64))
         idtype = self.counts.dtype
+        if defer:
+            return self._partition_deferred(
+                n_host, caps_host, mu_host, lanes_host, auto_host, max_steps, with_t
+            )
+        if auto_host is not None:
+            mono = self.monotone_lanes() if self.counts.ndim >= 2 else self.is_monotone()
+            lanes_host = np.where(auto_host, mono, lanes_host)
+        self._check_feasible(caps_host.astype(np.float64))
         d, ok, t_star = _partition_units(
             self.xs, self.ss, self.counts,
             self._put(np.array(caps_host), idtype),
@@ -1003,11 +1213,71 @@ class TorchModelBank:
             1e-12,
             max_steps,
             self._put(lanes_host, torch.bool),
-            completion_fast=fast,
+            completion_fast=bool(np.any(lanes_host)),
         )
-        if defer:
-            return (d, ok, t_star) if with_t else (d, ok)
-        return fetch_partition((d, ok, t_star) if with_t else (d, ok))
+        return fetch_partition(DeferredPartition(d, ok, t_star if with_t else None))
+
+    def _routing(self, completion, completion_lanes, auto_lanes):
+        """The completion routing per lane, as far as the host knows it
+        without a device read: ``(lanes, auto)`` — host bool masks of the
+        batch shape; ``auto`` (or ``None``) marks the lanes that follow the
+        bank's monotonicity (:meth:`monotone_lanes`), which the host
+        mirrors resolve where they are known."""
+        batch = self.counts.shape[:-1]
+        if completion_lanes is not None:
+            lanes = np.array(np.broadcast_to(np.asarray(completion_lanes, dtype=bool), batch))
+            auto = (
+                None if auto_lanes is None
+                else np.array(np.broadcast_to(np.asarray(auto_lanes, dtype=bool), batch))
+            )
+        elif completion == "threshold":
+            lanes, auto = np.ones(batch, dtype=bool), None
+        elif completion == "greedy":
+            lanes, auto = np.zeros(batch, dtype=bool), None
+        else:
+            lanes, auto = np.zeros(batch, dtype=bool), np.ones(batch, dtype=bool)
+        if auto is not None and not auto.any():
+            auto = None
+        known = self.monotone_cols
+        if known is None and self.monotone is not None and (self.counts.ndim < 2 or self.monotone):
+            known = np.full(batch, self.monotone, dtype=bool)
+        if auto is not None and known is not None:
+            lanes, auto = np.where(auto, known, lanes), None
+        return lanes, auto
+
+    def _partition_deferred(self, n_host, caps_host, mu_host, lanes_host, auto_host, max_steps, with_t):
+        """Queue the deferred program (``partition_units(defer=True)``)."""
+        shape = self.counts.shape
+        idtype = self.counts.dtype
+        dev = self.device
+        caps = upload(caps_host, dev, idtype)
+        empty = None
+        if self.empty_rows is None:
+            empty = ((caps > 0) & (self.counts == 0)).any()  # read by fetch_partition
+        else:
+            self._check_feasible(caps_host.astype(np.float64))
+        lanes = upload(lanes_host, dev, torch.bool)
+        if auto_host is not None:
+            lanes = torch.where(
+                upload(auto_host, dev, torch.bool),
+                _monotone_lanes(self.xs, self.ss, self.counts), lanes,
+            )
+        # the take-back's room d - min_units stays below min(caps, n) - min_units + 1
+        room = np.minimum(caps_host, n_host[..., None]) - mu_host[..., None]
+        take_back_steps = (int(np.max(room, initial=0)) + 1).bit_length()
+        greedy_steps = int(np.max(np.sum(caps_host > 0, axis=-1), initial=0))
+        tensors = (
+            self.xs, self.ss, self.counts, caps,
+            upload(n_host, dev, idtype),
+            upload(np.broadcast_to(mu_host[..., None], shape), dev, idtype),
+        )
+        fixed = (1e-12, max_steps)
+        counts = (bool(np.any(lanes_host)) or auto_host is not None, take_back_steps, greedy_steps)
+        if dev.type == "cuda" and GRAPH_DEFERRED:
+            d, ok, t_star, left = _graphed_solve(tensors + (lanes,), fixed, counts)
+        else:
+            d, ok, t_star, left = _partition_units_fixed(*tensors, *fixed, lanes, *counts)
+        return DeferredPartition(d, ok, t_star if with_t else None, left, empty)
 
     # -- device-resident observation fold-in ---------------------------------
 
@@ -1062,15 +1332,109 @@ class TorchModelBank:
         )
 
 
-def fetch_partition(deferred):
-    """Materialize a ``partition_units(..., defer=True)`` result: reads the
-    device tensors, raises if the integer completion ran out of caps, and
-    returns the host allocation array (plus ``t_star`` when the deferred
-    call used ``with_t=True``)."""
-    d, ok = deferred[0], deferred[1]
-    d_host = d.cpu().numpy()
-    if not bool(ok.all()):
+# ---------------------------------------------------------------------------
+# The deferred program replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_DEFERRED = True  # replay the deferred program as a CUDA graph on the card
+_GRAPHS_KEPT = 4  # captured shapes kept (least recently used dropped)
+_graphs: "OrderedDict[tuple, _GraphedSolve]" = OrderedDict()
+
+
+class _GraphedSolve:
+    """The deferred program for one shape, captured as a CUDA graph.
+
+    Eager, the program's tens of thousands of small kernels keep the host
+    busy for as long as the card is, so queueing it frees nothing.  The
+    first call of a shape runs it eagerly (the warm-up: it loads every
+    kernel and uploads the summation plans); the second captures it on a
+    side stream without synchronizing (``capture_begin`` directly, not the
+    ``torch.cuda.graph`` context, which synchronizes the device), and every
+    call from then on copies its inputs into the graph's static buffers and
+    replays it on the current stream, in stream order with the fold that
+    produced the carry.  The outputs are cloned, so a later replay does not
+    overwrite a result not yet fetched."""
+
+    def __init__(self, args, fixed, counts):
+        self.inputs = [a.clone() for a in args]
+        self.fixed, self.counts = fixed, counts
+        # the summation plan the graph reads by address stays referenced
+        self.plan = _np_sum_plan_on(int(args[0].shape[-2]), numpy_sum_block(), args[0].device)
+        self.graph = None
+        self.out = None
+
+    def _capture(self) -> None:
+        dev = self.inputs[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        *tensors, lanes = self.inputs
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = _partition_units_fixed(*tensors, *self.fixed, lanes, *self.counts)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph, self.out = graph, out
+
+    def __call__(self, args):
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        return tuple(t.clone() for t in self.out)
+
+
+def _graphed_solve(args, fixed, counts):
+    """The deferred program on the card: eager on a shape's first call, a
+    CUDA graph replay from its second (:class:`_GraphedSolve`)."""
+    key = (
+        tuple(args[0].shape), args[0].dtype, args[0].device, tuple(args[-1].shape),
+        fixed, counts,
+    )
+    solve = _graphs.get(key)
+    if solve is None:
+        _graphs[key] = _GraphedSolve(args, fixed, counts)
+        while len(_graphs) > _GRAPHS_KEPT:
+            _graphs.popitem(last=False)
+        *tensors, lanes = args
+        return _partition_units_fixed(*tensors, *fixed, lanes, *counts)
+    _graphs.move_to_end(key)
+    return solve(args)
+
+
+class DeferredPartition(NamedTuple):
+    """A ``partition_units`` result still on the device: ``(d, ok)``, the
+    continuous ``t_star`` when the call passed ``with_t=True``, and, from the
+    deferred program, the units its fixed-count completion left unplaced
+    (``unplaced``, 0 when the host bound held) and the empty-row flag it
+    computed on the device where the bank's host mirror was unknown."""
+
+    d: torch.Tensor
+    ok: torch.Tensor
+    t_star: Optional[torch.Tensor] = None
+    unplaced: Optional[torch.Tensor] = None
+    empty: Optional[torch.Tensor] = None
+
+
+def fetch_partition(deferred: DeferredPartition):
+    """Materialize a ``partition_units(..., defer=True)`` result: the one
+    device-to-host read.  Raises what the sync call would have raised (an
+    empty FPM, caps that ran out during the integer completion), and returns
+    the host allocation array (plus ``t_star`` when the deferred call used
+    ``with_t=True``)."""
+    if deferred.empty is not None and bool(deferred.empty):
+        raise ValueError("empty FPM")
+    d_host = deferred.d.cpu().numpy()
+    if not bool(deferred.ok.all()):
         raise ValueError("caps infeasible during integer completion")
-    if len(deferred) == 3:
-        return d_host, deferred[2].cpu().numpy()
+    if deferred.unplaced is not None and bool((deferred.unplaced > 0).any()):
+        raise RuntimeError(
+            "the deferred partition's completion left units unplaced: its host "
+            "bound on the leftover did not hold for this bank"
+        )
+    if deferred.t_star is not None:
+        return d_host, deferred.t_star.cpu().numpy()
     return d_host

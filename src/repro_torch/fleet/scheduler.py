@@ -90,17 +90,57 @@ On ``"torch"`` the inner solves run on the device (``Hierarchy(backend=
 ``device_dispatches`` as the reference counts its per-job inner programs);
 the carry keeps taking the one-program fold-in.
 
-Rounds are synchronous
-----------------------
+Round lifecycle: sync vs pipelined
+----------------------------------
 
-Every round is a fork-join barrier: partition(carry G_r) -> measure ->
-fold -> carry G_{r+1}.  The reference's pipelined rounds (``pipeline=True``:
-double-buffered carries, pre-dispatched partitions, speculative stale
-reads) need a bisection that stays on the device; the port's reads a flag
-back every step.  ``pipeline=True`` raises ``NotImplementedError`` naming
-ROADMAP queue 1, item 7b; ``pipeline_depth`` is still validated.  The
-counters of the pipeline (``predispatches``, ``stale_reads``,
-``speculative_misses``) stay in :meth:`stats` and read 0.
+The default round (``pipeline=False``, "sync") is a fork-join barrier::
+
+    partition(carry G_r) -> measure -> fold -> carry G_{r+1}
+
+Every stage waits for the previous one: the stacked repartition of round
+``r+1`` reads the carry produced by round ``r``'s fold and reads its
+allocations back before the round goes on.
+
+``pipeline=True`` restructures the round as the reference does, over
+DOUBLE-BUFFERED fold-in carries:
+
+1. the fold of round ``r``'s observations writes new tensors
+   (``TorchModelBank.fold_in(donate=False)``), so the previous generation
+   ``G_{r-1}`` stays valid beside ``G_r``;
+2. round ``r+1``'s stacked repartition is PRE-DISPATCHED before ``step``
+   (or ``observe``) returns: ``partition_units(defer=True)`` queues the
+   whole solve on the card with every loop count fixed on the host and no
+   device-to-host read, so the host goes on with the round's bookkeeping
+   (convergence settle, admit/retire, registry writes, the caller's own
+   work) while the card solves;
+3. round ``r+1``'s Phase 2 merely FETCHES the pre-dispatched result — the
+   one read.  The serving cycle gets the same treatment: ``observe`` folds
+   AND pre-dispatches the next epoch's partition over every admitted
+   tenant, which a no-argument ``rebalance()`` fetches.
+
+One CUDA stream carries the fold and the pre-dispatched solve, in that
+order, so the double-buffered carries need no events: stream order is the
+reference's dependency order.
+
+``pipeline_depth`` is the staleness bound: a lane never partitions against
+estimates more than ``pipeline_depth`` fold generations behind the newest
+(``TorchModelBank.generation``).  ``depth=0`` keeps the pre-dispatch but
+always reads the newest generation — bit-identical to sync; ``depth=1``
+(the default) allows the one-generation lag as a SPECULATIVE read with
+seen-set validation: the stale partition is consumed only when it moves
+every job to a distribution it has not measured (``stale_reads``), and
+otherwise the round partitions the newest carry again
+(``speculative_misses``) — the program sync would have paid anyway.  On a
+deterministic replay every speculation misses and the depth-1 trajectory
+is bit-identical to sync.  The numpy backend reads per-job host snapshots
+of the previous generation (``_stale_bank``) under the same validation, as
+the reference's numpy backend does; so does the two-level route on either
+backend, since it partitions the jobs' host mirrors.  The pipeline SYNCS
+unconditionally (reads fresh, discards any pre-dispatched partition) on a
+lane whose previous generation had no estimates, a power-capped
+repartition of priced jobs, any membership change (admit, retire,
+reprofile, restack: the restack rebuilds from fully folded host models and
+resets the generation), and ``state_dict``, which :meth:`drain` s first.
 
 The port compiles no device program, so the reference's jit-cache
 recompile telemetry has no meaning here: :meth:`stats` keeps the
@@ -115,7 +155,9 @@ With a ``repro_torch.obs`` sink installed the fleet records the
 reference's sites: ``fleet.partition``, ``fleet.measure``, ``fleet.fold``
 and ``fleet.round`` spans per round, ``fleet.rebalance`` /
 ``fleet.observe`` spans, ``fleet.power_cap`` spans with the
-``fleet.power_cap.theta`` gauge, the ``fleet.restack`` counter, the
+``fleet.power_cap.theta`` gauge, the ``fleet.restack``,
+``fleet.predispatch``, ``fleet.stale_read`` and ``fleet.speculative_miss``
+counters, the
 ``fleet.reprofile_replica`` and ``registry.stale_profile`` events, and the
 ``fleet.<key>`` gauges of :meth:`stats` after every round.  No site waits
 for the card.
@@ -133,7 +175,7 @@ import torch
 from ..core.fpm import PiecewiseLinearFPM, imbalance
 from ..core.hierarchy import Hierarchy
 from ..core.modelbank import ModelBank
-from ..core.modelbank_torch import TorchModelBank, resolve_device
+from ..core.modelbank_torch import TorchModelBank, fetch_partition, resolve_device
 from ..core.partition import (
     _partition_units_bank,
     _partition_units_scalar,
@@ -219,6 +261,12 @@ class _Job:
     # core/energy.py) — static per job, set at admit; None = unpriced
     energy_models: Optional[List[PiecewiseLinearFPM]] = None
     _ebank: Optional[ModelBank] = None
+    # pipeline-mode staleness bookkeeping: whether any of this job's rows
+    # were empty in the PREVIOUS carry generation (a stale repartition must
+    # not read a lane that had no estimates then), and — numpy backend and
+    # the two-level route — the host bank snapshot of that generation
+    _prev_empty_any: bool = True
+    _stale_bank: Optional[ModelBank] = None
 
     def flush(self) -> None:
         """Materialize deferred observations into the scalar models (same
@@ -292,13 +340,6 @@ class FleetScheduler:
             raise ValueError(
                 "pipeline_depth must be 0 or 1 (a lane never partitions "
                 "against estimates more than one fold generation old)"
-            )
-        if pipeline:
-            raise NotImplementedError(
-                "pipeline=True overlaps each round's fold with the next "
-                "partition; the port's bisection reads a flag back every "
-                "step, so it runs synchronous rounds only (ROADMAP queue 1, "
-                "item 7b: the fleet's pipelined rounds)"
             )
         p = int(num_procs)
         if p < 1:
@@ -377,10 +418,31 @@ class FleetScheduler:
         # dummy lanes so admit/retire within a bucket keeps the carry's
         # [q, p, k] shape (torch backend; see _assign_lanes)
         self.lane_buckets = bool(lane_buckets)
-        self.pipeline = False
+        # Pipelined rounds (see "Round lifecycle: sync vs pipelined" in the
+        # module docstring).  pipeline=False (the default) is the lock-step
+        # sync round.  pipeline=True double-buffers the fold-in carry and
+        # pre-dispatches the next round's stacked repartition;
+        # pipeline_depth bounds how many fold generations behind the newest
+        # a repartition may read (0 = always the newest, 1 = the previous).
+        self.pipeline = bool(pipeline)
         self.pipeline_depth = int(pipeline_depth)
+        # Test seam: when set, called once per repartition — True means
+        # "the previous fold already completed", forcing that round to read
+        # the NEWEST carry; False/None keeps the in-flight assumption (stale
+        # read).  It also disables the pre-dispatch, so each round's carry
+        # choice is made at repartition time.
+        self.fold_ready_hook = None
+        self._stacked_stale: Optional[TorchModelBank] = None  # previous generation
+        self._predispatched: Optional[Dict[str, Any]] = None
         self.rounds = 0
         self.restacks = 0
+        # pipeline counters: speculative stale-generation repartitions that
+        # were CONSUMED, speculations discarded by the seen-set validation
+        # (the round fell back to the newest carry), and next-round
+        # partitions dispatched early (consumed or discarded)
+        self.stale_reads = 0
+        self.speculative_misses = 0
+        self.predispatches = 0
         # device solves launched (stacked partitions + fold-ins, and the
         # per-job inner solves of a hierarchical fleet): the count the
         # reference's fleet benchmark compares against q independent
@@ -408,22 +470,31 @@ class FleetScheduler:
     def stats(self) -> Dict[str, int]:
         """Public counter snapshot of the fleet session so far.
 
-        Keys (all monotonically non-decreasing ints): ``rounds`` (completed
-        :meth:`observe`/:meth:`step`/:meth:`rebalance` rounds), ``restacks``
-        (carry rebuilds on the torch backend), ``device_dispatches`` (device
-        solves launched), and the reference's pipeline counters
-        ``predispatches``, ``stale_reads``, ``speculation_hits`` and
-        ``speculative_misses``, which read 0: the port's rounds are
-        synchronous.  When a telemetry sink is installed every key is also
-        exported as a ``fleet.<key>`` gauge at the end of each round."""
+        Keys (all monotonically non-decreasing ints):
+
+        * ``rounds`` — completed :meth:`observe`/:meth:`step`/
+          :meth:`rebalance` rounds;
+        * ``restacks`` — carry rebuilds on the torch backend;
+        * ``device_dispatches`` — device solves launched (pre-dispatched
+          ones included);
+        * ``predispatches`` — pipelined solves queued ahead of the next
+          round;
+        * ``stale_reads`` — speculative results CONSUMED (the round used a
+          partition of the previous generation);
+        * ``speculation_hits`` — alias of ``stale_reads``;
+        * ``speculative_misses`` — speculative partitions discarded because
+          some job had measured their distribution already.
+
+        When a telemetry sink is installed every key is also exported as a
+        ``fleet.<key>`` gauge at the end of each round."""
         return {
             "rounds": self.rounds,
             "restacks": self.restacks,
             "device_dispatches": self.device_dispatches,
-            "predispatches": 0,
-            "stale_reads": 0,
-            "speculation_hits": 0,
-            "speculative_misses": 0,
+            "predispatches": self.predispatches,
+            "stale_reads": self.stale_reads,
+            "speculation_hits": self.stale_reads,
+            "speculative_misses": self.speculative_misses,
         }
 
     def _stats_gauges(self, tel) -> None:
@@ -785,6 +856,10 @@ class FleetScheduler:
                     finished[job.spec.name] = job.result
 
         self.rounds += 1
+        if self.pipeline:
+            # queue next round's stacked repartition on the card while the
+            # host does the caller's work between rounds
+            self._predispatch_next()
         if rec:
             tel.span_at("fleet.round", t_round, tel.clock(),
                         round=self.rounds, measured=len(to_measure),
@@ -916,6 +991,10 @@ class FleetScheduler:
         if rec:
             tel.span_at("fleet.observe", t0, tel.clock(), jobs=len(jobs))
             self._stats_gauges(tel)
+        if self.pipeline:
+            # queue the NEXT epoch's stacked repartition over every admitted
+            # tenant — the serving cycle's no-argument rebalance() fetches it
+            self._predispatch_next(jobs=list(self._jobs.values()))
 
     def straggler_actions(
         self, times: Dict[str, Sequence[float]], *, auto_reprofile: bool = True
@@ -985,6 +1064,9 @@ class FleetScheduler:
             tel.event("fleet.reprofile_replica", replica=i, jobs=len(self._jobs))
         for job in self._jobs.values():
             job.flush()
+            # a reprofile takes effect immediately: the pre-reprofile stale
+            # snapshot must not serve another pipelined repartition
+            job._stale_bank = None
             m = job.models[i]
             if getattr(m, "num_points", 0) == 0:
                 continue
@@ -1037,19 +1119,30 @@ class FleetScheduler:
     # -- checkpointing --------------------------------------------------------
 
     def drain(self) -> None:
-        """Materialize every job's deferred observations into the scalar
-        mirrors, then wait for the carry's device to finish the work queued
-        on it: afterwards the host models ARE the carry's generation — the
-        quiescence :meth:`state_dict` requires."""
+        """Complete every in-flight pipeline stage and drop derived device
+        state: discards the pre-dispatched next-round partition and the
+        stale generation, materializes every job's deferred observations
+        into the scalar mirrors, and waits until the newest carry is
+        computed (an event on the stream that queued it, not the whole
+        device).  After a drain the host models ARE the carry generation —
+        the quiescence :meth:`state_dict` requires."""
+        self._predispatched = None
+        self._stacked_stale = None
         for job in self._jobs.values():
             job.flush()
+            job._stale_bank = None
         if self._stacked is not None and self._stacked.device.type == "cuda":
-            torch.cuda.synchronize(self._stacked.device)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self._stacked.device))
+            ready.synchronize()
 
     def state_dict(self) -> Dict[str, Any]:
         """Serializable checkpoint of the whole fleet session (plain data,
-        JSON-safe) in the reference's schema (version 1); :meth:`drain` runs
-        first.  Runtime attachments (registry, detector, executor) are not
+        JSON-safe) in the reference's schema (version 1).  Checkpointing
+        mid-round is legal in pipeline mode: :meth:`drain` runs first, so
+        the pending carry generation is captured through the flushed host
+        models and the restored session continues as the drained donor
+        does.  Runtime attachments (registry, detector, executor) are not
         serialized; pass them to :meth:`from_state`."""
         self.drain()
         jobs = []
@@ -1125,7 +1218,7 @@ class FleetScheduler:
                 "quantize": self.quantize,
                 "power_cap": self.power_cap,
                 "lane_buckets": self.lane_buckets,
-                "pipeline": False,
+                "pipeline": self.pipeline,
                 "pipeline_depth": self.pipeline_depth,
                 "device_classes": (
                     list(self.device_classes)
@@ -1210,6 +1303,7 @@ class FleetScheduler:
             job.best_t = [float(v) for v in js["best_t"]]
             job.best_imb = float(js["best_imb"])
             job.bench_cost = float(js["bench_cost"])
+            job._prev_empty_any = bool(job.empty_rows.any())
             r = js["result"]
             if r is not None:
                 job.result = Partition(
@@ -1313,6 +1407,16 @@ class FleetScheduler:
         names = list(self._jobs)
         for lane, nm in enumerate(names):
             self._jobs[nm].lane = lane
+        # A restack is a pipeline sync point: the new carry is rebuilt from
+        # the FULLY folded host models (generation 0), so the previous
+        # generation, the per-job stale snapshots and any pre-dispatched
+        # next-round partition are all obsolete.
+        self._stacked_stale = None
+        self._predispatched = None
+        for nm in names:
+            job = self._jobs[nm]
+            job._stale_bank = None
+            job._prev_empty_any = bool(job.empty_rows.any())
         if self.reserve_knots is not None:
             # Keep the reservation binding: rows past half the budget are
             # thinned (even decimation, endpoints kept) so the padded width
@@ -1501,52 +1605,192 @@ class FleetScheduler:
                 out.append([int(v) for v in d])
             return out
         if self._backend == "numpy":
-            out = []
-            for job in jobs:
-                d, _ = _partition_units_bank(
-                    job.bank(),
-                    job.spec.n, [int(c) for c in job.icaps],
-                    min_units=int(job.spec.min_units),
-                    completion=job.spec.completion,
-                )
-                out.append([int(v) for v in d])
-            return out
-        carry = self._ensure_stack()
-        n_arr, caps_arr, mu_arr, lanes_mask = self._stack_args(jobs, carry)
+
+            def solve(bank_of):
+                out = []
+                for job in jobs:
+                    d, _ = _partition_units_bank(
+                        bank_of(job),
+                        job.spec.n, [int(c) for c in job.icaps],
+                        min_units=int(job.spec.min_units),
+                        completion=job.spec.completion,
+                    )
+                    out.append([int(v) for v in d])
+                return out
+
+            return self._speculate(jobs, solve)
+        self._ensure_stack()
+        carry = self._select_carry(jobs)
+        pre, self._predispatched = self._predispatched, None
+        if (
+            pre is not None
+            and pre["carry"] is carry
+            and pre["fingerprint"] == self._repart_fingerprint(jobs)
+        ):
+            # the pre-dispatched partition (queued while the host finished
+            # the last round) is exactly this repartition: fetch it (its
+            # dispatch was counted when it was queued)
+            d = fetch_partition(pre["deferred"])
+        else:
+            d = self._stacked_partition(jobs, carry)
+        ds = [[int(v) for v in d[job.lane]] for job in jobs]
+        if carry is not self._stacked:
+            if self._speculation_hits(jobs, ds):
+                self.stale_reads += 1
+                self._count("fleet.stale_read")
+                return ds
+            # speculation missed: partition the newest carry — the stale
+            # result is discarded and the round pays the fresh partition
+            # sync would have paid, never more
+            self.speculative_misses += 1
+            self._count("fleet.speculative_miss")
+            d = self._stacked_partition(jobs, self._stacked)
+            ds = [[int(v) for v in d[job.lane]] for job in jobs]
+        return ds
+
+    def _stacked_partition(self, jobs: List[_Job], carry: TorchModelBank, defer: bool = False):
+        """One stacked ``partition_units`` over ``carry`` for ``jobs``
+        (counted in ``device_dispatches``)."""
+        n_arr, caps_arr, mu_arr, lanes, auto = self._stack_args(jobs, carry, defer)
         d = carry.partition_units(
-            n_arr, caps_arr, min_units=mu_arr, completion_lanes=lanes_mask
+            n_arr, caps_arr, min_units=mu_arr, completion_lanes=lanes,
+            auto_lanes=auto, defer=defer,
         )
         self.device_dispatches += 1
-        return [[int(v) for v in d[job.lane]] for job in jobs]
+        return d
 
-    def _stack_args(self, jobs: List[_Job], carry: TorchModelBank):
+    def _stack_args(self, jobs: List[_Job], carry: TorchModelBank, defer: bool = False):
         """The stacked ``partition_units`` arguments for ``jobs`` over
-        ``carry`` (non-participating lanes ride along as n=0 no-ops)."""
+        ``carry`` (non-participating lanes ride along as n=0 no-ops).
+
+        Per-lane completion routing, resolved like q independent stores
+        would: forced modes set their lanes, and ``"auto"`` lanes follow the
+        stacked bank's per-lane monotonicity.  A sync call resolves those
+        from ``carry.monotone_lanes()`` (one device reduction and read per
+        fold, skipped when every job forces a mode); a deferred one passes
+        them as ``auto`` for ``partition_units`` to resolve on the device."""
         q = int(carry.counts.shape[0])  # padded lane count under buckets
         n_arr = np.zeros(q, dtype=np.int64)
         mu_arr = np.zeros(q, dtype=np.int64)
         caps_arr = np.zeros((q, self.p), dtype=np.int64)
-        # Per-lane completion routing, resolved like q independent stores
-        # would: "auto" lanes from the stacked bank's monotone_lanes() (one
-        # device reduction per fold, skipped when every job forces a mode),
-        # forced modes override.
-        lanes_auto = (
-            carry.monotone_lanes()
-            if any(job.spec.completion == "auto" for job in jobs)
-            else None
-        )
-        lanes_mask = np.zeros(q, dtype=bool)
+        lanes = np.zeros(q, dtype=bool)
+        auto = np.zeros(q, dtype=bool)
         for job in jobs:
             n_arr[job.lane] = job.spec.n
             mu_arr[job.lane] = int(job.spec.min_units)
             caps_arr[job.lane] = job.icaps
-            c = job.spec.completion
-            lanes_mask[job.lane] = (
-                True if c == "threshold"
-                else False if c == "greedy"
-                else bool(lanes_auto[job.lane])
+            lanes[job.lane] = job.spec.completion == "threshold"
+            auto[job.lane] = job.spec.completion == "auto"
+        if not defer:
+            if auto.any():
+                lanes = np.where(auto, carry.monotone_lanes(), lanes)
+            auto = None
+        return n_arr, caps_arr, mu_arr, lanes, auto
+
+    def _speculate(self, jobs: List[_Job], solve) -> List[List[int]]:
+        """The host-snapshot form of the pipeline's speculative read (numpy
+        backend, two-level route): partition the jobs' previous-generation
+        snapshots when the pipeline allows it and keep the result if it
+        moves every job; otherwise partition the current host mirrors."""
+        if self._stale_usable(jobs) and all(job._stale_bank is not None for job in jobs):
+            ds = solve(lambda job: job._stale_bank)
+            if self._speculation_hits(jobs, ds):
+                self.stale_reads += 1
+                self._count("fleet.stale_read")
+                return ds
+            self.speculative_misses += 1
+            self._count("fleet.speculative_miss")
+        return solve(lambda job: job.bank())
+
+    def _stale_usable(self, jobs: List[_Job]) -> bool:
+        """Whether this repartition may read one fold generation behind the
+        newest: pipeline mode with a positive depth, every target lane had
+        estimates in the previous generation, no power-capped priced job
+        (``_apply_power_cap`` must see host banks and carry from ONE
+        generation), and — when the test seam is installed — the previous
+        fold did not complete first."""
+        return (
+            self.pipeline
+            and self.pipeline_depth > 0
+            and all(not job._prev_empty_any for job in jobs)
+            and not (
+                self.power_cap is not None
+                and any(job.ebank() is not None for job in jobs)
             )
-        return n_arr, caps_arr, mu_arr, lanes_mask
+            and not (self.fold_ready_hook is not None and self.fold_ready_hook())
+        )
+
+    def _select_carry(self, jobs: List[_Job]) -> TorchModelBank:
+        """The carry generation this repartition reads (torch backend): the
+        previous (stale) generation when the pipeline allows it — never more
+        than ``pipeline_depth`` folds behind — else the newest."""
+        stale = self._stacked_stale
+        if (
+            stale is not None
+            and self._stacked.generation - stale.generation <= self.pipeline_depth
+            and self._stale_usable(jobs)
+        ):
+            return stale
+        return self._stacked
+
+    def _speculation_hits(self, jobs: List[_Job], ds: List[List[int]]) -> bool:
+        """Validate a speculative (stale-generation) repartition: it is
+        consumed only when it advances EVERY job.  A distribution already in
+        a job's seen set means the stale estimates taught that lane nothing
+        new — the fold->partition dependency was real this round — so the
+        caller falls back to the newest generation, and the seen-set probe
+        escape only ever fires on fresh evidence."""
+        return not any(tuple(d) in job.seen for job, d in zip(jobs, ds))
+
+    def _repart_fingerprint(self, jobs: List[_Job]):
+        """Identity of a stacked repartition's host inputs — a pre-dispatched
+        partition is only consumed when the participant set and every
+        per-job knob it was built from are unchanged."""
+        return tuple(
+            (
+                job.spec.name, job.lane, int(job.spec.n),
+                int(job.spec.min_units), job.spec.completion,
+                job.icaps.tobytes(),
+            )
+            for job in jobs
+        )
+
+    def _predispatch_next(self, jobs: Optional[List[_Job]] = None) -> None:
+        """Queue the NEXT round's stacked repartition on the card before this
+        round returns (pipeline mode, torch backend): the deferred program
+        reads nothing back, so the host returns at once and the card solves
+        while the host does the round's bookkeeping and the caller's work;
+        next round's Phase 2 fetches the result instead of dispatching.
+        Skipped whenever the inputs might change before they are used
+        (membership changes mark the stack dirty), on the two-level route,
+        under a power cap and with the test seam installed.
+
+        ``jobs`` names the anticipated next-round participants: ``step``
+        uses the still-running jobs, the serving cycle (:meth:`observe`)
+        every admitted tenant — what a no-argument ``rebalance`` targets."""
+        if (
+            not self.pipeline
+            or self._backend != "torch"
+            or self.groups is not None
+            or self.power_cap is not None
+            or self.fold_ready_hook is not None
+            or self._stack_dirty
+            or self._stacked is None
+        ):
+            return
+        if jobs is None:
+            jobs = [j for j in self._jobs.values() if j.status == "running"]
+        if not jobs or any(bool(np.any((j.icaps > 0) & j.empty_rows)) for j in jobs):
+            return
+        carry = self._select_carry(jobs)
+        deferred = self._stacked_partition(jobs, carry, defer=True)
+        self.predispatches += 1
+        self._count("fleet.predispatch")
+        self._predispatched = {
+            "carry": carry,
+            "fingerprint": self._repart_fingerprint(jobs),
+            "deferred": deferred,
+        }
 
     def _repartition_hier(self, jobs: List[_Job]) -> List[List[int]]:
         """The two-level route (``groups=`` set): one ``Hierarchy`` solve per
@@ -1555,41 +1799,65 @@ class FleetScheduler:
         carry).  On ``"torch"`` each job's inner solves run as one stacked
         device solve (``device_dispatches`` += 1 per job, as the reference
         counts its per-job inner programs); the carry keeps taking the
-        one-program fold-in."""
-        out = []
-        for job in jobs:
-            h = Hierarchy.from_bank(
-                job.bank(),
-                self.groups,
-                backend="torch" if self._backend == "torch" else "numpy",
-                max_group_knots=self.max_group_knots,
-                dtype=self.dtype,
-                device=self._device if self._backend == "torch" else "cpu",
-            )
-            d = h.partition_units(
-                int(job.spec.n),
-                np.asarray(job.icaps, dtype=np.int64),
-                min_units=int(job.spec.min_units),
-                completion=job.spec.completion,
-            )
-            if self._backend == "torch":
-                self.device_dispatches += 1
-            out.append([int(v) for v in d])
-        return out
+        one-program fold-in.  In pipeline mode the previous generation is
+        each job's host snapshot (``_stale_bank``), under the flat route's
+        validation."""
+
+        def solve(bank_of):
+            out = []
+            for job in jobs:
+                h = Hierarchy.from_bank(
+                    bank_of(job),
+                    self.groups,
+                    backend="torch" if self._backend == "torch" else "numpy",
+                    max_group_knots=self.max_group_knots,
+                    dtype=self.dtype,
+                    device=self._device if self._backend == "torch" else "cpu",
+                )
+                d = h.partition_units(
+                    int(job.spec.n),
+                    np.asarray(job.icaps, dtype=np.int64),
+                    min_units=int(job.spec.min_units),
+                    completion=job.spec.completion,
+                )
+                if self._backend == "torch":
+                    self.device_dispatches += 1
+                out.append([int(v) for v in d])
+            return out
+
+        return self._speculate(jobs, solve)
 
     def _fold(self, measured: List[_Job], D: np.ndarray, T: np.ndarray) -> None:
         """One stacked fold-in of this round's observations (torch backend;
         rows of non-measuring lanes masked invalid).  The host mirrors are
         updated by the caller AFTER this, so a dirty stack rebuilt here
-        never double-counts the round."""
+        never double-counts the round.
+
+        In pipeline mode (positive depth) the fold is double-buffered: the
+        pre-fold carry is kept as the stale generation and the fold writes
+        new tensors (``fold_in(donate=False)``), so the next round's
+        repartition may read the old generation — bounded by
+        ``pipeline_depth``.  Per-job ``_prev_empty_any`` / ``_stale_bank``
+        snapshots taken here are what a stale repartition may consume."""
         ok = (D > 0) & (T > 0)
-        if self._backend != "torch":
-            for k, job in enumerate(measured):
-                job.empty_rows = job.empty_rows & ~ok[k]
-            return
-        stacked = self._ensure_stack()
+        pipelined = self.pipeline and self.pipeline_depth > 0
+        # Pre-fold snapshots (what the generation becoming stale contains),
+        # applied only after _ensure_stack below: a dirty restack inside
+        # this fold resyncs _prev_empty_any to the CURRENT host state, but
+        # the carry it builds predates this round's observations.
+        prev_any = (
+            [bool(job.empty_rows.any()) for job in measured] if pipelined else None
+        )
+        if pipelined and (self._backend != "torch" or self.groups is not None):
+            for job in measured:
+                job._stale_bank = job.bank()
+        stacked = self._ensure_stack() if self._backend == "torch" else None
         for k, job in enumerate(measured):
+            if pipelined:
+                job._prev_empty_any = prev_any[k]
             job.empty_rows = job.empty_rows & ~ok[k]
+        if stacked is None:
+            return
         q = int(stacked.counts.shape[0])  # padded lane count under buckets
         lanes = [job.lane for job in measured]
         x = np.zeros((q, self.p), dtype=np.float64)
@@ -1598,5 +1866,9 @@ class FleetScheduler:
         x[lanes] = D
         s[lanes] = np.where(ok, D / np.where(T > 0, T, 1.0), 1.0)
         valid[lanes] = ok
-        self._stacked = stacked.fold_in(x, s, valid)
+        if pipelined:
+            self._stacked_stale = stacked
+            self._stacked = stacked.fold_in(x, s, valid, donate=False)
+        else:
+            self._stacked = stacked.fold_in(x, s, valid)
         self.device_dispatches += 1

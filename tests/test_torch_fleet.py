@@ -489,16 +489,20 @@ def test_admit_validation_mirrors_autotune():
 
 
 def test_pipeline_raises_naming_item_7b():
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        _port_fleet(4, "torch", pipeline=True)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        _port_fleet(4, "numpy", pipeline=True, pipeline_depth=0)
+    """The reference's ``test_pipeline_validation`` (the pipeline is
+    ported, so nothing raises for item 7b any more): a scalar fleet and
+    depth 2 raise, and both banked backends build a depth-1 pipeline."""
+    with pytest.raises(ValueError, match="banked backend"):
+        _port_fleet(4, "scalar", pipeline=True)
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        _port_fleet(4, "numpy", pipeline=True, pipeline_depth=2)
     # pipeline_depth is validated whether or not the pipeline is on
     with pytest.raises(ValueError, match="pipeline_depth"):
         _port_fleet(4, "numpy", pipeline_depth=2)
-    with pytest.raises(ValueError, match="banked backend"):
-        _port_fleet(4, "scalar", pipeline=True)
-    assert _port_fleet(4, "numpy", pipeline_depth=0).stats()["stale_reads"] == 0
+    for backend in BACKENDS:
+        fl = _port_fleet(4, backend, pipeline=True)
+        assert fl.pipeline and fl.pipeline_depth == 1
+        assert fl.stats()["predispatches"] == fl.stats()["stale_reads"] == 0
 
 
 def test_refusals_and_device_default():
@@ -921,17 +925,36 @@ def test_reference_state_resumes_in_the_port(ref_backend):
 
 
 def test_reference_state_refusals():
+    """``sharding`` is refused; a pipelined reference fleet checkpointed
+    mid-flight resumes pipelined in the port and continues as the reference
+    does."""
     from repro_torch.core.convert import fleet_state_from_reference
 
     state = _ref_fleet(4).state_dict()
     assert fleet_state_from_reference(state)["config"]["backend"] == "numpy"
-    for key, value, match in (("sharding", "shard_map", "single card"), ("pipeline", True, "item 7b")):
-        bad = json.loads(json.dumps(state))
-        bad["config"][key] = value
-        with pytest.raises(NotImplementedError, match=match):
-            FleetScheduler.from_state(bad, device="cpu")
+    bad = json.loads(json.dumps(state))
+    bad["config"]["sharding"] = "shard_map"
+    with pytest.raises(NotImplementedError, match="single card"):
+        FleetScheduler.from_state(bad, device="cpu")
     with pytest.raises(ValueError, match="version"):
         fleet_state_from_reference({**state, "version": 2})
+
+    p, q, base, knee, jobs = _checkpoint_case()
+    names = [str(j) for j in range(q)]
+    with jax.enable_x64(True):
+        ref = ref_fleet.FleetScheduler(p, backend="jax", pipeline=True, pipeline_depth=1)
+        for j in range(q):
+            ref.admit(ref_fleet.JobSpec(name=str(j), **jobs[j]))
+        ref_ex = RefExecutor2D(time_fn_batch_2d=_batch_fn(base, knee), p=p, q=q, job_names=names)
+        for _ in range(3):
+            ref.step(ref_ex)
+        state = json.loads(json.dumps(ref.state_dict()))
+        want = _results(ref, ref.run(ref_ex), q)
+    port = FleetScheduler.from_state(state, device="cpu")
+    assert port.backend == "torch" and port.pipeline and port.pipeline_depth == 1
+    got = port.run(BatchedSimulatedExecutor2D(time_fn_batch_2d=_batch_fn(base, knee), p=p, q=q, job_names=names))
+    assert _results(port, got, q) == want
+    assert port.state_dict()["config"]["pipeline"] is True
 
 
 def test_drain_and_stats_keys():
