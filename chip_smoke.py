@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs fourteen phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs fifteen phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -178,11 +178,39 @@ the first fault:
                       sync), every allocation summing to n and no
                       pre-dispatch reading a carry more than one generation
                       old; and (c) again at ``pipeline_depth=0``, its
-                      launches counted in the phase's.
+                      launches counted in the phase's;
+ 15. ``dispatch``   — the serving dispatch (``ReplicaDispatcher``): (a)
+                      ``dispatch_parity_gate`` — host-simulated replicas
+                      (the reference's serving demo, 4 replicas and 64
+                      chunks; tests/test_fleet_pipeline.py's two tenants),
+                      the bank on the card in float64 beside numpy on the
+                      host: ``balance`` and ``balance_fleet`` in sync and at
+                      pipeline depth 0 and 1 bit-identical, a repeated
+                      ``balance_fleet`` on the same session with no restack
+                      and no new CUDA graph, and REPROFILE on the decayed
+                      replica within patience, on no other, before and
+                      after a resize; (b) ``balance`` over four
+                      recurrentgemma-2b replicas at full width sharing the
+                      card (one set of weights, seed 0): replica i serves
+                      its x chunks of 128 prompt tokens as one batch to
+                      their first token, r_i = 1, 2, 3, 4 times, each call
+                      the median of 3 CUDA-event timings; n = 192, eps 0.1:
+                      converged, the final distribution re-measured 5
+                      times within 2*eps, ``flash_attention`` 8 and
+                      ``rglru_scan`` 18 launches per prefill, flash all
+                      ``"wgmma"``; (c) two tenants on those replicas
+                      through ``balance_fleet`` (``chat``: 192 chunks of
+                      128 tokens, ``summarize``: 48 of 512), then 3 steady
+                      epochs of ``rebalance``, time-sliced serving
+                      (``run_jobs``), ``straggler_actions`` and
+                      ``observe``: every allocation sums to n, no straggler
+                      action, each round's wall cost the busiest replica's
+                      sum, launches as in (b).
 
 Then it prints the ``kernels`` summary line (with the launches by route of
-the kernels that have routes, and ``matmul_update``'s by phase, ``dfpa``,
-``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``), the card's name and power limit
+the kernels that have routes, ``matmul_update``'s by phase, ``dfpa``,
+``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``, and
+``flash_attention``'s and ``rglru_scan``'s, ``serve`` and ``dispatch``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -250,7 +278,7 @@ from repro_torch.models.transformer import (  # noqa: E402
     lm_logits,
     prefill,
 )
-from repro_torch.runtime import ServeEngine, StragglerAction  # noqa: E402
+from repro_torch.runtime import ReplicaDispatcher, ServeEngine, StragglerAction  # noqa: E402
 
 # the H100 SXM's published dense peaks and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -351,6 +379,19 @@ FLEET_SERVE_WARMUP, FLEET_SERVE_EPOCHS = 2, 3  # part (d)'s serving epochs: unti
 FLEET_SCALE_Q, FLEET_SCALE_P, FLEET_SCALE_ROUNDS = 16, 1000, 3
 FLEET_TENANT_REPEATS = [DFPA_REPEATS, DFPA_REPEATS[::-1], [2, 3, 4, 1, 2, 3, 4, 1]]
 ARTIFACTS = ROOT / "build"  # the obs trace and the flight recorder's dump
+# the serving dispatch: (a) host-simulated replicas, src/repro/launch/serve.py's
+# demo (4 replicas, 64 chunks) and tests/test_fleet_pipeline.py's tenants;
+# (b) DFPA over four full-width recurrentgemma-2b replicas sharing the card,
+# replica i serving its x chunks (requests of 128 prompt tokens, to their
+# first token) as one batch r_i times, each call the median of 3 CUDA-event
+# timings; (c) two tenants through balance_fleet, then steady epochs
+DISPATCH_DEMO_CHUNKS, DISPATCH_DEMO_EPS = 64, 0.1
+DISPATCH_TENANTS, DISPATCH_TENANTS_EPS = {"chat": 48, "embed": 96}, 0.15
+DISPATCH_REPEATS = [1, 2, 3, 4]
+DISPATCH_N, DISPATCH_PROMPT, DISPATCH_SAMPLES = 192, 128, 3
+DISPATCH_EPS, DISPATCH_REMEASURE = 0.1, 5
+DISPATCH_CYCLE = {"chat": (192, 128), "summarize": (48, 512)}  # tenant: (chunks, prompt tokens)
+DISPATCH_EPOCHS = 3
 
 
 def emit(obj) -> None:
@@ -2245,6 +2286,345 @@ def phase_fleet() -> tuple:
     return launches + launches0, {r: routes[r] + routes0[r] for r in routes}
 
 
+# ---------------------------------------------------------------------------
+# the serving dispatch
+# ---------------------------------------------------------------------------
+
+
+def _demo_replica_run(p: int, chunks: int):
+    """src/repro/launch/serve.py's demo: per-chunk cost drawn per replica,
+    x4 past a drawn capacity (the launch CLI's ``dispatch_demo``)."""
+    rng = np.random.default_rng(0)
+    base = rng.uniform(2e-4, 8e-4, p)
+    caps = rng.integers(chunks // 2, chunks, p)
+
+    def replica_run(i, x):
+        t = x * base[i]
+        if x > caps[i]:
+            t += (x - caps[i]) * base[i] * 4.0
+        return t
+
+    return replica_run
+
+
+def _tenants_replica_run(i, x):
+    """tests/test_fleet_pipeline.py's threading case: x3 past 30 chunks."""
+    base = [4e-4, 2e-4, 8e-4, 3e-4]
+    t = x * base[i]
+    if x > 30:
+        t += (x - 30) * base[i] * 3.0
+    return t
+
+
+def _partition_rows(res: dict) -> dict:
+    return {nm: (r.allocations, r.iterations, r.diagnostics["history"]) for nm, r in res.items()}
+
+
+def _dispatch_straggler(backend: str, device) -> tuple:
+    """tests/test_serve_trace.py's straggler case on a ``backend`` fleet:
+    three healthy epochs, then replica 2 decays x0.5 an epoch until
+    REPROFILE; replica 2 leaves (a fresh 3-replica session, the detector
+    remapped) and the replica now at index 2 decays the same way.  Returns
+    the epochs' (distributions, actions) and, for each decay, the epochs to
+    REPROFILE, the detector's patience and the other replicas struck."""
+    tenants = {"t": 400}
+    speeds = [8.0, 8.0, 4.0, 4.0]
+    fkw = dict(backend=backend, reserve_knots=16, quantize=0.05, min_units=1, max_iter=12)
+    disp = ReplicaDispatcher(lambda i, x: x / speeds[i], 4, eps=0.08, device=device)
+    record, reactions = [], []
+
+    def epoch(speeds_now):
+        ds = disp.fleet.rebalance(dict(tenants))
+        times = {nm: [d / s if d > 0 else 0.0 for d, s in zip(dv, speeds_now)] for nm, dv in ds.items()}
+        acts = [a.value for a in disp.fleet.straggler_actions(times)]
+        disp.fleet.observe(times)
+        record.append((ds, acts))
+        return acts
+
+    def decay(base):
+        others = set()
+        for k in range(10):
+            now = list(base)
+            now[2] = base[2] * 0.5 ** (k + 1)
+            acts = epoch(now)
+            others |= {i for i, a in enumerate(acts) if a != "none" and i != 2}
+            if acts[2] == StragglerAction.REPROFILE.value:
+                return {"epochs": k + 1, "patience": disp.fleet.detector.patience, "others": sorted(others)}
+        return {"epochs": None, "patience": disp.fleet.detector.patience, "others": sorted(others)}
+
+    record.append(_partition_rows(disp.balance_fleet(tenants, **fkw)))
+    healthy = all(epoch(speeds) == ["none"] * 4 for _ in range(3))
+    reactions.append(decay(speeds))
+    old, survivors = disp.fleet, [0, 1, 3]
+    speeds3 = [speeds[i] for i in survivors]
+    disp.num_replicas, disp.replica_run = 3, (lambda i, x: x / speeds3[i])
+    record.append(_partition_rows(disp.balance_fleet(tenants, **fkw)))
+    fresh = disp.fleet is not old
+    disp.fleet.detector = old.detector.remap(survivors)
+    reactions.append(decay(speeds3))
+    return record, reactions, healthy and fresh
+
+
+def dispatch_parity_gate(device="cuda") -> dict:
+    """Part (a): ``ReplicaDispatcher`` on host-simulated replicas, its bank
+    on ``device`` beside the numpy backend on the host, float64.
+    ``balance`` on the reference demo (4 replicas, 64 chunks) and
+    ``balance_fleet`` on the two tenants of tests/test_fleet_pipeline.py in
+    sync and at pipeline depth 0 and 1: allocations, iterations, histories
+    and logs bit-identical; a repeated ``balance_fleet`` keeps the session,
+    restacks nothing and captures no new CUDA graph; and the straggler case
+    of tests/test_serve_trace.py: REPROFILE on the decayed replica within
+    the detector's patience and on no other, before and after a resize."""
+    checks, out = {}, {"device": str(device)}
+    run = _demo_replica_run(4, DISPATCH_DEMO_CHUNKS)
+    card = ReplicaDispatcher(run, 4, eps=DISPATCH_DEMO_EPS, device=device)
+    host = ReplicaDispatcher(run, 4, eps=DISPATCH_DEMO_EPS, device=device)
+    host.scheduler = Scheduler(policy=Policy.DFPA, eps=DISPATCH_DEMO_EPS, backend="numpy", device="cpu")
+    got, want = card.balance(DISPATCH_DEMO_CHUNKS), host.balance(DISPATCH_DEMO_CHUNKS)
+    out["balance"] = {"allocations": got.allocations, "iterations": got.iterations, "converged": got.converged}
+    checks["balance_bank_on_device"] = card.scheduler.backend == "torch" and card.scheduler._device.type == torch.device(device).type
+    checks["balance_bit_identical"] = (
+        _partition_rows({"": got}) == _partition_rows({"": want}) and card.logs == host.logs
+    )
+    modes = {"sync": {}, "depth0": dict(pipeline=True, pipeline_depth=0), "depth1": dict(pipeline=True, pipeline_depth=1)}
+    for mode, kw in modes.items():
+        card = ReplicaDispatcher(_tenants_replica_run, 4, eps=DISPATCH_TENANTS_EPS, device=device)
+        host = ReplicaDispatcher(_tenants_replica_run, 4, eps=DISPATCH_TENANTS_EPS, device=device)
+        fkw = dict(min_units=1, reserve_knots=16, **kw)
+        got = card.balance_fleet(DISPATCH_TENANTS, backend="torch", **fkw)
+        want = host.balance_fleet(DISPATCH_TENANTS, backend="numpy", **fkw)
+        fleet0, restacks0, keys0 = card.fleet, card.fleet.stats()["restacks"], set(mbt._graphs)
+        warm = card.balance_fleet(DISPATCH_TENANTS, backend="torch", **fkw)
+        warm_want = host.balance_fleet(DISPATCH_TENANTS, backend="numpy", **fkw)
+        new_keys = set(mbt._graphs) - keys0
+        out[mode] = {
+            "allocations": {nm: r.allocations for nm, r in got.items()},
+            "iterations": {nm: r.iterations for nm, r in got.items()},
+            "restacks": restacks0, "warm_restacks": card.fleet.stats()["restacks"] - restacks0,
+            "graphs": len(mbt._graphs), "warm_new_graphs": len(new_keys),
+            "device_dispatches": card.fleet.stats()["device_dispatches"],
+        }
+        checks[f"{mode}_bit_identical"] = (
+            _partition_rows(got) == _partition_rows(want) and _partition_rows(warm) == _partition_rows(warm_want)
+            and card.logs == host.logs
+        )
+        checks[f"{mode}_warm_same_session"] = card.fleet is fleet0
+        checks[f"{mode}_warm_no_restack"] = card.fleet.stats()["restacks"] == restacks0
+        checks[f"{mode}_warm_no_new_graph"] = not new_keys
+    rec, reactions, ok = _dispatch_straggler("torch", device)
+    rec_host, reactions_host, _ = _dispatch_straggler("numpy", device)
+    out["straggler"] = reactions
+    checks["straggler_bit_identical"] = rec == rec_host and reactions == reactions_host
+    checks["straggler_healthy_epochs_and_fresh_session"] = ok
+    checks["straggler_reprofile_right_replica"] = all(
+        r["epochs"] is not None and r["epochs"] <= r["patience"] and not r["others"] for r in reactions
+    )
+    return {**out, "checks": checks}
+
+
+class PrefillReplicas:
+    """Real replicas sharing the card: replica ``i`` serves ``x`` chunks
+    (requests of ``prompt`` tokens, each served to its first token) as one
+    batch, ``ServeEngine(batch=x, seq_budget=prompt + 1).generate(tokens,
+    1)`` (prefill only), ``repeats[i]`` times — the emulated heterogeneity.
+    A call's time is the median of ``samples`` CUDA-event timings; every
+    call is kept in ``calls`` and every prefill counted in ``prefills``."""
+
+    def __init__(self, cfg, model, repeats, prompt: int, chunks: int, *, samples: int = DISPATCH_SAMPLES, seed: int = 2):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        self.tokens = torch.randint(0, cfg.vocab_size, (chunks, prompt), generator=g, device="cuda")
+        self.cfg, self.model, self.repeats, self.prompt, self.samples = cfg, model, list(repeats), prompt, samples
+        self.prefills = 0
+        self.calls = []
+
+    def time_ms(self, x: int, repeats: int, samples: int) -> list:
+        eng = ServeEngine(self.cfg, self.model, batch=x, seq_budget=self.prompt + 1, device="cuda")
+        toks = self.tokens[:x]
+        ms = []
+        for _ in range(samples):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(repeats):
+                eng.generate(toks, 1)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        self.prefills += samples * repeats
+        return ms
+
+    def __call__(self, i: int, x: int) -> float:
+        ms = self.time_ms(x, self.repeats[i], self.samples)
+        self.calls.append((i, x, ms))
+        return float(np.median(ms)) / 1e3
+
+
+class TenantDispatcher(ReplicaDispatcher):
+    """``ReplicaDispatcher`` whose tenants are served by replicas of their
+    own shape: ``run_jobs`` serves each tenant's cells, in its order, with
+    ``runners[tenant](i, x)`` and keeps the base class's time-sliced
+    accounting and log."""
+
+    def __init__(self, runners: dict, num_replicas: int, **kw):
+        super().__init__(None, num_replicas, **kw)
+        self.runners = runners
+
+    def run_jobs(self, names, D):
+        cells = iter([(str(nm), i, int(x)) for nm, row in zip(names, D) for i, x in enumerate(row) if x > 0])
+
+        def replica_run(i, x):
+            nm, i0, x0 = next(cells)
+            if (i0, x0) != (i, x):
+                raise RuntimeError(f"run_jobs served ({i}, {x}) where ({i0}, {x0}) of {nm} was next")
+            return self.runners[nm](i, x)
+
+        self.replica_run = replica_run
+        return super().run_jobs(names, D)
+
+
+def _reset_serve_counts() -> None:
+    flash_attention_cuda.launches = rglru_scan_cuda.launches = 0
+    flash_attention_cuda.launches_by_route = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
+
+
+def _serve_counts() -> dict:
+    return {"flash_attention": flash_attention_cuda.launches, "rglru_scan": rglru_scan_cuda.launches,
+            "flash_attention_by_route": dict(flash_attention_cuda.launches_by_route)}
+
+
+def _launch_checks(counts: dict, prefills: int) -> dict:
+    return {
+        "flash_launches_8_per_prefill": counts["flash_attention"] == SERVE_LAUNCHES["flash_attention"] * prefills,
+        "rglru_launches_18_per_prefill": counts["rglru_scan"] == SERVE_LAUNCHES["rglru_scan"] * prefills,
+        "flash_all_wgmma": counts["flash_attention_by_route"].get("wgmma") == counts["flash_attention"],
+    }
+
+
+def dispatch_dfpa(cfg, model) -> dict:
+    """Part (b): ``ReplicaDispatcher.balance`` over four real replicas
+    (``PrefillReplicas``, r = [1, 2, 3, 4]), n = 192 chunks of 128 tokens,
+    eps 0.1, the bank on the card.  Checks: converged; the final
+    distribution measured 5 more times at median imbalance <= 2*eps;
+    flash 8 and the scan 18 launches per prefill run, flash all
+    ``"wgmma"``."""
+    run = PrefillReplicas(cfg, model, DISPATCH_REPEATS, DISPATCH_PROMPT, DISPATCH_N)
+    disp = ReplicaDispatcher(run, len(DISPATCH_REPEATS), eps=DISPATCH_EPS, device="cuda")
+    torch.cuda.synchronize()
+    _reset_serve_counts()
+    t0 = time.perf_counter()
+    res = disp.balance(DISPATCH_N, min_units=1)
+    wall_s = time.perf_counter() - t0
+    d = res.allocations
+    remeasured = [[run(i, x) for i, x in enumerate(d)] for _ in range(DISPATCH_REMEASURE)]
+    counts = _serve_counts()
+    imbs = [imbalance(t) for t in remeasured]
+    median_imb = float(np.median(imbs))
+    history = res.diagnostics["history"]
+    return {
+        "replicas": len(DISPATCH_REPEATS), "repeats": DISPATCH_REPEATS, "n": DISPATCH_N, "prompt": DISPATCH_PROMPT,
+        "samples": DISPATCH_SAMPLES, "eps": DISPATCH_EPS, "converged": res.converged,
+        "iterations": res.iterations, "allocations": d, "final_imbalance": res.imbalance, "wall_s": wall_s,
+        "rounds": [{"d": list(h[0]), "times_ms": [v * 1e3 for v in h[1]], "imbalance": imbalance(h[1])}
+                   for h in history],
+        "scheduler_host_s": wall_s - disp.exec_host_s, "serve_host_s": disp.exec_host_s,
+        "remeasured_ms": [[v * 1e3 for v in t] for t in remeasured], "remeasured_imbalance": imbs,
+        "remeasured_imbalance_median": median_imb, "prefills": run.prefills, "launches": counts,
+        "calls": [{"i": i, "x": x, "ms": ms} for i, x, ms in run.calls],
+        "checks": {"converged": bool(res.converged), "remeasure_within_2eps": median_imb <= 2 * DISPATCH_EPS,
+                   **_launch_checks(counts, run.prefills)},
+    }
+
+
+def dispatch_cycle(cfg, model) -> dict:
+    """Part (c): two tenants through ``balance_fleet`` on the same four
+    real replicas (``chat``: 192 chunks of 128 tokens, ``summarize``: 48
+    chunks of 512), then ``DISPATCH_EPOCHS`` steady epochs: ``rebalance``,
+    every tenant served time-sliced (``run_jobs``), ``straggler_actions``
+    before ``observe``, sync.  Checks: every allocation sums to its n; no
+    straggler action in a steady epoch; each ``FleetRoundLog``'s wall cost
+    is its busiest replica's sum across tenants."""
+    runners = {nm: PrefillReplicas(cfg, model, DISPATCH_REPEATS, prompt, n, seed=3 + k)
+               for k, (nm, (n, prompt)) in enumerate(DISPATCH_CYCLE.items())}
+    loads = {nm: n for nm, (n, _) in DISPATCH_CYCLE.items()}
+    disp = TenantDispatcher(runners, len(DISPATCH_REPEATS), eps=DISPATCH_EPS, device="cuda")
+    torch.cuda.synchronize()
+    _reset_serve_counts()
+    t0 = time.perf_counter()
+    res = disp.balance_fleet(loads, min_units=1)
+    balance_s = time.perf_counter() - t0
+    rounds = len(disp.logs)
+    fleet = disp.fleet
+    epochs, sums_ok = [], all(sum(r.allocations) == loads[nm] for nm, r in res.items())
+    for _ in range(DISPATCH_EPOCHS):
+        t1 = time.perf_counter()
+        ds = fleet.rebalance(dict(loads))
+        names = list(ds)
+        T = disp.run_jobs(names, [ds[nm] for nm in names])
+        times = {nm: [float(v) for v in T[k]] for k, nm in enumerate(names)}
+        acts = [a.value for a in fleet.straggler_actions(times)]
+        fleet.observe(times)
+        sums_ok &= all(sum(ds[nm]) == loads[nm] for nm in names)
+        epochs.append({"d": ds, "times_ms": {nm: [v * 1e3 for v in t] for nm, t in times.items()},
+                       "actions": acts, "wall_cost_ms": disp.logs[-1].wall_cost * 1e3,
+                       "host_s": time.perf_counter() - t1})
+    counts = _serve_counts()
+    prefills = sum(r.prefills for r in runners.values())
+    walls_ok = all(
+        log.wall_cost == float(np.max(np.sum(np.asarray(log.times, dtype=np.float64), axis=0)))
+        and log.proc_busy == [float(v) for v in np.sum(np.asarray(log.times, dtype=np.float64), axis=0)]
+        for log in disp.logs
+    )
+    return {
+        "tenants": {nm: {"chunks": n, "prompt": prompt} for nm, (n, prompt) in DISPATCH_CYCLE.items()},
+        "repeats": DISPATCH_REPEATS, "eps": DISPATCH_EPS, "balance_s": balance_s, "rounds": rounds,
+        "converged": {nm: r.converged for nm, r in res.items()},
+        "iterations": {nm: r.iterations for nm, r in res.items()},
+        "allocations": {nm: r.allocations for nm, r in res.items()},
+        "round_wall_cost_ms": [log.wall_cost * 1e3 for log in disp.logs[:rounds]],
+        "epochs": epochs, "prefills": prefills, "launches": counts,
+        "checks": {
+            "allocations_sum_to_n": bool(sums_ok),
+            "no_straggler_action": all(a == "none" for e in epochs for a in e["actions"]),
+            "wall_cost_is_busiest_replica_sum": bool(walls_ok),
+            **_launch_checks(counts, prefills),
+        },
+    }
+
+
+def dispatch_model():
+    """recurrentgemma-2b at full width as the ``serve`` phase builds it
+    (seed 0), shared by every replica."""
+    cfg = get_config(SERVE_ARCH)
+    return cfg, init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+def phase_dispatch() -> dict:
+    """(a) ``dispatch_parity_gate`` on the card; (b) ``dispatch_dfpa`` and
+    (c) ``dispatch_cycle`` over four full-width replicas.  Returns the
+    phase's flash / scan launches, by route."""
+    t0 = time.perf_counter()
+    row = dispatch_parity_gate("cuda")
+    emit({"phase": "dispatch", "part": "a", "seconds": time.perf_counter() - t0, **row})
+    failed = [f"a.{k}" for k, ok in row["checks"].items() if not ok]
+    cfg, model = dispatch_model()
+    total = {"flash_attention": 0, "rglru_scan": 0,
+             "flash_attention_by_route": dict.fromkeys(flash_attention_cuda.launches_by_route, 0)}
+    for part, fn in (("b", dispatch_dfpa), ("c", dispatch_cycle)):
+        t0 = time.perf_counter()
+        row = fn(cfg, model)
+        emit({"phase": "dispatch", "part": part, "seconds": time.perf_counter() - t0, **row})
+        failed += [f"{part}.{k}" for k, ok in row["checks"].items() if not ok]
+        counts = row["launches"]
+        total["flash_attention"] += counts["flash_attention"]
+        total["rglru_scan"] += counts["rglru_scan"]
+        for r, v in counts["flash_attention_by_route"].items():
+            total["flash_attention_by_route"][r] += v
+    del model
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: the dispatch phase failed {failed}")
+    return total
+
+
 def main() -> int:
     seconds = {}
 
@@ -2269,13 +2649,17 @@ def main() -> int:
     obs_launches, obs_routes = run("obs", phase_obs)
     straggler_launches, straggler_routes = run("straggler", phase_straggler)
     fleet_launches, fleet_routes = run("fleet", phase_fleet)
+    dispatch = run("dispatch", phase_dispatch)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
                 "straggler": straggler_launches, "fleet": fleet_launches}
     by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
-    launches = {"matmul_update": sum(by_phase.values()), **{k: serve["launches"][k] for k in SERVE_LAUNCHES}}
+    serve_by_phase = {k: {"serve": serve["launches"][k], "dispatch": dispatch[k]} for k in SERVE_LAUNCHES}
+    launches = {"matmul_update": sum(by_phase.values()), **{k: sum(v.values()) for k, v in serve_by_phase.items()}}
+    flash_routes = {r: v + dispatch["flash_attention_by_route"][r]
+                    for r, v in serve["launches_by_route"]["flash_attention"].items()}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},
-        **serve["launches_by_route"],
+        "flash_attention": flash_routes,
     }
     sources = {
         "matmul_update": "src/repro/kernels/matmul_update.py:49",
@@ -2289,7 +2673,7 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"], "dtype": row["dtype"],
         **({"launches_by_route": routes[name], "kernel_route": row["route"]} if name in routes else {}),
-        **({"launches_by_phase": by_phase} if name == "matmul_update" else {}),
+        "launches_by_phase": by_phase if name == "matmul_update" else serve_by_phase[name],
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -17,7 +17,8 @@ helpers), the two-level partitioner (``hierarchy.py``) and the time/energy
 front (``energy.py``).  ``convert.py`` carries the reference package's
 banks and checkpoints over.  The fleet's measurement primitives
 (``FleetExecutor``, ``BatchedSimulatedExecutor2D``, ``FleetRoundLog``,
-``DelayedBatchedExecutor``) live in ``executor.py``; the fleet itself is
+``DelayedBatchedExecutor``, the serving harness's ``TraceExecutor2D``)
+live in ``executor.py``; the fleet itself is
 ``repro_torch.fleet``.
 """
 
@@ -32,6 +33,7 @@ from .executor import (
     FleetRoundLog,
     RoundLog,
     SimulatedExecutor,
+    TraceExecutor2D,
 )
 from .fpm import AnalyticModel, ConstantModel, PiecewiseLinearFPM, SpeedModel, imbalance
 from .hierarchy import Hierarchy
@@ -83,6 +85,7 @@ __all__ = [
     "SpeedModel",
     "SpeedStore",
     "TorchModelBank",
+    "TraceExecutor2D",
     "aggregate_groups",
     "app_time_2d",
     "bank_from_arrays",

@@ -17,8 +17,8 @@ so one DFPA loop drives:
 
 ``run`` returns per-processor execution times for one parallel round; the
 round's wall-clock cost is ``max(times)`` plus the collective overhead the
-executor models.  The reference's ``TraceExecutor2D`` comes with the
-serving dispatch (ROADMAP queue 1, item 8).
+executor models.  ``TraceExecutor2D`` is the trace-driven fleet executor
+of the serving harness: its time function reads a trace clock.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ __all__ = [
     "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "DelayedBatchedExecutor",
+    "TraceExecutor2D",
     "RoundLog",
     "FleetRoundLog",
 ]
@@ -47,11 +48,17 @@ __all__ = [
 
 @dataclass
 class RoundLog:
-    """One DFPA round: the distribution sent out and the times gathered."""
+    """One DFPA round: the distribution sent out and the times gathered.
+
+    ``t_wall`` is the monotonic wall-clock timestamp the round was logged at
+    (the logging component's injectable clock; 0.0 when the producer does
+    not stamp).  Excluded from equality so replay comparisons stay
+    timestamp-agnostic."""
 
     d: List[int]
     times: List[float]
     wall_cost: float  # max(times) + modelled collective overhead
+    t_wall: float = field(default=0.0, compare=False)
 
 
 @dataclass
@@ -69,9 +76,7 @@ class FleetRoundLog:
     times: List[List[float]]  # per-(tenant, processor) slice times
     proc_busy: List[float]  # per-processor sum across tenants
     wall_cost: float  # max(proc_busy) + modelled collective overhead
-    # monotonic clock of the logging component (0.0 when not stamped);
-    # excluded from equality so replay comparisons ignore it
-    t_wall: float = field(default=0.0, compare=False)
+    t_wall: float = field(default=0.0, compare=False)  # see RoundLog.t_wall
 
 
 class Executor(Protocol):
@@ -325,6 +330,64 @@ class DelayedBatchedExecutor:
     @property
     def total_cost(self) -> float:
         return self.inner.total_cost
+
+
+@dataclass
+class TraceExecutor2D:
+    """Trace-driven fleet executor: the ground-truth time function takes the
+    current TRACE CLOCK — ``time_fn_trace_2d(X[q, p], t) -> T[q, p]`` — so
+    drifting speed functions, diurnal thermal effects and straggler
+    throttles are functions of *when* a round runs, not of how many rounds
+    ran.  The serving harness advances ``now`` between epochs (simulated
+    trace seconds); each ``run_jobs`` call evaluates the fleet at that
+    instant and logs ONE :class:`FleetRoundLog` with the time-sliced round
+    cost (the busiest processor's sum across tenants).  Noise mirrors
+    ``BatchedSimulatedExecutor2D`` (multiplicative, seeded numpy ``rng``).
+    Host numpy, like the other simulated executors."""
+
+    time_fn_trace_2d: Callable  # (X[q, p], t) -> T[q, p], X <= 0 ignored
+    p: int
+    now: float = 0.0  # the trace clock, advanced by the harness
+    alpha: float = 0.0
+    beta: float = 0.0
+    noise: float = 0.0
+    rng: object = None
+    logs: List[FleetRoundLog] = field(default_factory=list)
+
+    @property
+    def num_procs(self) -> int:
+        return self.p
+
+    def run_jobs(self, names: Sequence[str], D):
+        X = np.asarray(D, dtype=np.float64)
+        T = np.asarray(self.time_fn_trace_2d(X, float(self.now)), dtype=np.float64)
+        T = np.where(X > 0, T, 0.0)
+        if self.noise > 0.0 and self.rng is not None:
+            jitter = 1.0 + self.noise * self.rng.standard_normal(X.shape)
+            T = np.where(X > 0, np.maximum(T * jitter, 1e-12), 0.0)
+        busy = T.sum(axis=0)
+        self.logs.append(
+            FleetRoundLog(
+                names=[str(nm) for nm in names],
+                D=[[int(v) for v in row] for row in X],
+                times=[[float(v) for v in row] for row in T],
+                proc_busy=[float(v) for v in busy],
+                wall_cost=float(busy.max()) + self.alpha + self.beta * self.p,
+            )
+        )
+        return T
+
+    def run(self, d: Sequence[int]) -> List[float]:
+        """Single-job adapter, so the trace executor also satisfies the
+        plain ``Executor`` protocol for one-tenant fleets."""
+        return [float(v) for v in self.run_jobs(["job"], [list(d)])[0]]
+
+    def round_cost(self, times: Sequence[float]) -> float:
+        return max(times) + self.alpha + self.beta * self.p
+
+    @property
+    def total_cost(self) -> float:
+        return sum(log.wall_cost for log in self.logs)
 
 
 @dataclass

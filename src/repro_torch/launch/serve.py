@@ -1,8 +1,11 @@
-"""Serving CLI: batched prefill + greedy decode.
+"""Serving CLI: batched prefill + greedy decode, and DFPA-balanced replica
+dispatch.
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke --device cpu
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 4 \\
         --prompt-len 4096 --new-tokens 32          # full width, on the card
+    python -m repro_torch.launch.serve --smoke --replicas 4 --chunks 64
+        # DFPA dispatch demo across emulated replicas, bank on --device
 
 Weights are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; the prompt's tokens from another, seeded with ``--seed + 1``.
@@ -11,9 +14,11 @@ events over one ``generate`` after the kernels' build and one untimed
 warm-up ``generate``, on the CPU with the host clock.  ``--profile`` then traces one
 prefill and 8 decode steps with ``torch.profiler`` and
 prints, for each, the wall time, the device's busy time and idle share,
-and the device time by kernel (one JSON line each).  ``--replicas`` (DFPA
-dispatch across replicas) comes with ``ReplicaDispatcher`` (ROADMAP
-queue 1, item 8: serving dispatch).
+and the device time by kernel (one JSON line each).  ``--replicas N``
+then runs the reference's dispatch demo: ``N`` emulated replicas whose
+per-chunk cost is drawn from ``default_rng(0)`` and grows x4 past a drawn
+capacity, balanced over ``--chunks`` chunks by
+``ReplicaDispatcher.balance`` with its bank on ``--device``.
 """
 
 from __future__ import annotations
@@ -22,13 +27,14 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from .. import _build
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..core.modelbank_torch import resolve_device
 from ..models.transformer import decode_step, init_lm, prefill
-from ..runtime.serve_loop import ServeEngine
+from ..runtime.serve_loop import ReplicaDispatcher, ServeEngine
 
 __all__ = ["main"]
 
@@ -43,10 +49,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true", help="trace one prefill and 8 decode steps")
-    ap.add_argument("--replicas", type=int, default=0, help=">0: DFPA dispatch demo (not ported yet)")
+    ap.add_argument("--replicas", type=int, default=0, help=">0: DFPA dispatch demo")
+    ap.add_argument("--chunks", type=int, default=64)
     args = ap.parse_args(argv)
-    if args.replicas > 0:
-        raise NotImplementedError("--replicas needs ReplicaDispatcher, not ported yet (ROADMAP queue 1, item 8: serving dispatch)")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -73,7 +78,31 @@ def main(argv=None):
     print("sample:", out[0][:12].tolist())
     if args.profile:
         profile_serving(eng, toks)
+    if args.replicas > 0:
+        dispatch_demo(args.replicas, args.chunks, device)
     return out
+
+
+def dispatch_demo(replicas: int, chunks: int, device) -> None:
+    """The reference's demo: heterogeneous replicas whose per-chunk cost
+    differs per replica and bends with load (the FPM speed function of
+    serving), balanced by DFPA."""
+    rng = np.random.default_rng(0)
+    base = rng.uniform(2e-4, 8e-4, replicas)
+    caps = rng.integers(chunks // 2, chunks, replicas)
+
+    def replica_run(i, x):
+        t = x * base[i]
+        if x > caps[i]:  # HBM spill: per-chunk cost grows past capacity
+            t += (x - caps[i]) * base[i] * 4.0
+        return t
+
+    disp = ReplicaDispatcher(replica_run, replicas, eps=0.1, device=device)
+    res = disp.balance(chunks)  # Partition, via the Scheduler facade
+    print(
+        f"DFPA dispatch over {replicas} replicas: d={res.allocations} "
+        f"iters={res.iterations} imb={res.imbalance:.3f} converged={res.converged}"
+    )
 
 
 def _kernel_table(prof, top: int = 25):

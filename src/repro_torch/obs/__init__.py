@@ -41,11 +41,13 @@ What gets recorded (the port's instrumented layers):
   solve spans;
 * ``StragglerDetector`` — ``straggler.strike`` events carrying the
   (predicted, observed, ratio) evidence and ``straggler.verdict`` events
-  for REPROFILE/QUARANTINE.
-
-The reference also instruments its fleet scheduler, its serving dispatcher
-and its profile registry; those sites come with the port of those layers
-(ROADMAP queue 1, items 7 and 8).
+  for REPROFILE/QUARANTINE;
+* ``FleetScheduler`` and ``ProfileRegistry`` — the ``fleet.*`` spans,
+  counters and gauges and ``registry.*`` warnings, as in the reference;
+* ``ReplicaDispatcher`` — ``serve.replica_busy`` spans on ``replica:{i}``
+  tracks of the simulated serving timeline, and the
+  ``serve.split.{serve_host_s,sched_host_s,sched_over_serve}`` gauges of
+  each ``balance_fleet``.
 
 Spans read the host clock.  A ``speedstore.partition`` span on the torch
 backend covers the device work, since the partition returns host lists;

@@ -4,7 +4,7 @@ The Trace Event Format (the ``chrome://tracing`` / Perfetto JSON dialect)
 renders named duration events on per-thread tracks: the scheduler track
 shows the ``scheduler.*``, ``speedstore.*`` and ``hier.*`` spans of a
 session in order, and a span's ``track`` attribute puts it on a row of its
-own (per-replica rows, once serving dispatch is ported).
+own (the serving dispatcher's per-replica rows).
 
 Mapping:
 

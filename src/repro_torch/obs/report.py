@@ -46,9 +46,10 @@ def _load_counters_gauges(payload: Dict[str, Any]) -> Tuple[Dict, Dict, List]:
 @dataclass
 class MetricsSnapshot:
     """One summarized recording (all fields optional: a recording made by a
-    bare ``Scheduler`` simply leaves the fleet/serving rows None; the port
-    has no serving dispatch yet, so its serving rows stay None, and its
-    fleet never records recompiles, so those read 0)."""
+    bare ``Scheduler`` simply leaves the fleet/serving rows None; the
+    serving rows are gauges a serving-trace harness sets, which the port
+    does not have yet, and its fleet never records recompiles, so those
+    read 0)."""
 
     rounds: Optional[float] = None
     device_dispatches: Optional[float] = None

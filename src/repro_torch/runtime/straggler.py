@@ -169,9 +169,8 @@ class StragglerDetector:
 
         ``Scheduler`` implements this itself (``Scheduler.reprofile``; wired
         automatically by ``Scheduler.straggler_actions``) — delegate when
-        available, keep the legacy in-place mutation for duck-typed
-        controllers (the reference's ``BalanceController`` shim comes with
-        the port's serving dispatch)."""
+        available (``BalanceController`` delegates to its ``Scheduler``),
+        keep the legacy in-place mutation for duck-typed controllers."""
         if hasattr(controller, "reprofile"):
             controller.reprofile(group)
             return

@@ -1,5 +1,5 @@
 """The port stands alone: ``repro_torch`` (every module, the model stack
-and its serving path, and the fleet included) and ``chip_smoke.py`` import
+and its serving path, the fleet and the serving dispatch included) and ``chip_smoke.py`` import
 no JAX and nothing of the reference package, and the smoke script refuses
 to run without a CUDA device."""
 
@@ -36,6 +36,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.fleet, repro_torch.fleet.registry, repro_torch.fleet.scheduler\n"
         "from repro_torch.core import BatchedSimulatedExecutor2D, FleetExecutor, FleetRoundLog\n"
         "from repro_torch.core import speed_fn_2d_batch, time_fn_2d_batch\n"
+        "import repro_torch.runtime.balance, repro_torch.runtime.elastic, repro_torch.runtime.serve_loop\n"
+        "from repro_torch.runtime import ReplicaDispatcher, BalanceController, GroupTimer, elastic_rebalance\n"
+        "from repro_torch.core.executor import TraceExecutor2D\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -78,3 +81,20 @@ def test_chip_smoke_fails_without_cuda():
     )
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_runtime_exports_the_serving_dispatch():
+    """``repro_torch.runtime`` exports what the reference's does, but the
+    training names; ``RoundLog`` carries ``t_wall`` outside equality."""
+    import dataclasses
+
+    import repro_torch.runtime as runtime
+    from repro_torch.core import executor
+
+    assert set(runtime.__all__) == {
+        "ServeEngine", "ReplicaDispatcher", "BalanceController", "GroupTimer",
+        "StragglerDetector", "StragglerAction", "elastic_rebalance",
+    }
+    assert "TraceExecutor2D" in executor.__all__
+    t_wall = {f.name: f for f in dataclasses.fields(executor.RoundLog)}["t_wall"]
+    assert t_wall.default == 0.0 and t_wall.compare is False

@@ -504,3 +504,69 @@ def test_fleet_telemetry_read_only_and_disabled_sink(backend, tmp_path, monkeypa
     for mod in (scheduler, registry):
         monkeypatch.setattr(mod, "_obs_active", lambda: None)
     assert _fleet_session(port_fleet, port_core, backend, tmp_path) == want
+
+
+# ---------------------------------------------------------------------------
+# serving dispatch: serve.* spans and gauges (ReplicaDispatcher)
+# ---------------------------------------------------------------------------
+
+
+def _dispatch_session(dispatcher_cls, backend):
+    """Two ``balance_fleet`` calls (the second on the warm session, a tenant
+    admitted) and two served epochs through ``run_jobs``.  Returns what the
+    dispatcher computed."""
+    base = [4e-4, 2e-4, 8e-4, 3e-4]
+
+    def replica_run(i, x):
+        return x * base[i] + (max(x - 30, 0) * base[i] * 3.0)
+
+    kw = {"device": "cpu"} if dispatcher_cls.__module__.startswith("repro_torch") else {}
+    disp = dispatcher_cls(replica_run, 4, eps=0.15, clock=lambda: 0.0, **kw)
+    out = [{nm: r.allocations for nm, r in disp.balance_fleet({"chat": 48}, backend=backend, min_units=1).items()}]
+    out.append({nm: r.allocations
+                for nm, r in disp.balance_fleet({"chat": 48, "embed": 96}, backend=backend, min_units=1).items()})
+    for _ in range(2):
+        ds = disp.fleet.rebalance()
+        names = sorted(ds)
+        T = disp.run_jobs(names, [ds[nm] for nm in names])
+        disp.fleet.observe({nm: list(T[k]) for k, nm in enumerate(names)})
+        out.append(ds)
+    out.append([log.wall_cost for log in disp.logs])
+    return out
+
+
+def _dispatch_records(tel, backend):
+    """``_fleet_records`` with the host-time values of the
+    ``serve.split.*`` gauges set aside (their names and order stay)."""
+    return [(kind, name, None if name.startswith("serve.split.") else value, attrs)
+            for kind, name, value, attrs in _fleet_records(tel, backend)]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_dispatch_serve_telemetry_matches_the_reference(backend):
+    """The dispatcher's ``serve.replica_busy`` spans (one per busy replica
+    a served round, on ``replica:{i}`` tracks) and ``serve.split.*`` gauges
+    (one set per ``balance_fleet``), among the fleet's own records: the
+    same names, order, counts and non-time attributes as the reference's
+    dispatcher under ``repro.obs``; nothing reaches a disabled sink, and a
+    recording sink changes no result."""
+    from repro.runtime.serve_loop import ReplicaDispatcher as RefDispatcher
+
+    from repro_torch.runtime import ReplicaDispatcher
+
+    ref_tel, port_tel = ref_obs.Telemetry(), obs.Telemetry()
+    with ref_obs.use(ref_tel):
+        want = _dispatch_session(RefDispatcher, "numpy")
+    with obs.use(port_tel):
+        got = _dispatch_session(ReplicaDispatcher, backend)
+    assert got == want
+    assert _dispatch_records(port_tel, backend) == _dispatch_records(ref_tel, backend)
+    serve = [(e.kind, e.name) for e in port_tel.events if e.name.startswith("serve.")]
+    assert serve.count(("gauge", "serve.split.serve_host_s")) == 2
+    assert serve.count(("gauge", "serve.split.sched_host_s")) == 2
+    busy = port_tel.spans("serve.replica_busy")
+    assert busy and {e.attrs["track"] for e in busy} <= {f"replica:{i}" for i in range(4)}
+    stub = _CountingDisabledSink()
+    with obs.use(stub):
+        assert _dispatch_session(ReplicaDispatcher, backend) == want
+    assert stub.calls == 0

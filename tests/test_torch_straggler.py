@@ -11,8 +11,9 @@ reference's numpy ``Scheduler`` ends with the same distribution ``d``, the
 same points in every model, the same ``caps``, ``groups`` and remapped
 strikes, bit for bit.  The reference's own elastic and reprofile cases
 (``tests/test_runtime.py``) reach these methods through its deprecated
-``BalanceController`` / ``elastic_rebalance`` shims, which the port does
-not have yet; the cases here call the methods directly.
+``BalanceController`` / ``elastic_rebalance`` shims; the cases here call
+the methods directly, and ``tests/test_torch_dispatch.py`` runs them
+through the port's shims.
 """
 
 import numpy as np
