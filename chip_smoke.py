@@ -267,6 +267,7 @@ from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglr
 from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda  # noqa: E402
 from repro_torch.launch import paper_tables  # noqa: E402
 from repro_torch.launch.matmul_grid import GRID_EPS, GRID_UNITS, MatmulGrid  # noqa: E402
+from repro_torch.launch.serve import demo_replica_run  # noqa: E402
 from repro_torch.obs import FlightRecorder, Telemetry, export_chrome_trace, use  # noqa: E402
 from repro_torch.obs.report import MetricsSnapshot  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
@@ -392,6 +393,10 @@ DISPATCH_N, DISPATCH_PROMPT, DISPATCH_SAMPLES = 192, 128, 3
 DISPATCH_EPS, DISPATCH_REMEASURE = 0.1, 5
 DISPATCH_CYCLE = {"chat": (192, 128), "summarize": (48, 512)}  # tenant: (chunks, prompt tokens)
 DISPATCH_EPOCHS = 3
+# before (b) and (c), each kernel against its plain version at the batches
+# the phase can give it, (batch, prompt): one chunk, the largest share seen
+# (r = 1), and every chunk of a tenant, at both prompt lengths
+DISPATCH_KERNEL_SHAPES = [(1, 128), (97, 128), (192, 128), (1, 512), (25, 512), (48, 512)]
 
 
 def emit(obj) -> None:
@@ -612,16 +617,18 @@ def _flash_fp32(q, k, v, *, causal, window, softcap, scale) -> tuple:
 
 
 def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
-    """The kernel's output at the serve shape against its plain version:
-    ``|got - want| <= atol + rtol (|want| + terms)`` with SERVE_FLASH_TOL.
-    The ``terms`` part covers rows that sum few keys whose values cancel
-    (bf16 weights err relative to the terms, not to their sum); rows over
-    many keys are held near atol.  The check's own power: the plain version
-    with the window one 64-key tile short (a kernel that drops a tile) must
-    fail it.  Also reports, by query-row band, the kernel's and the plain
-    version's largest error against attention in fp32 throughout."""
+    """The kernel's output on the model's attention inputs against its plain
+    version: ``|got - want| <= atol + rtol (|want| + terms)`` with
+    SERVE_FLASH_TOL.  The ``terms`` part covers rows that sum few keys
+    whose values cancel (bf16 weights err relative to the terms, not to
+    their sum); rows over many keys are held near atol.  The check's own
+    power: the plain version with its window one 64-key tile short of
+    ``min(window, Sk)`` (a kernel that drops a tile) must fail it.  Also
+    reports, by query-row band, the kernel's and the plain version's
+    largest error against attention in fp32 throughout."""
     atol, rtol = SERVE_FLASH_TOL
     kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
+    w = min(kw["window"], k.shape[2])
     exact, terms = _flash_fp32(q, k, v, **kw)
     got = got.float()
     want = flash_attention_ref(q, k, v, **kw).float()
@@ -633,7 +640,7 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
     ok, max_err = within(got)
     bands = {}
     Sq = q.shape[2]
-    for lo, hi in ((0, 64), (64, kw["window"]), (kw["window"], Sq)):
+    for lo, hi in ((0, 64), (64, w), (w, Sq)):
         if lo < hi <= Sq:
             bands[f"rows {lo}-{hi}"] = {
                 "kernel": float((got[:, :, lo:hi] - exact[:, :, lo:hi]).abs().max()),
@@ -641,7 +648,7 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
             }
     if not ok:
         raise SystemExit(f"chip_smoke: flash_attention disagrees with its plain version {what}: {bands}")
-    passed, fault_err = within(flash_attention_ref(q, k, v, **dict(kw, window=kw["window"] - 64)))
+    passed, fault_err = within(flash_attention_ref(q, k, v, **dict(kw, window=w - 64)))
     if passed:
         raise SystemExit(f"chip_smoke: the flash check {what} cannot tell a window one tile short")
     return {
@@ -2291,22 +2298,6 @@ def phase_fleet() -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _demo_replica_run(p: int, chunks: int):
-    """src/repro/launch/serve.py's demo: per-chunk cost drawn per replica,
-    x4 past a drawn capacity (the launch CLI's ``dispatch_demo``)."""
-    rng = np.random.default_rng(0)
-    base = rng.uniform(2e-4, 8e-4, p)
-    caps = rng.integers(chunks // 2, chunks, p)
-
-    def replica_run(i, x):
-        t = x * base[i]
-        if x > caps[i]:
-            t += (x - caps[i]) * base[i] * 4.0
-        return t
-
-    return replica_run
-
-
 def _tenants_replica_run(i, x):
     """tests/test_fleet_pipeline.py's threading case: x3 past 30 chunks."""
     base = [4e-4, 2e-4, 8e-4, 3e-4]
@@ -2376,7 +2367,7 @@ def dispatch_parity_gate(device="cuda") -> dict:
     of tests/test_serve_trace.py: REPROFILE on the decayed replica within
     the detector's patience and on no other, before and after a resize."""
     checks, out = {}, {"device": str(device)}
-    run = _demo_replica_run(4, DISPATCH_DEMO_CHUNKS)
+    run = demo_replica_run(4, DISPATCH_DEMO_CHUNKS)
     card = ReplicaDispatcher(run, 4, eps=DISPATCH_DEMO_EPS, device=device)
     host = ReplicaDispatcher(run, 4, eps=DISPATCH_DEMO_EPS, device=device)
     host.scheduler = Scheduler(policy=Policy.DFPA, eps=DISPATCH_DEMO_EPS, backend="numpy", device="cpu")
@@ -2427,25 +2418,29 @@ class PrefillReplicas:
     (requests of ``prompt`` tokens, each served to its first token) as one
     batch, ``ServeEngine(batch=x, seq_budget=prompt + 1).generate(tokens,
     1)`` (prefill only), ``repeats[i]`` times — the emulated heterogeneity.
-    A call's time is the median of ``samples`` CUDA-event timings; every
-    call is kept in ``calls`` and every prefill counted in ``prefills``."""
+    ``new > 1`` serves each request to ``new`` tokens instead (prefill and
+    ``new - 1`` decode steps).  A call's time is the median of ``samples``
+    CUDA-event timings; every call is kept in ``calls`` and every
+    ``generate`` (one prefill each) counted in ``prefills``."""
 
-    def __init__(self, cfg, model, repeats, prompt: int, chunks: int, *, samples: int = DISPATCH_SAMPLES, seed: int = 2):
+    def __init__(self, cfg, model, repeats, prompt: int, chunks: int, *, samples: int = DISPATCH_SAMPLES,
+                 seed: int = 2, new: int = 1):
         g = torch.Generator(device="cuda").manual_seed(seed)
         self.tokens = torch.randint(0, cfg.vocab_size, (chunks, prompt), generator=g, device="cuda")
         self.cfg, self.model, self.repeats, self.prompt, self.samples = cfg, model, list(repeats), prompt, samples
+        self.new = new
         self.prefills = 0
         self.calls = []
 
     def time_ms(self, x: int, repeats: int, samples: int) -> list:
-        eng = ServeEngine(self.cfg, self.model, batch=x, seq_budget=self.prompt + 1, device="cuda")
+        eng = ServeEngine(self.cfg, self.model, batch=x, seq_budget=self.prompt + self.new, device="cuda")
         toks = self.tokens[:x]
         ms = []
         for _ in range(samples):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(repeats):
-                eng.generate(toks, 1)
+                eng.generate(toks, self.new)
             end.record()
             end.synchronize()
             ms.append(start.elapsed_time(end))
@@ -2499,19 +2494,20 @@ def _launch_checks(counts: dict, prefills: int) -> dict:
     }
 
 
-def dispatch_dfpa(cfg, model) -> dict:
+def dispatch_dfpa(cfg, model, n: int = DISPATCH_N, samples: int = DISPATCH_SAMPLES, new: int = 1) -> dict:
     """Part (b): ``ReplicaDispatcher.balance`` over four real replicas
     (``PrefillReplicas``, r = [1, 2, 3, 4]), n = 192 chunks of 128 tokens,
     eps 0.1, the bank on the card.  Checks: converged; the final
     distribution measured 5 more times at median imbalance <= 2*eps;
     flash 8 and the scan 18 launches per prefill run, flash all
-    ``"wgmma"``."""
-    run = PrefillReplicas(cfg, model, DISPATCH_REPEATS, DISPATCH_PROMPT, DISPATCH_N)
+    ``"wgmma"``.  ``n``, ``samples`` and ``new`` (tokens a request is
+    served to) let ``tools/dispatch_probe.py`` run other configurations."""
+    run = PrefillReplicas(cfg, model, DISPATCH_REPEATS, DISPATCH_PROMPT, n, samples=samples, new=new)
     disp = ReplicaDispatcher(run, len(DISPATCH_REPEATS), eps=DISPATCH_EPS, device="cuda")
     torch.cuda.synchronize()
     _reset_serve_counts()
     t0 = time.perf_counter()
-    res = disp.balance(DISPATCH_N, min_units=1)
+    res = disp.balance(n, min_units=1)
     wall_s = time.perf_counter() - t0
     d = res.allocations
     remeasured = [[run(i, x) for i, x in enumerate(d)] for _ in range(DISPATCH_REMEASURE)]
@@ -2520,8 +2516,8 @@ def dispatch_dfpa(cfg, model) -> dict:
     median_imb = float(np.median(imbs))
     history = res.diagnostics["history"]
     return {
-        "replicas": len(DISPATCH_REPEATS), "repeats": DISPATCH_REPEATS, "n": DISPATCH_N, "prompt": DISPATCH_PROMPT,
-        "samples": DISPATCH_SAMPLES, "eps": DISPATCH_EPS, "converged": res.converged,
+        "replicas": len(DISPATCH_REPEATS), "repeats": DISPATCH_REPEATS, "n": n, "prompt": DISPATCH_PROMPT,
+        "samples": samples, "new_tokens": new, "eps": DISPATCH_EPS, "converged": res.converged,
         "iterations": res.iterations, "allocations": d, "final_imbalance": res.imbalance, "wall_s": wall_s,
         "rounds": [{"d": list(h[0]), "times_ms": [v * 1e3 for v in h[1]], "imbalance": imbalance(h[1])}
                    for h in history],
@@ -2529,6 +2525,7 @@ def dispatch_dfpa(cfg, model) -> dict:
         "remeasured_ms": [[v * 1e3 for v in t] for t in remeasured], "remeasured_imbalance": imbs,
         "remeasured_imbalance_median": median_imb, "prefills": run.prefills, "launches": counts,
         "calls": [{"i": i, "x": x, "ms": ms} for i, x, ms in run.calls],
+        "served": {DISPATCH_PROMPT: sorted({x for _, x, _ in run.calls})},
         "checks": {"converged": bool(res.converged), "remeasure_within_2eps": median_imb <= 2 * DISPATCH_EPS,
                    **_launch_checks(counts, run.prefills)},
     }
@@ -2581,6 +2578,7 @@ def dispatch_cycle(cfg, model) -> dict:
         "allocations": {nm: r.allocations for nm, r in res.items()},
         "round_wall_cost_ms": [log.wall_cost * 1e3 for log in disp.logs[:rounds]],
         "epochs": epochs, "prefills": prefills, "launches": counts,
+        "served": {r.prompt: sorted({x for _, x, _ in r.calls}) for r in runners.values()},
         "checks": {
             "allocations_sum_to_n": bool(sums_ok),
             "no_straggler_action": all(a == "none" for e in epochs for a in e["actions"]),
@@ -2588,6 +2586,54 @@ def dispatch_cycle(cfg, model) -> dict:
             **_launch_checks(counts, prefills),
         },
     }
+
+
+def dispatch_kernel_parity(cfg) -> list:
+    """Before parts (b) and (c): each kernel against its plain version at
+    ``DISPATCH_KERNEL_SHAPES`` — ``_flash_parity`` with the model's heads,
+    head_dim, window and scale, on the ``"wgmma"`` route, and
+    ``_rglru_parity`` at d_rnn with an initial state and the model's
+    near-1 decays.  Raises on a disagreement."""
+    kw = dict(causal=True, window=cfg.window, scale=cfg.query_scale)
+    rows = []
+    for B, S in DISPATCH_KERNEL_SHAPES:
+        before = flash_attention_cuda.launches_by_route["wgmma"]
+        flash_err = _flash_parity(B, cfg.num_heads, cfg.num_kv_heads, S, S, cfg.head_dim, kw, None, torch.bfloat16)
+        if flash_attention_cuda.launches_by_route["wgmma"] - before != 2:
+            raise SystemExit(f"chip_smoke: flash_attention at batch {B}, prompt {S} left the 'wgmma' route")
+        scan_err = _rglru_parity(B, S, cfg.d_rnn, None, None, True, decay=RGLRU_NEAR_ONE)
+        rows.append({"batch": B, "prompt": S, "flash_max_abs_err": flash_err, "rglru_max_abs_err": scan_err})
+    return rows
+
+
+def dispatch_captured_parity(cfg, model, served: dict) -> list:
+    """After parts (b) and (c), their counts read: for each prompt length,
+    one prefill at the smallest and the largest batch the parts served,
+    with the inputs of its last local and last recurrent layer captured,
+    and each kernel held against its plain version on them
+    (``_check_serve_flash``, on ``"wgmma"``; the scan at atol = rtol =
+    1e-5).  Raises on a disagreement."""
+    rows = []
+    for prompt, xs in sorted(served.items()):
+        for x in sorted({min(xs), max(xs)}):
+            g = torch.Generator(device="cuda").manual_seed(prompt + x)
+            toks = torch.randint(0, cfg.vocab_size, (x, prompt), generator=g, device="cuda")
+            eng = ServeEngine(cfg, model, batch=x, seq_budget=prompt + 1, device="cuda")
+            with _Capture() as cap:
+                eng.generate(toks, 1)
+            what = f"on a dispatch prefill's own inputs (batch {x}, prompt {prompt})"
+            q, k, v, kw = cap.seen["flash_attention"]
+            before = flash_attention_cuda.launches_by_route["wgmma"]
+            check = _check_serve_flash(flash_attention(q, k, v, impl="cuda", **kw), q, k, v, kw, what)
+            if flash_attention_cuda.launches_by_route["wgmma"] - before != 1:
+                raise SystemExit(f"chip_smoke: flash_attention {what} left the 'wgmma' route")
+            log_a, b, h0, kw = cap.seen["rglru_scan"]
+            ok, err = _close(rglru_scan(log_a, b, h0, impl="cuda", **kw), rglru_scan_ref(log_a, b, h0), 1e-5)
+            if not ok:
+                raise SystemExit(f"chip_smoke: rglru_scan disagrees with its plain version {what}")
+            rows.append({"batch": x, "prompt": prompt, "flash": check,
+                         "rglru": {"shape": list(log_a.shape), "h0": h0 is not None, "max_abs_err": err}})
+    return rows
 
 
 def dispatch_model():
@@ -2598,16 +2644,23 @@ def dispatch_model():
 
 
 def phase_dispatch() -> dict:
-    """(a) ``dispatch_parity_gate`` on the card; (b) ``dispatch_dfpa`` and
-    (c) ``dispatch_cycle`` over four full-width replicas.  Returns the
-    phase's flash / scan launches, by route."""
+    """(a) ``dispatch_parity_gate`` on the card; the kernels at the phase's
+    shapes (``dispatch_kernel_parity``); (b) ``dispatch_dfpa`` and (c)
+    ``dispatch_cycle`` over four full-width replicas; the kernels on the
+    inputs of prefills at the smallest and largest batches (b) and (c)
+    served (``dispatch_captured_parity``).  Returns (b) and (c)'s flash /
+    scan launches, by route."""
     t0 = time.perf_counter()
     row = dispatch_parity_gate("cuda")
     emit({"phase": "dispatch", "part": "a", "seconds": time.perf_counter() - t0, **row})
     failed = [f"a.{k}" for k, ok in row["checks"].items() if not ok]
     cfg, model = dispatch_model()
+    t0 = time.perf_counter()
+    emit({"phase": "dispatch", "part": "kernels", "rows": dispatch_kernel_parity(cfg),
+          "seconds": time.perf_counter() - t0})
     total = {"flash_attention": 0, "rglru_scan": 0,
              "flash_attention_by_route": dict.fromkeys(flash_attention_cuda.launches_by_route, 0)}
+    served = {}
     for part, fn in (("b", dispatch_dfpa), ("c", dispatch_cycle)):
         t0 = time.perf_counter()
         row = fn(cfg, model)
@@ -2618,6 +2671,11 @@ def phase_dispatch() -> dict:
         total["rglru_scan"] += counts["rglru_scan"]
         for r, v in counts["flash_attention_by_route"].items():
             total["flash_attention_by_route"][r] += v
+        for prompt, xs in row["served"].items():
+            served.setdefault(prompt, set()).update(xs)
+    t0 = time.perf_counter()
+    emit({"phase": "dispatch", "part": "captured", "rows": dispatch_captured_parity(cfg, model, served),
+          "seconds": time.perf_counter() - t0})
     del model
     torch.cuda.empty_cache()
     if failed:

@@ -36,7 +36,7 @@ from ..core.modelbank_torch import resolve_device
 from ..models.transformer import decode_step, init_lm, prefill
 from ..runtime.serve_loop import ReplicaDispatcher, ServeEngine
 
-__all__ = ["main"]
+__all__ = ["demo_replica_run", "main"]
 
 
 def main(argv=None):
@@ -83,10 +83,10 @@ def main(argv=None):
     return out
 
 
-def dispatch_demo(replicas: int, chunks: int, device) -> None:
-    """The reference's demo: heterogeneous replicas whose per-chunk cost
-    differs per replica and bends with load (the FPM speed function of
-    serving), balanced by DFPA."""
+def demo_replica_run(replicas: int, chunks: int):
+    """The reference demo's replicas: a per-chunk cost drawn per replica
+    from ``default_rng(0)``, growing x4 past a drawn capacity (the FPM
+    speed function of serving).  Returns ``replica_run(i, x)`` in seconds."""
     rng = np.random.default_rng(0)
     base = rng.uniform(2e-4, 8e-4, replicas)
     caps = rng.integers(chunks // 2, chunks, replicas)
@@ -97,7 +97,13 @@ def dispatch_demo(replicas: int, chunks: int, device) -> None:
             t += (x - caps[i]) * base[i] * 4.0
         return t
 
-    disp = ReplicaDispatcher(replica_run, replicas, eps=0.1, device=device)
+    return replica_run
+
+
+def dispatch_demo(replicas: int, chunks: int, device) -> None:
+    """The reference's demo: ``demo_replica_run``'s heterogeneous replicas
+    balanced by DFPA."""
+    disp = ReplicaDispatcher(demo_replica_run(replicas, chunks), replicas, eps=0.1, device=device)
     res = disp.balance(chunks)  # Partition, via the Scheduler facade
     print(
         f"DFPA dispatch over {replicas} replicas: d={res.allocations} "

@@ -342,15 +342,11 @@ def test_serving_dispatch_balances(backend):
     assert [_log_fields(a) for a in disp.logs] == [_log_fields(b) for b in ref.logs]
 
 
-def test_cli_replicas_prints_the_reference_dispatch_line(capsys):
-    from repro_torch.launch import serve
-
-    serve.main(["--smoke", "--device", "cpu", "--replicas", "4", "--chunks", "64"])
-    got = capsys.readouterr().out.strip().splitlines()[-1]
-
-    rng = np.random.default_rng(0)  # src/repro/launch/serve.py's demo
-    base = rng.uniform(2e-4, 8e-4, 4)
-    caps = rng.integers(64 // 2, 64, 4)
+def _reference_demo_run(p, chunks):
+    """src/repro/launch/serve.py's demo replicas, as written there."""
+    rng = np.random.default_rng(0)
+    base = rng.uniform(2e-4, 8e-4, p)
+    caps = rng.integers(chunks // 2, chunks, p)
 
     def replica_run(i, x):
         t = x * base[i]
@@ -358,7 +354,26 @@ def test_cli_replicas_prints_the_reference_dispatch_line(capsys):
             t += (x - caps[i]) * base[i] * 4.0
         return t
 
-    res = RefDispatcher(replica_run, 4, eps=0.1).balance(64)
+    return replica_run
+
+
+@pytest.mark.parametrize("p, chunks", [(4, 64), (8, 96), (3, 48)])
+def test_demo_replica_run_is_the_reference_demo(p, chunks):
+    from repro_torch.launch.serve import demo_replica_run
+
+    got, want = demo_replica_run(p, chunks), _reference_demo_run(p, chunks)
+    assert [got(i, x) for i in range(p) for x in range(2 * chunks + 1)] == [
+        want(i, x) for i in range(p) for x in range(2 * chunks + 1)
+    ]
+
+
+def test_cli_replicas_prints_the_reference_dispatch_line(capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--smoke", "--device", "cpu", "--replicas", "4", "--chunks", "64"])
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+
+    res = RefDispatcher(_reference_demo_run(4, 64), 4, eps=0.1).balance(64)
     want = (
         f"DFPA dispatch over 4 replicas: d={res.allocations} "
         f"iters={res.iterations} imb={res.imbalance:.3f} converged={res.converged}"

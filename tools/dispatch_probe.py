@@ -1,12 +1,12 @@
 """Probe the serving dispatch over real replicas on one NVIDIA H100.
 
-    python3 tools/dispatch_probe.py [--only sweep,runs] [--runs 20] [--stride 1]
-                                    [--out chiprun_out/dispatch_probe.jsonl]
+    python3 tools/dispatch_probe.py [--only sweep,runs,causes] [--runs 20] [--stride 1]
+                                    [--cause-runs 10] [--out chiprun_out/dispatch_probe.jsonl]
 
 Run on a machine with the card, from the root of a checkout.  It builds the
 kernels, makes recurrentgemma-2b at full width as ``chip_smoke.py``'s
 ``dispatch`` phase does (seed 0, one set of weights for every replica) and
-makes up to two measurements, each written as JSON lines to ``--out`` and
+makes up to three measurements, each written as JSON lines to ``--out`` and
 summed up on standard output:
 
 1. ``sweep`` — the time of one replica (r = 1) serving x chunks of 128
@@ -25,6 +25,15 @@ summed up on standard output:
    re-measured imbalance; for (c) every tenant's convergence and rounds,
    the steady epochs' straggler actions (false strikes) and their wall
    costs; each run's checks, and how many runs passed all of them.
+3. ``causes`` — part (b) in the configurations of ``CAUSES``, which change
+   one at a time what tells the three suspected causes of a dispatch that
+   does not converge apart: the number of chunks n (granularity), the
+   timings a call takes (a single timing), and how far a request is served
+   (prefill only, or 15 decode steps more: work whose time barely moves
+   with the batch).  Each runs ``--cause-runs`` times (decode
+   configurations ``DECODE_RUNS`` at most); a run passes when it converged
+   and its final distribution re-measured within 2 eps.  Not the default:
+   name it in ``--only``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,14 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 STEP_FRACTION = 0.03  # a step: t(x+s) - t(x) exceeds the line's s*c by this share of t
+CAUSES = {  # name: (n chunks, CUDA-event timings a call, tokens a request is served to)
+    "n64_single_prefill": (64, 1, 1),  # n = 64, one timing a call: the suspect configuration
+    "n64_median3_prefill": (64, 3, 1),
+    "n192_single_prefill": (192, 1, 1),
+    "n64_single_decode": (64, 1, 16),
+    "n192_median3_decode": (192, 3, 16),  # (b)'s n and timings, decode chunks
+}  # (b) itself, n = 192 with medians of 3 over prefill chunks, is what ``runs`` repeats
+DECODE_RUNS = {"n64_single_decode": 3, "n192_median3_decode": 1}
 
 
 def _smoke():
@@ -104,11 +121,35 @@ def probe_runs(smoke, cfg, model, write, runs: int) -> None:
     print(json.dumps({"probe": "runs", "runs": runs, "passed": passed}), flush=True)
 
 
+def probe_causes(smoke, cfg, model, write, runs: int) -> None:
+    eps = smoke.DISPATCH_EPS
+    for name, (n, samples, new) in CAUSES.items():
+        passed = converged = 0
+        k = min(runs, DECODE_RUNS.get(name, runs))
+        for i in range(k):
+            t0 = time.perf_counter()
+            b = smoke.dispatch_dfpa(cfg, model, n=n, samples=samples, new=new)
+            ok = bool(b["converged"]) and b["remeasured_imbalance_median"] <= 2 * eps
+            passed += ok
+            converged += bool(b["converged"])
+            write({"probe": "cause", "config": name, "run": i, "b": b})
+            print(json.dumps({
+                "probe": "cause", "config": name, "run": i, "passed": ok, "seconds": time.perf_counter() - t0,
+                "converged": b["converged"], "iterations": b["iterations"], "allocations": b["allocations"],
+                "final_imbalance": b["final_imbalance"],
+                "remeasured_imbalance_median": b["remeasured_imbalance_median"],
+                "rounds": [(r["d"], [round(v, 2) for v in r["times_ms"]]) for r in b["rounds"]],
+            }), flush=True)
+        print(json.dumps({"probe": "causes", "config": name, "n": n, "samples": samples, "new_tokens": new,
+                          "runs": k, "converged": converged, "passed": passed}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="sweep,runs")
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--stride", type=int, default=1)
+    ap.add_argument("--cause-runs", type=int, default=10)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "dispatch_probe.jsonl"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -130,6 +171,8 @@ def main() -> int:
                 probe_sweep(smoke, cfg, model, write, args.stride)
             elif name == "runs":
                 probe_runs(smoke, cfg, model, write, args.runs)
+            elif name == "causes":
+                probe_causes(smoke, cfg, model, write, args.cause_runs)
             else:
                 raise SystemExit(f"dispatch_probe: unknown probe {name!r}")
         print(json.dumps({"probe_seconds": time.perf_counter() - t0}), flush=True)
