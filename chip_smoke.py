@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs fifteen phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs sixteen phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -205,12 +205,37 @@ the first fault:
                       (``run_jobs``), ``straggler_actions`` and
                       ``observe``: every allocation sums to n, no straggler
                       action, each round's wall cost the busiest replica's
-                      sum, launches as in (b).
+                      sum, launches as in (b);
+ 16. ``decoders``   — the dense, MoE and MLA decoders (``DECODERS``, random
+                      weights, seed 0, each freed before the next): (a)
+                      gemma2-2b as published (26 layers, 2.6 B fp32
+                      parameters), batch 2, an 8,192-token prompt (past
+                      its local layers' window of 4,096) and 32 tokens;
+                      (b) granite-moe-1b-a400m as published (24 layers, 32
+                      experts, top-8), batch 4, 2,048 tokens, 16 new; (c)
+                      gemma2-27b, granite-20b and stablelm-12b at full
+                      width and 4 layers, deepseek-v2-236b at full width
+                      and 2 layers (its dense prefix layer and one MoE
+                      layer of 160 experts), batch 2, 1,024 tokens, 8 new.
+                      Each: one ``generate`` must launch ``flash_attention``
+                      once per attention layer, all on the model's route
+                      (``"wgmma"``; ``"rows"`` at stablelm's head_dim 160
+                      and MLA's 192), three give identical tokens,
+                      prefill + one decode step agree with the full
+                      forward (rel 0.05; MoE at capacity factor 8), and
+                      the kernel agrees with its plain version on the
+                      prefill's own inputs of the last local and global
+                      layer (as at the serve shape), timed beside it; then
+                      the kernel at gemma2-2b's prefill shape timed beside
+                      the plain version, SDPA (no softcap) and its bound;
+                      (d) the six smoke models in float32 give the CPU's
+                      tokens on the card.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, ``matmul_update``'s by phase, ``dfpa``,
 ``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``, and
-``flash_attention``'s and ``rglru_scan``'s, ``serve`` and ``dispatch``), the card's name and power limit
+``flash_attention``'s and ``rglru_scan``'s, ``serve``, ``dispatch`` and
+``decoders``; flash's row also carries ``decoders_timing``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -218,12 +243,14 @@ trace as data.
 
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import platform
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -267,9 +294,11 @@ from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglr
 from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda  # noqa: E402
 from repro_torch.launch import paper_tables  # noqa: E402
 from repro_torch.launch.matmul_grid import GRID_EPS, GRID_UNITS, MatmulGrid  # noqa: E402
-from repro_torch.launch.serve import demo_replica_run  # noqa: E402
+from repro_torch.launch.serve import demo_replica_run, kernels_for  # noqa: E402
 from repro_torch.obs import FlightRecorder, Telemetry, export_chrome_trace, use  # noqa: E402
 from repro_torch.obs.report import MetricsSnapshot  # noqa: E402
+from repro_torch.models import transformer as lm_module  # noqa: E402
+from repro_torch.models.moe import router_probs, top_k as moe_top_k  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     LanguageModel,
     apply_lm,
@@ -397,6 +426,25 @@ DISPATCH_EPOCHS = 3
 # the phase can give it, (batch, prompt): one chunk, the largest share seen
 # (r = 1), and every chunk of a tenant, at both prompt lengths
 DISPATCH_KERNEL_SHAPES = [(1, 128), (97, 128), (192, 128), (1, 512), (25, 512), (48, 512)]
+# the dense, MoE and MLA decoders at full width: (arch, layers (None: the
+# published depth), batch, prompt, new tokens, the route their prefill's
+# flash attention takes).  The last four do not fit the card in fp32 at
+# their published depth (108, 80, 48 and 944 GB), so they run cut to a few
+# layers (deepseek-v2: its dense prefix layer and one MoE layer).
+DECODERS = [
+    ("gemma2-2b", None, 2, 8192, 32, "wgmma"),
+    ("granite-moe-1b-a400m", None, 4, 2048, 16, "wgmma"),
+    ("gemma2-27b", 4, 2, 1024, 8, "wgmma"),
+    ("granite-20b", 4, 2, 1024, 8, "wgmma"),
+    ("stablelm-12b", 4, 2, 1024, 8, "rows"),
+    ("deepseek-v2-236b", 2, 2, 1024, 8, "rows"),
+]
+# the MoE capacity factor of the prefill + decode vs full forward check
+# (capacity drops depend on the sequence length; tests/test_models.py:87-91)
+DECODER_CHECK_CAPACITY = 8.0
+# ... and the least share of (token, choice) pairs routed alike there in
+# bfloat16 (tests/test_torch_decoders.py holds the port to the reference so)
+ROUTING_AGREEMENT = 0.99
 
 
 def emit(obj) -> None:
@@ -622,13 +670,16 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
     SERVE_FLASH_TOL.  The ``terms`` part covers rows that sum few keys
     whose values cancel (bf16 weights err relative to the terms, not to
     their sum); rows over many keys are held near atol.  The check's own
-    power: the plain version with its window one 64-key tile short of
-    ``min(window, Sk)`` (a kernel that drops a tile) must fail it.  Also
+    power: a plain version that drops one 64-key tile must fail it — with
+    a window, the window one tile short of ``min(window, Sk)``; without
+    (a global layer), the first tile of keys left out (a window short by
+    one tile would drop only the last rows' oldest keys, under atol at
+    Sk in the thousands).  Also
     reports, by query-row band, the kernel's and the plain version's
     largest error against attention in fp32 throughout."""
     atol, rtol = SERVE_FLASH_TOL
     kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
-    w = min(kw["window"], k.shape[2])
+    w = min(kw["window"] or k.shape[2], k.shape[2])  # window 0: every key
     exact, terms = _flash_fp32(q, k, v, **kw)
     got = got.float()
     want = flash_attention_ref(q, k, v, **kw).float()
@@ -648,12 +699,17 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
             }
     if not ok:
         raise SystemExit(f"chip_smoke: flash_attention disagrees with its plain version {what}: {bands}")
-    passed, fault_err = within(flash_attention_ref(q, k, v, **dict(kw, window=w - 64)))
+    if kw["window"]:
+        fault_name, fault = "window_one_tile_short", flash_attention_ref(q, k, v, **dict(kw, window=w - 64))
+    else:
+        fault_name, fault = "first_key_tile_dropped", flash_attention_ref(q, k[:, :, 64:], v[:, :, 64:], **kw)
+    passed, fault_err = within(fault)
+    del fault
     if passed:
-        raise SystemExit(f"chip_smoke: the flash check {what} cannot tell a window one tile short")
+        raise SystemExit(f"chip_smoke: the flash check {what} cannot tell a plain version with its {fault_name}")
     return {
         "max_abs_err": max_err, "tol": f"atol {atol} + rtol {rtol} (|want| + sqrt(sum w^2 v^2))",
-        "window_one_tile_short_max_abs_err": fault_err, "max_abs_err_vs_fp32": bands,
+        f"{fault_name}_max_abs_err": fault_err, "max_abs_err_vs_fp32": bands,
     }
 
 
@@ -761,33 +817,59 @@ def _flash_timing() -> dict:
     """flash_attention at the serve path's shape: B=4, H=10, Kv=1,
     Sq=Sk=4096, D=256, bf16, causal, window 2048, on the ``"wgmma"`` route."""
     cfg = get_config(SERVE_ARCH)
-    B, H, Kv, S, D, W = SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT, cfg.head_dim, cfg.window
-    kw = dict(causal=True, window=W, scale=cfg.query_scale)
-    q, k, v = _flash_operands(B, H, Kv, S, S, D, torch.bfloat16, seed=7)
-    got = flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw)
-    again = flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw)
-    check = _check_serve_flash(got, q, k, v, dict(kw, softcap=0.0), "at the serve shape")
-    if not torch.equal(got, again):
-        raise SystemExit("chip_smoke: two flash_attention launches at the serve shape differ")
-    del got, again
-    ms = _routes_timed(flash_attention_cuda, "wgmma", lambda: flash_attention_cuda(q, k, v, bq=None, bk=None, **kw), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 5)
-    pos = torch.arange(S, device="cuda")
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=kw["scale"], enable_gqa=True), 10)  # yardstick only
-    pairs = int(mask.sum())  # this run's visible (query, key) pairs per (b, h)
-    nbytes = 2 * (2 * B * H * S * D + 2 * B * Kv * S * D)  # q, k, v read once, o written once
-    bound_ms, bound_by = _bound_ms(4.0 * D * pairs * B * H, torch.bfloat16, nbytes)
-    row = {
-        "shape": [B, H, Kv, S, S, D], "dtype": "bfloat16", "window": W, "visible_pairs_per_head": pairs,
-        **check, "repeat_bit_identical": True, "route": "wgmma", "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
-        "library": "scaled_dot_product_attention(bool mask, enable_gqa=True)",
-        "bound_ms": bound_ms, "bound_by": bound_by, "tflops": 4.0 * D * pairs * B * H / (ms * 1e-3) / 1e12,
-    }
+    kw = dict(causal=True, window=cfg.window, softcap=0.0, scale=cfg.query_scale)
+    row = _flash_timing_at(SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT, cfg.head_dim, kw,
+                           "wgmma", "at the serve shape", seed=7)
     emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
     return row
+
+
+def _visible_mask(S: int, window: int):
+    pos = torch.arange(S, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def _flash_bound(B, H, Kv, S, D, window) -> tuple:
+    """(bound ms, bound_by, visible pairs a head) of causal self-attention
+    at this shape in bf16: q, k, v read once, o written once; 4 D
+    operations a visible (query, key) pair."""
+    pairs = int(_visible_mask(S, window).sum())
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * Kv * S * D)
+    return (*_bound_ms(4.0 * D * pairs * B * H, torch.bfloat16, nbytes), pairs)
+
+
+def _flash_timing_at(B, H, Kv, S, D, kw, route, what, seed) -> dict:
+    """flash_attention on random bf16 operands at one causal self-attention
+    shape: checked against its plain version (``_check_serve_flash``), two
+    launches bit-identical, then timed on ``route`` beside the plain
+    version and ``scaled_dot_product_attention`` with the same bool mask
+    (which takes no softcap: with ``softcap`` set, the library call
+    computes attention without it)."""
+    q, k, v = _flash_operands(B, H, Kv, S, S, D, torch.bfloat16, seed=seed)
+    got = flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw)
+    again = flash_attention(q, k, v, impl="cuda", bq=None, bk=None, **kw)
+    check = _check_serve_flash(got, q, k, v, kw, what)
+    if not torch.equal(got, again):
+        raise SystemExit(f"chip_smoke: two flash_attention launches {what} differ")
+    del got, again
+    ms = _routes_timed(flash_attention_cuda, route, lambda: flash_attention_cuda(q, k, v, bq=None, bk=None, **kw), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 5)
+    mask = _visible_mask(S, kw["window"])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=kw["scale"], enable_gqa=True), 10)  # yardstick only
+    del mask
+    bound_ms, bound_by, pairs = _flash_bound(B, H, Kv, S, D, kw["window"])
+    return {
+        "shape": [B, H, Kv, S, S, D], "dtype": "bfloat16", "window": kw["window"], "softcap": kw["softcap"],
+        "visible_pairs_per_head": pairs, **check, "repeat_bit_identical": True, "route": route, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "scaled_dot_product_attention(bool mask, enable_gqa=True)"
+                   + (", no softcap" if kw["softcap"] > 0 else ""),
+        "bound_ms": bound_ms, "bound_by": bound_by, "tflops": 4.0 * D * pairs * B * H / (ms * 1e-3) / 1e12,
+    }
 
 
 def _rglru_timing() -> dict:
@@ -1082,10 +1164,12 @@ def _rel(got, want) -> float:
 class _Capture:
     """Records the inputs of the last ``ops.flash_attention`` and
     ``ops.rglru_scan`` call (the model calls them through ``ops``) while
-    active, and passes every call on unchanged."""
+    active, and passes every call on unchanged.  ``flash_by_window`` keeps
+    the last flash call of each window (0: a global layer's)."""
 
     def __init__(self):
         self.seen = {}
+        self.flash_by_window = {}
         self._orig = (ops.flash_attention, ops.rglru_scan)
 
     def __enter__(self):
@@ -1093,6 +1177,7 @@ class _Capture:
 
         def flash(q, k, v, **kw):
             self.seen["flash_attention"] = (q.clone(), k.clone(), v.clone(), kw)
+            self.flash_by_window[kw.get("window", 0)] = self.seen["flash_attention"]
             return fa(q, k, v, **kw)
 
         def scan(log_a, b, h0=None, **kw):
@@ -1105,6 +1190,16 @@ class _Capture:
     def __exit__(self, *exc):
         ops.flash_attention, ops.rglru_scan = self._orig
         return False
+
+
+def _timed_generate(eng, prompt, new) -> tuple:
+    """(tokens, ms): one ``generate`` timed with CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    toks = eng.generate(prompt, new)
+    end.record()
+    end.synchronize()
+    return toks, start.elapsed_time(end)
 
 
 def _serve_full(out: dict) -> dict:
@@ -1121,20 +1216,12 @@ def _serve_full(out: dict) -> dict:
     seq = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1), generator=gp, device="cuda")
     prompt = seq[:, :SERVE_PROMPT]
 
-    def timed_generate(new):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        toks = eng.generate(prompt, new)
-        end.record()
-        end.synchronize()
-        return toks, start.elapsed_time(end)
-
     # the main path: one generate, the kernels' counts read around it
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = rglru_scan_cuda.launches = matmul_update_cuda.launches = 0
     flash_attention_cuda.launches_by_route = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
-    tokens, ms = timed_generate(SERVE_NEW)
+    tokens, ms = _timed_generate(eng, prompt, SERVE_NEW)
     launches = {
         "flash_attention": flash_attention_cuda.launches, "rglru_scan": rglru_scan_cuda.launches,
         "matmul_update": matmul_update_cuda.launches,
@@ -1146,13 +1233,13 @@ def _serve_full(out: dict) -> dict:
     # a decode step's time is the difference over the other new tokens
     gen_ms = [ms]
     for _ in range(2):
-        again, ms = timed_generate(SERVE_NEW)
+        again, ms = _timed_generate(eng, prompt, SERVE_NEW)
         gen_ms.append(ms)
         if not torch.equal(again, tokens):
             raise SystemExit("chip_smoke: two generate calls gave different tokens")
     prefill_ms = []
     for _ in range(3):
-        first, ms = timed_generate(1)
+        first, ms = _timed_generate(eng, prompt, 1)
         prefill_ms.append(ms)
         if not torch.equal(first[:, 0], tokens[:, 0]):
             raise SystemExit("chip_smoke: generate of one token differs from the first of 32")
@@ -1197,21 +1284,24 @@ def _serve_full(out: dict) -> dict:
     return out
 
 
-def _serve_smoke(out: dict) -> None:
+def _serve_smoke(out: dict, arch: str = SERVE_ARCH) -> dict:
     """The smoke-width model in float32: the card (kernels) gives the CPU's
-    tokens (plain versions), logits within rel 1e-4."""
+    tokens (plain versions), logits within rel 1e-4, and each kernel the
+    architecture serves with launched at least once."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out["tf32"] = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
-    cfg = get_smoke_config(SERVE_ARCH).replace(dtype=torch.float32)
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
     cpu_model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
     gpu_model = LanguageModel.from_state_dict(cfg, {n: t.to("cuda") for n, t in cpu_model.state_dict().items()})
     prompt = torch.randint(0, cfg.vocab_size, (SMOKE_BATCH, SMOKE_PROMPT), generator=torch.Generator().manual_seed(1))
     budget = SMOKE_PROMPT + SMOKE_NEW
     want = ServeEngine(cfg, cpu_model, batch=SMOKE_BATCH, seq_budget=budget, device="cpu").generate(prompt, SMOKE_NEW)
-    before = (flash_attention_cuda.launches, rglru_scan_cuda.launches)
+    wrappers = {"flash_attention": flash_attention_cuda, "rglru_scan": rglru_scan_cuda}
+    kernels = kernels_for(cfg)
+    before = [wrappers[name].launches for name in kernels]
     got = ServeEngine(cfg, gpu_model, batch=SMOKE_BATCH, seq_budget=budget, device="cuda").generate(prompt, SMOKE_NEW)
-    launched = (flash_attention_cuda.launches - before[0], rglru_scan_cuda.launches - before[1])
+    launched = {name: wrappers[name].launches - b for name, b in zip(kernels, before)}
     with torch.inference_mode():
         rels = []
         for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
@@ -1220,11 +1310,12 @@ def _serve_smoke(out: dict) -> None:
             rels.append(lm_logits(model, cfg, hid).cpu())
     rel = _rel(rels[1], rels[0])
     out["smoke"] = {
-        "tokens_equal": bool(torch.equal(got.cpu(), want)), "logits_rel": rel,
-        "launches_flash_rglru": list(launched), "tokens": got[0].tolist(),
+        "arch": cfg.name, "tokens_equal": bool(torch.equal(got.cpu(), want)), "logits_rel": rel,
+        "launches": launched, "tokens": got[0].tolist(),
     }
-    if not out["smoke"]["tokens_equal"] or not rel < 1e-4 or min(launched) < 1:
+    if not out["smoke"]["tokens_equal"] or not rel < 1e-4 or min(launched.values()) < 1:
         raise SystemExit(f"chip_smoke: the smoke model on the card differs from the CPU: {out['smoke']}")
+    return out["smoke"]
 
 
 def phase_serve() -> dict:
@@ -2682,6 +2773,226 @@ def phase_dispatch() -> dict:
         raise SystemExit(f"chip_smoke: the dispatch phase failed {failed}")
     return total
 
+# ---------------------------------------------------------------------------
+
+
+def _captured_flash(q, k, v, kw, route, what) -> dict:
+    """The kernel on one prefill layer's own attention inputs: against its
+    plain version (``_check_serve_flash``), on ``route``, timed beside the
+    plain version, with its bound."""
+    before = dict(flash_attention_cuda.launches_by_route)
+    check = _check_serve_flash(flash_attention(q, k, v, impl="cuda", **kw), q, k, v, kw, what)
+    routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    if routes != {r: int(r == route) for r in routes}:
+        raise SystemExit(f"chip_smoke: flash_attention {what} went {routes}, not {route!r}")
+    ms = _routes_timed(flash_attention_cuda, route, lambda: flash_attention_cuda(q, k, v, **kw), 10)
+    plain_kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **plain_kw), 3)
+    B, H, S, D = q.shape
+    bound_ms, bound_by, pairs = _flash_bound(B, H, k.shape[1], S, D, kw["window"])
+    return {"shape": [B, H, k.shape[1], S, S, D], "window": kw["window"], "softcap": kw["softcap"],
+            "route": route, **check, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "visible_pairs_per_head": pairs}
+
+
+def _routes_of(fn) -> tuple:
+    """Run ``fn``; return its result and the expert choices ``(B, S, k)``
+    of every MoE layer it ran, in call order."""
+    seen, orig = [], lm_module.apply_moe
+
+    def recording(p, c, x):
+        seen.append(moe_top_k(router_probs(p, x), c.top_k)[1])
+        return orig(p, c, x)
+
+    lm_module.apply_moe = recording
+    try:
+        return fn(), seen
+    finally:
+        lm_module.apply_moe = orig
+
+
+def _decode_vs_full(model, cfg, seq) -> dict:
+    """Prefill of ``seq[:, :-1]`` + one decode step against the full
+    forward over ``seq``: the last position's logits (rel), and for MoE the
+    share of (token, choice) pairs whose expert is the same in both, with
+    the last token's flips by layer."""
+    B, S = seq.shape
+
+    def full():
+        hid, _, aux = apply_lm(model, cfg, seq, torch.arange(S, device="cuda"))
+        return lm_logits(model, cfg, hid[:, -1]), float(aux)
+
+    def cached():
+        caches = init_cache(cfg, B, S, cfg.dtype, "cuda")
+        _, caches = prefill(model, cfg, seq[:, :-1], caches)
+        return decode_step(model, cfg, seq[:, -1:], S - 1, caches)[0]
+
+    (want, aux), full_routes = _routes_of(full)
+    got, cached_routes = _routes_of(cached)
+    row = {"rel": _rel(got, want), "rel_by_sequence": [_rel(got[b], want[b]) for b in range(B)],
+           "finite": bool(torch.isfinite(want).all() and torch.isfinite(got).all()), "aux_loss_full": aux,
+           "capacity_factor": cfg.capacity_factor if cfg.is_moe else None}
+    if full_routes:
+        n = len(full_routes)
+        whole = [torch.cat([p, d], dim=1) for p, d in zip(cached_routes[:n], cached_routes[n:])]
+        # a pair flips when its expert is not among the other computation's choices
+        flips = [~(f[..., :, None] == w[..., None, :]).any(-1) for f, w in zip(full_routes, whole)]
+        pairs = sum(f.numel() for f in flips)
+        row.update({
+            "pairs": pairs, "pairs_flipped": sum(int(f.sum()) for f in flips),
+            "prompt_pairs_flipped": sum(int(f[:, :-1].sum()) for f in flips),
+            "last_token_pairs_flipped_by_layer": [int(f[:, -1].sum()) for f in flips],
+        })
+        row["routing_agreement"] = 1.0 - row["pairs_flipped"] / pairs
+    return row
+
+
+def decoder_full(out: dict, arch: str, layers, batch: int, prompt_len: int, new: int, route: str) -> dict:
+    """One decoder at full width (``layers`` cut, or the published depth)
+    served by ``ServeEngine.generate`` on the card, random weights (seed
+    0).  Gates: one ``generate`` launches ``flash_attention`` once per
+    attention layer, all on ``route``; three ``generate`` calls give
+    identical tokens; prefill + one decode step agree with the full forward
+    over ``prompt_len + 1`` tokens (rel 0.05; MoE at capacity factor
+    ``DECODER_CHECK_CAPACITY``); the kernel agrees with its plain version
+    on the prefill's own inputs of the last local and the last global
+    layer.  For MoE, prefill + decode must route at least
+    ``ROUTING_AGREEMENT`` of the (token, choice) pairs as the full forward
+    does in bfloat16 (near ties flip there: the decode step's plain
+    attention rounds apart from the kernel's), and the logits are held in
+    float32, where no pair flips.  Times from CUDA events: prefill is a ``generate`` of one token,
+    a decode step the rest of one of ``new`` tokens over ``new - 1``.  The
+    model must be freed at the end (the card's allocated bytes back within
+    256 MiB of where they started).  Fills ``out`` as it goes (the caller prints it, also after a failed
+    gate)."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    out.update({"arch": arch, "layers": cfg.num_layers, "published_layers": get_config(arch).num_layers,
+                "batch": batch, "prompt": prompt_len, "new_tokens": new})
+    out["allocated_before_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    eng = ServeEngine(cfg, model, batch=batch, seq_budget=prompt_len + new, device="cuda")
+    gp = torch.Generator(device="cuda").manual_seed(1)
+    seq = torch.randint(0, cfg.vocab_size, (batch, prompt_len + 1), generator=gp, device="cuda")
+    prompt = seq[:, :prompt_len]
+    attn_layers = sum(k in ("attn", "local") for k in cfg.layer_kinds())
+
+    # the main path: one generate, the counts set to 0 just before it and read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_serve_counts()
+    tokens, ms = _timed_generate(eng, prompt, new)
+    counts = _serve_counts()
+    out["launches"] = counts
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if counts["flash_attention"] != attn_layers or counts["flash_attention_by_route"][route] != attn_layers:
+        raise SystemExit(f"chip_smoke: one {arch} generate launched {counts}, expected {attn_layers} flash on {route!r}")
+    if counts["rglru_scan"]:
+        raise SystemExit(f"chip_smoke: {arch} launched rglru_scan {counts['rglru_scan']} times")
+    gen_ms = [ms]
+    for _ in range(2):
+        again, ms = _timed_generate(eng, prompt, new)
+        gen_ms.append(ms)
+        if not torch.equal(again, tokens):
+            raise SystemExit(f"chip_smoke: two {arch} generate calls gave different tokens")
+    prefill_ms = []
+    for _ in range(3):
+        first, ms = _timed_generate(eng, prompt, 1)
+        prefill_ms.append(ms)
+        if not torch.equal(first[:, 0], tokens[:, 0]):
+            raise SystemExit(f"chip_smoke: {arch} generate of one token differs from the first of {new}")
+    out["generate_ms_runs"], out["prefill_ms_runs"] = gen_ms, prefill_ms
+    out["prefill_ms"] = float(np.median(prefill_ms))
+    out["decode_ms_per_token"] = (float(np.median(gen_ms)) - out["prefill_ms"]) / (new - 1)
+    out["tok_per_s"] = batch * new / (float(np.median(gen_ms)) / 1e3)
+    out["prefill_tok_per_s"] = batch * prompt_len / (out["prefill_ms"] / 1e3)
+    out["decode_tok_per_s"] = batch / (out["decode_ms_per_token"] / 1e3)
+    out["tokens_identical"] = True
+    out["sample"] = tokens[0, :8].tolist()
+
+    with torch.inference_mode():
+        ccfg = cfg.replace(capacity_factor=DECODER_CHECK_CAPACITY) if cfg.is_moe else cfg
+        dtypes = (cfg.dtype, torch.float32) if cfg.is_moe else (cfg.dtype,)
+        out["decode_vs_full"] = {_dtype_name(d): _decode_vs_full(model, ccfg.replace(dtype=d), seq) for d in dtypes}
+        for name, row in out["decode_vs_full"].items():
+            if not row["finite"]:
+                raise SystemExit(f"chip_smoke: {arch} full forward in {name} is not finite")
+        main = out["decode_vs_full"][_dtype_name(cfg.dtype)]
+        if cfg.is_moe:
+            # bf16 router near ties flip between the two computations (the
+            # decode step's plain attention rounds apart from the kernel's):
+            # hold the routing to ROUTING_AGREEMENT there and the logits in
+            # float32, where nothing flips
+            gated = out["decode_vs_full"]["float32"]
+            if not main["routing_agreement"] >= ROUTING_AGREEMENT:
+                raise SystemExit(f"chip_smoke: {arch} prefill + decode routes {main['routing_agreement']} of pairs "
+                                 f"as the full forward does, below {ROUTING_AGREEMENT}")
+        else:
+            gated = main
+        if not gated["rel"] < 0.05:
+            raise SystemExit(f"chip_smoke: {arch} prefill + decode differs from the full forward ({out['decode_vs_full']})")
+
+        # the kernel on the inputs of the main path's prefill (the last
+        # local and the last global layer)
+        with _Capture() as cap:
+            prefill(model, cfg, prompt, eng.new_cache())
+        out["captured_flash"] = {}
+        for window, (q, k, v, kw) in sorted(cap.flash_by_window.items()):
+            kind = "local" if window else "global"
+            out["captured_flash"][kind] = _captured_flash(
+                q, k, v, kw, route, f"on the {arch} prefill's own inputs ({kind} layer)")
+        del cap, q, k, v
+    model_ref = weakref.ref(model)
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_after_free_bytes"] = torch.cuda.memory_allocated()
+    if model_ref() is not None or out["allocated_after_free_bytes"] > out["allocated_before_bytes"] + 2**28:
+        held_by = [type(r).__name__ for r in gc.get_referrers(model_ref())] if model_ref() is not None else []
+        raise SystemExit(f"chip_smoke: {arch}'s model outlived its part: {out['allocated_after_free_bytes']} bytes "
+                         f"allocated after it, {out['allocated_before_bytes']} before; held by {held_by}")
+    return out
+
+
+def phase_decoders() -> tuple:
+    """(a) gemma2-2b and (b) granite-moe-1b-a400m at their published width
+    and depth, (c) gemma2-27b, granite-20b, stablelm-12b and
+    deepseek-v2-236b at full width and reduced depth (``DECODERS``), each
+    through ``decoder_full`` and freed before the next; the kernel at
+    gemma2-2b's prefill shape (random operands) timed beside the plain
+    version, SDPA and its bound; (d) all six at smoke widths in float32,
+    the card's tokens equal to the CPU's.  Returns (the flash launches of
+    the timed ``generate`` calls of (a)-(c), by route; the timing row)."""
+    # the dispatch phase's replicas keep its model through reference
+    # cycles until a collection: free it before the first part measures
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
+    for arch, layers, batch, prompt_len, new, route in DECODERS:
+        t0 = time.perf_counter()
+        row = {"phase": "decoders", "part": "full"}
+        try:
+            decoder_full(row, arch, layers, batch, prompt_len, new, route)
+        finally:
+            row["seconds"] = time.perf_counter() - t0
+            emit(row)
+        for r, n in row["launches"]["flash_attention_by_route"].items():
+            launches[r] += n
+    cfg = get_config("gemma2-2b")
+    kw = dict(causal=True, window=cfg.window, softcap=cfg.attn_softcap, scale=cfg.query_scale)
+    timing = _flash_timing_at(DECODERS[0][2], cfg.num_heads, cfg.num_kv_heads, DECODERS[0][3], cfg.head_dim, kw,
+                              "wgmma", "at gemma2-2b's prefill shape", seed=11)
+    emit({"phase": "decoders", "part": "flash_timing", "kernel": "flash_attention", "timing": timing})
+    for arch, *_ in DECODERS:
+        emit({"phase": "decoders", "part": "smoke", **_serve_smoke({}, arch)})
+    return launches, timing
+
 
 def main() -> int:
     seconds = {}
@@ -2708,12 +3019,15 @@ def main() -> int:
     straggler_launches, straggler_routes = run("straggler", phase_straggler)
     fleet_launches, fleet_routes = run("fleet", phase_fleet)
     dispatch = run("dispatch", phase_dispatch)
+    decoder_routes, decoder_timing = run("decoders", phase_decoders)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
                 "straggler": straggler_launches, "fleet": fleet_launches}
     by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
     serve_by_phase = {k: {"serve": serve["launches"][k], "dispatch": dispatch[k]} for k in SERVE_LAUNCHES}
+    serve_by_phase["flash_attention"]["decoders"] = sum(decoder_routes.values())
+    serve_by_phase["rglru_scan"]["decoders"] = 0
     launches = {"matmul_update": sum(by_phase.values()), **{k: sum(v.values()) for k, v in serve_by_phase.items()}}
-    flash_routes = {r: v + dispatch["flash_attention_by_route"][r]
+    flash_routes = {r: v + dispatch["flash_attention_by_route"][r] + decoder_routes[r]
                     for r, v in serve["launches_by_route"]["flash_attention"].items()}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},
@@ -2732,6 +3046,7 @@ def main() -> int:
         "shape": row["shape"], "dtype": row["dtype"],
         **({"launches_by_route": routes[name], "kernel_route": row["route"]} if name in routes else {}),
         "launches_by_phase": by_phase if name == "matmul_update" else serve_by_phase[name],
+        **({"decoders_timing": decoder_timing} if name == "flash_attention" else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 The registry names every architecture the reference assigns (``ARCH_IDS``)
 and its input-shape set (``SHAPES``).  A config comes to the port with the
-slice that runs it: so far only ``recurrentgemma-2b``.  Asking for any
-other architecture raises ``NotImplementedError`` (ROADMAP queue 1,
-item 10: what remains of the LLM stack).
+slice that runs it: so far the dense decoders (gemma2-2b, gemma2-27b,
+granite-20b, stablelm-12b), the MoE and MLA decoders (granite-moe-1b-a400m,
+deepseek-v2-236b) and the hybrid recurrentgemma-2b.  Asking for any other
+architecture raises ``NotImplementedError`` (ROADMAP queue 1, item 10:
+what remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -36,7 +38,15 @@ ARCH_IDS = [
     "xlstm-350m",
 ]
 
-PORTED = ("recurrentgemma-2b",)
+PORTED = (
+    "granite-20b",
+    "gemma2-2b",
+    "stablelm-12b",
+    "gemma2-27b",
+    "deepseek-v2-236b",
+    "granite-moe-1b-a400m",
+    "recurrentgemma-2b",
+)
 
 
 @dataclass(frozen=True)

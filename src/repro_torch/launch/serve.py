@@ -1,11 +1,18 @@
 """Serving CLI: batched prefill + greedy decode, and DFPA-balanced replica
 dispatch.
 
-    python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch gemma2-2b --batch 2 \\
+        --prompt-len 8192 --new-tokens 32          # full width, on the card
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 4 \\
-        --prompt-len 4096 --new-tokens 32          # full width, on the card
+        --prompt-len 4096 --new-tokens 32
     python -m repro_torch.launch.serve --smoke --replicas 4 --chunks 64
         # DFPA dispatch demo across emulated replicas, bank on --device
+
+``--arch`` defaults to gemma2-2b, as in the reference.  Every decoder the
+port serves is a choice: the dense gemma2-2b, gemma2-27b, granite-20b and
+stablelm-12b, the MoE granite-moe-1b-a400m and deepseek-v2-236b (MLA), and
+the hybrid recurrentgemma-2b; the rest raise ``NotImplementedError``.
 
 Weights are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; the prompt's tokens from another, seeded with ``--seed + 1``.
@@ -36,12 +43,19 @@ from ..core.modelbank_torch import resolve_device
 from ..models.transformer import decode_step, init_lm, prefill
 from ..runtime.serve_loop import ReplicaDispatcher, ServeEngine
 
-__all__ = ["demo_replica_run", "main"]
+__all__ = ["demo_replica_run", "kernels_for", "main"]
+
+
+def kernels_for(cfg) -> list:
+    """The CUDA kernels the architecture's serving path launches: flash
+    attention for attention layers, the RG-LRU scan for recurrent ones."""
+    kinds = set(cfg.layer_kinds())
+    return [name for name, used in (("flash_attention", kinds & {"attn", "local"}), ("rglru_scan", "rec" in kinds)) if used]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="gemma2-2b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -62,7 +76,7 @@ def main(argv=None):
     toks = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=g, device=device)
 
     if device.type == "cuda":
-        _build.build(["flash_attention", "rglru_scan"])  # the kernels' build is set-up, not serving
+        _build.build(kernels_for(cfg))  # the kernels' build is set-up, not serving
         eng.generate(toks, args.new_tokens)  # warm-up, untimed
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -74,7 +88,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         out = eng.generate(toks, args.new_tokens)
         dt, clock = time.perf_counter() - t0, "host clock"
-    print(f"generated {tuple(out.shape)} in {dt:.3f}s ({args.batch * args.new_tokens / dt:.1f} tok/s, {clock})")
+    print(f"{cfg.name}: generated {tuple(out.shape)} in {dt:.3f}s ({args.batch * args.new_tokens / dt:.1f} tok/s, {clock})")
     print("sample:", out[0][:12].tolist())
     if args.profile:
         profile_serving(eng, toks)

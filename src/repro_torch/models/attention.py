@@ -1,25 +1,34 @@
-"""Attention: GQA/MQA self-attention, global and sliding-window.
+"""Attention: GQA/MQA self-attention (global and sliding-window) and MLA
+(deepseek-v2).
 
 The port's copy of the reference's ``models/attention.py`` for the kinds
 ``attn`` and ``local``.  Cache convention (per attention layer):
-``{"k": (B, S_buf, Kv, hd), "v": (B, S_buf, Kv, hd), "pos": (S_buf,)
-absolute positions, -1 = empty}``, with ``S_buf = min(seq_budget, window)``
-for local layers (a ring buffer) and the full budget otherwise.  Decode
-writes at ``position % S_buf``; masks come from the stored positions, so
-ring wraparound needs no special case.
+
+  * GQA: ``{"k": (B, S_buf, Kv, hd), "v": (B, S_buf, Kv, hd), "pos":
+    (S_buf,) absolute positions, -1 = empty}``;
+  * MLA: ``{"ckv": (B, S_buf, kv_lora), "kr": (B, S_buf, rope_hd), "pos":
+    (S_buf,)}``,
+
+with ``S_buf = min(seq_budget, window)`` for local layers (a ring buffer)
+and the full budget otherwise.  Decode writes at ``position % S_buf``;
+masks come from the stored positions, so ring wraparound needs no special
+case.  As in the reference, a global layer's buffer wraps the same way
+once the prompt and the new tokens run past the budget: the oldest
+positions are overwritten and no longer seen.
 
 Where the kernels run: full-sequence attention (no cache, and prefill)
 calls ``kernels.ops.flash_attention`` — the hand-written kernel on the card,
 its plain version on the CPU — for both of the reference's branches (its
 ``_sdpa`` below ``attn_chunk_threshold`` and ``_sdpa_chunked`` above, which
-compute the same function).  The ring-buffer writes and decode (one query
-over the buffer, masked by the stored positions) stay plain torch, as in
-the reference, where no Pallas kernel covers them.
+compute the same function), MLA's prefill among them.  The ring-buffer
+writes and decode (one query over the buffer, masked by the stored
+positions; MLA's absorbed decode) stay plain torch, as in the reference,
+where no Pallas kernel covers them.
 
 Unlike the reference's functional updates, prefill and decode write the
 given cache's tensors in place and return them (no copy of the cache per
-step).  Cross-attention, MLA and the reference's chunked path as a code
-path of its own come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
+step).  Cross-attention comes later (ROADMAP queue 1, item 10: what
+remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from ..nn.params import ParamSpec
 from .config import ModelConfig
 from .layers import rope, softcap
 
-__all__ = ["attn_spec", "apply_attn", "init_attn_cache"]
+__all__ = ["attn_spec", "mla_spec", "apply_attn", "apply_mla", "init_attn_cache", "init_mla_cache"]
 
 NEG_INF = -2.0e38
 
@@ -54,6 +63,23 @@ def attn_spec(cfg: ModelConfig) -> Dict:
     }
 
 
+def mla_spec(cfg: ModelConfig) -> Dict:
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rhd, vhd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "wdq": ParamSpec((d, qr), ("embed", "lora")),
+        "q_norm": {"scale": ParamSpec((qr,), ("lora",), init="ones")},
+        "wuq": ParamSpec((qr, H, nope + rhd), ("lora", "heads", "head_dim")),
+        "wdkv": ParamSpec((d, kvr), ("embed", "lora")),
+        "kv_norm": {"scale": ParamSpec((kvr,), ("lora",), init="ones")},
+        "wuk": ParamSpec((kvr, H, nope), ("lora", "heads", "head_dim")),
+        "wuv": ParamSpec((kvr, H, vhd), ("lora", "heads", "head_dim")),
+        "wkr": ParamSpec((d, rhd), ("embed", "head_dim")),
+        "wo": ParamSpec((H, vhd, d), ("heads", "head_dim", "embed")),
+    }
+
+
 def _buf_len(cfg: ModelConfig, kind: str, seq_budget: int) -> int:
     if kind == "local" and cfg.window > 0:
         return min(seq_budget, cfg.window)
@@ -68,6 +94,41 @@ def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, seq_budget: int, dt
         "v": torch.zeros((batch, S, Kv, hd), dtype=dtype, device=device),
         "pos": torch.full((S,), -1, dtype=torch.int64, device=device),
     }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq_budget: int, dtype, device) -> Dict:
+    return {
+        "ckv": torch.zeros((batch, seq_budget, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "kr": torch.zeros((batch, seq_budget, cfg.rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.full((seq_budget,), -1, dtype=torch.int64, device=device),
+    }
+
+
+def _store(cache: Dict, entries: Dict[str, torch.Tensor], positions: torch.Tensor) -> None:
+    """Prefill's write: the last ``S_buf`` positions of ``entries`` (each
+    ``(B, S, ...)``) into the cache's (ring) buffers, in place."""
+    S, S_buf = positions.shape[0], cache["pos"].shape[0]
+    if S == S_buf:
+        for name, t in entries.items():
+            cache[name].copy_(t)
+        cache["pos"].copy_(positions)
+        return
+    keep = min(S, S_buf)
+    slot = positions[-keep:] % S_buf
+    for name, t in entries.items():
+        cache[name].index_copy_(1, slot, t[:, -keep:])
+    cache["pos"].index_copy_(0, slot, positions[-keep:].to(cache["pos"].dtype))
+
+
+def _store_one(cache: Dict, entries: Dict[str, torch.Tensor], positions: torch.Tensor) -> torch.Tensor:
+    """Decode's write of one position at ``position % S_buf``, in place;
+    returns the position (a 0-d tensor)."""
+    pos = positions[0]
+    slot = (pos % cache["pos"].shape[0]).reshape(1)
+    for name, t in entries.items():
+        cache[name].index_copy_(1, slot, t)
+    cache["pos"].index_copy_(0, slot, positions.to(cache["pos"].dtype))
+    return pos
 
 
 # ---------------------------------------------------------------------------
@@ -172,32 +233,99 @@ def apply_attn(
     if cache is None:
         return _out(full_attn(q, k, v), params["wo"].to(dtype)), None
 
-    S_buf = cache["k"].shape[1]
     if not decode:
         # Prefill: attend over the in-flight sequence, then store the last
         # S_buf positions into the (ring) buffer.
         out = full_attn(q, k, v)
-        keep = min(S, S_buf)
-        if S == S_buf:
-            cache["k"].copy_(k)
-            cache["v"].copy_(v)
-            cache["pos"].copy_(positions)
-        else:
-            slot = positions[-keep:] % S_buf
-            cache["k"].index_copy_(1, slot, k[:, -keep:])
-            cache["v"].index_copy_(1, slot, v[:, -keep:])
-            cache["pos"].index_copy_(0, slot, positions[-keep:].to(cache["pos"].dtype))
+        _store(cache, {"k": k, "v": v}, positions)
         return _out(out, params["wo"].to(dtype)), cache
 
     # Decode: S == 1, write at position % S_buf, attend over the buffer.
-    pos = positions[0]
-    slot = (pos % S_buf).reshape(1)
-    cache["k"].index_copy_(1, slot, k)
-    cache["v"].index_copy_(1, slot, v)
-    cache["pos"].index_copy_(0, slot, positions.to(cache["pos"].dtype))
+    pos = _store_one(cache, {"k": k, "v": v}, positions)
     cpos = cache["pos"]
     valid = (cpos >= 0) & (cpos <= pos)
     if window > 0:
         valid &= cpos > pos - window
     out = _sdpa(q, cache["k"], cache["v"], valid[None, :], scale=scale, cap=cfg.attn_softcap)
+    return _out(out, params["wo"].to(dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA apply (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+
+def _mla_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def apply_mla(
+    params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,  # (S,)
+    *,
+    cache: Optional[Dict] = None,
+    decode: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head Latent Attention; returns (output, updated_cache).
+
+    Full sequence and prefill: the latent KV is decompressed per head and
+    the decoupled-RoPE scores are folded into one attention over
+    ``nope + rope`` features, run by ``ops.flash_attention`` (scale
+    ``1/sqrt(nope + rope)``, causal, no softcap).  The kernel takes one
+    head_dim for ``k`` and ``v``, so ``v`` is padded with zeros from
+    ``v_head_dim`` to ``nope + rope`` and the output's first ``v_head_dim``
+    features are kept: zero columns add exactly nothing to the product.
+    Decode (S == 1) is the reference's absorbed form, plain torch: the
+    scores run in the compressed space and per-head K/V are never built.
+    """
+    dtype = x.dtype
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rhd, vhd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    scale = 1.0 / math.sqrt(nope + rhd)
+
+    cq = _mla_norm(params["q_norm"]["scale"], x @ params["wdq"].to(dtype))
+    q = _project(cq, params["wuq"].to(dtype))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
+
+    ckv = _mla_norm(params["kv_norm"]["scale"], x @ params["wdkv"].to(dtype))
+    kr = rope((x @ params["wkr"].to(dtype))[:, :, None, :], positions, theta=cfg.rope_theta)[:, :, 0]
+
+    if not decode:
+        k_nope = _project(ckv, params["wuk"].to(dtype))
+        v = _project(ckv, params["wuv"].to(dtype))
+        q_eff = torch.cat([q_nope, q_rope], dim=-1)
+        k_eff = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, rhd)], dim=-1)
+        v_pad = torch.nn.functional.pad(v, (0, nope + rhd - vhd))
+        out = ops.flash_attention(
+            q_eff.transpose(1, 2), k_eff.transpose(1, 2), v_pad.transpose(1, 2),
+            causal=True, window=0, softcap=0.0, scale=scale, bq=None, bk=None,
+        )
+        out = out.transpose(1, 2)[..., :vhd]
+        y = _out(out, params["wo"].to(dtype))
+        if cache is not None:
+            _store(cache, {"ckv": ckv, "kr": kr}, positions)
+        return y, cache
+
+    # Absorbed decode (S == 1).
+    if cache is None:
+        raise ValueError("MLA decode needs a cache")
+    pos = _store_one(cache, {"ckv": ckv, "kr": kr}, positions)
+    cckv, ckr, cpos = cache["ckv"], cache["kr"], cache["pos"]
+    valid = (cpos >= 0) & (cpos <= pos)
+
+    # q_nope absorbed through W_uk: (B,1,H,nope) x (kv_lora,H,nope) -> (B,1,H,kv_lora)
+    q_abs = torch.einsum("bqhk,chk->bqhc", q_nope, params["wuk"].to(dtype))
+    logits = (
+        torch.einsum("bqhc,bsc->bhqs", q_abs, cckv) + torch.einsum("bqhk,bsk->bhqs", q_rope, ckr)
+    ).to(torch.float32) * scale
+    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(dtype)
+    ctx = torch.einsum("bhqs,bsc->bqhc", w, cckv)  # compressed context
+    out = torch.einsum("bqhc,chk->bqhk", ctx, params["wuv"].to(dtype))
     return _out(out, params["wo"].to(dtype)), cache

@@ -2,8 +2,8 @@
 
 The port's copy of the reference's ``models/config.py``: the same fields,
 defaults and checks, with torch dtypes for ``dtype`` and ``logit_dtype``.
-Only recurrentgemma-2b's serving path runs in this package so far.  The
-fields that only other families (MoE, MLA, encoder-decoder, frontends),
+The serving paths of the dense, MoE, MLA and hybrid decoders run in this
+package.  The fields that only the encoder-decoder and frontend families,
 training or the reference's distribution knobs read are kept so that a
 config reads the same on both sides, but a value other than the default
 raises ``NotImplementedError``: nothing in the port would read it yet
@@ -85,7 +85,11 @@ class ModelConfig:
     num_prefix_embeddings: int = 0
 
     # The reference switches full-sequence attention to a query-chunked
-    # path above this length.
+    # path above this length.  The port's full-sequence attention runs
+    # through ``flash_attention`` on both of the reference's branches
+    # (``_sdpa`` and ``_sdpa_chunked``, which compute one function), so
+    # these values choose nothing here; they are kept so that a config
+    # reads the same on both sides.
     attn_chunk_threshold: int = 8192
     attn_q_chunk: int = 1024
 
@@ -151,11 +155,10 @@ class ModelConfig:
         return replace(self, **kw)
 
 
-# Fields whose families, training path or knobs are not ported yet.
+# Fields whose families (encoder-decoder, frontends), training path or
+# knobs are not ported yet.
 _NOT_READ = (
-    "num_experts", "num_shared_experts", "top_k", "d_ff_expert", "capacity_factor", "aux_loss_weight",
-    "mla", "q_lora_rank", "kv_lora_rank", "rope_head_dim", "nope_head_dim", "v_head_dim",
     "encoder_layers", "encoder_pattern", "frontend", "num_prefix_embeddings",
-    "attn_chunk_threshold", "attn_q_chunk", "zloss", "xent_chunk", "remat", "train_accum", "unroll_scans",
+    "zloss", "xent_chunk", "remat", "train_accum", "unroll_scans",
 )
 _DEFAULTS = {f.name: f.default for f in fields(ModelConfig)}

@@ -1,27 +1,30 @@
 """Decoder-LM assembly: blocks, the layer loop, caches, serving entry points.
 
 The port's copy of the reference's ``models/transformer.py`` for the layer
-kinds ``attn``, ``local`` and ``rec``.  Depth is ``prefix`` layers followed
-by ``num_units`` repetitions of ``cfg.pattern``.  The reference scans one
-unit body over stacked parameters with ``lax.scan`` (under
-``jax.checkpoint`` when ``remat="full"``, with ``maybe_constrain`` sharding
-hints); the port keeps one module per layer and runs a Python loop over
-them.  Remat and sharding hints have no counterpart in serving and are
-dropped.
+kinds ``attn``, ``local`` and ``rec``, with GQA or MLA attention and dense
+or MoE MLPs.  Depth is ``prefix`` layers (unrepeated, dense: deepseek-v2's
+first layer) followed by ``num_units`` repetitions of ``cfg.pattern``; a
+repeated layer's MLP is a mixture of experts when the config has experts
+(:func:`_layer_is_moe`).  The reference scans one unit body over stacked
+parameters with ``lax.scan`` (under ``jax.checkpoint`` when
+``remat="full"``, with ``maybe_constrain`` sharding hints); the port keeps
+one module per layer and runs a Python loop over them.  Remat and sharding
+hints have no counterpart in serving and are dropped.
 
 Parameters: ``LanguageModel`` holds them under the reference's tree keys
 (``embed.embedding``, ``prefix.0.rec.wa``, ``layers.4.attn.wq``,
-``final_norm.scale``), with unit ``u``, slot ``s`` at layer
-``len(prefix) + u * len(pattern) + s`` (``nn/convert.py``).  They stay in
-the dtype their specs give (float32) and are cast at each use as the
-reference casts them.  The embedding rows are gathered before the cast to
-``cfg.dtype`` (the reference casts the table first, for sharding): the
-values are the same, and the 256k-row table is not cast whole per token.
+``layers.1.mlp.wi_gate`` of shape ``(E, d, ff)``, ``final_norm.scale``),
+with unit ``u``, slot ``s`` at layer ``len(prefix) + u * len(pattern) + s``
+(``nn/convert.py``).  They stay in the dtype their specs give (float32)
+and are cast at each use as the reference casts them.  The embedding rows
+are gathered before the cast to ``cfg.dtype`` (the reference casts the
+table first, for sharding): the values are the same, and the 256k-row
+table is not cast whole per token.
 
 Caches: a list with one entry per layer, in depth order (the reference
 stacks the units' caches).  Prefill and decode update them in place.
 
-MoE, MLA, the self-contained ``mlstm``/``slstm`` kinds, ``prefix_embeds``,
+The self-contained ``mlstm``/``slstm`` kinds, ``prefix_embeds``,
 cross-attention units and ``lm_loss`` come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
 """
 
@@ -33,9 +36,10 @@ import torch
 
 from ..nn.convert import unstack_tree
 from ..nn.params import ParamSpec, ParamTree, init_tree
-from .attention import apply_attn, attn_spec, init_attn_cache
+from .attention import apply_attn, apply_mla, attn_spec, init_attn_cache, init_mla_cache, mla_spec
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, embedding_spec, mlp_spec, norm_spec, softcap, stacked
+from .moe import apply_moe, moe_spec
 from .recurrent import apply_rglru_block, init_rglru_cache, rglru_spec
 
 __all__ = [
@@ -59,20 +63,23 @@ _LATER = "(ROADMAP queue 1, item 10: what remains of the LLM stack)"
 # ---------------------------------------------------------------------------
 
 
+_SELF_CONTAINED = ("mlstm", "slstm")  # kinds with no separate MLP sub-layer
+
+
 def block_spec(cfg: ModelConfig, kind: str, *, moe: bool = False, d_ff: int, cross: bool = False) -> Dict:
-    if moe or cross:
-        raise NotImplementedError(f"MoE and cross-attention blocks are not ported yet {_LATER}")
-    if kind in ("mlstm", "slstm"):
+    if cross:
+        raise NotImplementedError(f"cross-attention blocks are not ported yet {_LATER}")
+    if kind in _SELF_CONTAINED:
         raise NotImplementedError(f"{kind} blocks are not ported yet {_LATER}")
     spec: Dict[str, Any] = {"norm1": norm_spec(cfg.d_model, cfg.norm_kind)}
     if kind in ("attn", "local"):
-        spec["attn"] = attn_spec(cfg)
+        spec["attn"] = mla_spec(cfg) if cfg.mla else attn_spec(cfg)
     elif kind == "rec":
         spec["rec"] = rglru_spec(cfg)
     else:
         raise ValueError(f"unknown layer kind {kind}")
     spec["norm2"] = norm_spec(cfg.d_model, cfg.norm_kind)
-    spec["mlp"] = mlp_spec(cfg.d_model, d_ff, cfg.mlp_kind)
+    spec["mlp"] = moe_spec(cfg) if moe else mlp_spec(cfg.d_model, d_ff, cfg.mlp_kind)
     if cfg.post_norms:
         spec["post_norm1"] = norm_spec(cfg.d_model, cfg.norm_kind)
         spec["post_norm2"] = norm_spec(cfg.d_model, cfg.norm_kind)
@@ -86,16 +93,22 @@ def apply_block(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    moe: bool = False,
     cache: Optional[Dict] = None,
     decode: bool = False,
     causal: bool = True,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x, new_cache)."""
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (x, new_cache, aux_loss); the aux loss is zero unless
+    ``moe``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(params["norm1"], x)
     if kind in ("attn", "local"):
-        y, new_cache = apply_attn(
-            params["attn"], cfg, h, positions, kind=kind, causal=causal, cache=cache, decode=decode
-        )
+        if cfg.mla:
+            y, new_cache = apply_mla(params["attn"], cfg, h, positions, cache=cache, decode=decode)
+        else:
+            y, new_cache = apply_attn(
+                params["attn"], cfg, h, positions, kind=kind, causal=causal, cache=cache, decode=decode
+            )
     else:  # rec
         y, new_cache = apply_rglru_block(params["rec"], cfg, h, cache=cache, decode=decode)
     if cfg.post_norms:
@@ -103,10 +116,13 @@ def apply_block(
     x = x + y
 
     h = apply_norm(params["norm2"], x)
-    y = apply_mlp(params["mlp"], h, cfg.mlp_kind)
+    if moe:
+        y, aux = apply_moe(params["mlp"], cfg, h)
+    else:
+        y = apply_mlp(params["mlp"], h, cfg.mlp_kind)
     if cfg.post_norms:
         y = apply_norm(params["post_norm2"], y)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -114,16 +130,25 @@ def apply_block(
 # ---------------------------------------------------------------------------
 
 
+def _layer_is_moe(cfg: ModelConfig, kind: str, in_prefix: bool) -> bool:
+    return cfg.is_moe and not in_prefix and kind not in _SELF_CONTAINED
+
+
+def _prefix_spec(cfg: ModelConfig, kind: str) -> Dict:
+    return block_spec(cfg, kind, moe=False, d_ff=cfg.prefix_dense_ff or cfg.d_ff)
+
+
+def _unit_spec(cfg: ModelConfig, kind: str) -> Dict:
+    return block_spec(cfg, kind, moe=_layer_is_moe(cfg, kind, False), d_ff=cfg.d_ff)
+
+
 def lm_spec(cfg: ModelConfig) -> Dict:
     """The reference's spec tree: ``units[s]`` stacks slot ``s`` of every
-    unit along a leading ``layers`` axis (which the fan-in rule skips)."""
+    unit along a leading ``layers`` axis (which the fan-in rule skips, as
+    it skips a following ``experts`` axis)."""
     spec: Dict[str, Any] = {"embed": embedding_spec(cfg.vocab_size, cfg.d_model)}
-    spec["prefix"] = tuple(
-        block_spec(cfg, k, d_ff=cfg.prefix_dense_ff or cfg.d_ff) for k in cfg.prefix
-    )
-    spec["units"] = tuple(
-        stacked(block_spec(cfg, k, d_ff=cfg.d_ff), cfg.num_units) for k in cfg.pattern
-    )
+    spec["prefix"] = tuple(_prefix_spec(cfg, k) for k in cfg.prefix)
+    spec["units"] = tuple(stacked(_unit_spec(cfg, k), cfg.num_units) for k in cfg.pattern)
     spec["final_norm"] = norm_spec(cfg.d_model, cfg.norm_kind)
     if not cfg.tie_embeddings:
         spec["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
@@ -141,12 +166,10 @@ class LanguageModel(torch.nn.Module):
         self.cfg = cfg
         n_pre = len(cfg.prefix)
         self.embed = ParamTree(embedding_spec(cfg.vocab_size, cfg.d_model))
-        self.prefix = torch.nn.ModuleList(
-            ParamTree(block_spec(cfg, k, d_ff=cfg.prefix_dense_ff or cfg.d_ff)) for k in cfg.prefix
-        )
+        self.prefix = torch.nn.ModuleList(ParamTree(_prefix_spec(cfg, k)) for k in cfg.prefix)
         self.layers = torch.nn.ModuleDict(
             {
-                str(i): ParamTree(block_spec(cfg, kind, d_ff=cfg.d_ff))
+                str(i): ParamTree(_unit_spec(cfg, kind))
                 for i, kind in enumerate(cfg.layer_kinds())
                 if i >= n_pre
             }
@@ -186,7 +209,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, dtype=torch.bfloat
     """One empty cache per layer, in depth order."""
     caches = []
     for kind in cfg.layer_kinds():
-        if kind in ("attn", "local"):
+        if kind in ("attn", "local") and cfg.mla:
+            caches.append(init_mla_cache(cfg, batch, seq_budget, dtype, device))
+        elif kind in ("attn", "local"):
             caches.append(init_attn_cache(cfg, kind, batch, seq_budget, dtype, device))
         elif kind == "rec":
             caches.append(init_rglru_cache(cfg, batch, dtype, device))
@@ -217,17 +242,23 @@ def apply_lm(
     decode: bool = False,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
-    """Returns (hidden (B,S,d), new_caches, aux_loss_sum); the aux loss is
-    zero (no MoE layer is ported)."""
+    """Returns (hidden (B,S,d), new_caches, aux_loss_sum): the MoE layers'
+    aux losses summed in depth order."""
     x = _embed_tokens(params, cfg, tokens)
     new_caches = [] if caches is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_pre = len(cfg.prefix)
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if caches is not None else None
-        x, nc = apply_block(params.block(i), cfg, kind, x, positions, cache=c, decode=decode, causal=causal)
+        x, nc, aux = apply_block(
+            params.block(i), cfg, kind, x, positions,
+            moe=_layer_is_moe(cfg, kind, i < n_pre), cache=c, decode=decode, causal=causal,
+        )
+        aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
     x = apply_norm(params["final_norm"], x)
-    return x, new_caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_caches, aux_total
 
 
 def lm_logits(params: LanguageModel, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ request dispatch across replicas.
 fixed KV budget, then decode greedily one token at a time.  Where the
 reference jit-compiles prefill and decode, the port runs them eagerly
 under ``torch.inference_mode``; on the card prefill reaches the
-``flash_attention`` and ``rglru_scan`` kernels and decode runs plain torch.
+``flash_attention`` kernel (and ``rglru_scan`` for recurrent layers) and
+decode runs plain torch.
 
 ``ReplicaDispatcher`` runs DFPA over request chunks: a replica's time for
 ``x`` chunks is a nonlinear function of ``x`` (the weight-read floor of a
@@ -86,7 +87,9 @@ class ServeEngine:
 
         As in the reference, the prompt plus the new tokens may run past
         ``seq_budget``: a local layer keeps a ring of ``min(seq_budget,
-        window)`` slots and the RG-LRU state does not depend on the budget."""
+        window)`` slots, a global layer's ``seq_budget`` slots wrap the same
+        way (its oldest positions are overwritten), and the RG-LRU state
+        does not depend on the budget."""
         if not greedy:
             raise NotImplementedError("only greedy decoding, as in the reference")
         B, S = tokens.shape

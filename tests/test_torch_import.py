@@ -29,7 +29,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch._build\n"
         "import repro_torch.configs, repro_torch.nn, repro_torch.models, repro_torch.runtime\n"
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention, repro_torch.kernels.rglru\n"
-        "import repro_torch.configs.recurrentgemma_2b, repro_torch.nn.convert\n"
+        "import repro_torch.configs.recurrentgemma_2b, repro_torch.nn.convert, repro_torch.models.moe\n"
+        "import repro_torch.configs.gemma2_2b, repro_torch.configs.deepseek_v2_236b\n"
         "import repro_torch.core.partition2d, repro_torch.launch.paper_tables\n"
         "import repro_torch.launch.matmul_grid, repro_torch.core.energy, repro_torch.core.hierarchy\n"
         "import repro_torch.obs, repro_torch.obs.report, repro_torch.runtime.straggler\n"

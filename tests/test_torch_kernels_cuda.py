@@ -26,6 +26,11 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
   ``"mma"`` route (bf16 head_dim 32, and head_dim 256 over broadcast K/V
   with a zero head stride) and the ``"rows"`` route (float32, bf16
   head_dim 96), each reached through operands that select it;
+* ``flash_attention`` at the decoders' head dims that reach ``"rows"``:
+  160 (stablelm-12b, four query heads a KV head) and 192 (deepseek-v2's
+  MLA scores, H = Kv, ``v`` zero-padded from 128 to 192 and the output's
+  first 128 features kept, as the model calls it), from the model's
+  ``(B, S, H, D)`` views;
 * ``rglru_scan``: ``RGLRU_CASES`` at 1e-5, plus an ``h0`` case and a
   ragged one; S not a multiple of the 64-step chunk and S below it, B·D
   not a multiple of the 128-channel tile, and S = 4096 at a narrow D with
@@ -245,6 +250,28 @@ def test_flash_attention_named_routes_on_card(card, D, dtype, broadcast, route):
     }
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("H,Kv,D,v_dim,kwargs", [
+    (8, 2, 160, 160, dict(causal=True)),  # stablelm-12b: GQA 4, partial rotary's head_dim
+    (4, 4, 192, 128, dict(causal=True, scale=192 ** -0.5)),  # deepseek-v2 MLA: v padded to 192
+])
+def test_flash_attention_rows_route_at_decoder_head_dims(card, H, Kv, D, v_dim, kwargs):
+    rng = np.random.default_rng(D)
+    B, S = 2, 300
+    q = _randn(rng, (B, S, H, D), 0.3).to(card, torch.bfloat16)
+    k = _randn(rng, (B, S, Kv, D), 0.3).to(card, torch.bfloat16)
+    v = torch.nn.functional.pad(_randn(rng, (B, S, Kv, v_dim)), (0, D - v_dim)).to(card, torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
+    before = dict(flash_attention_cuda.launches_by_route)
+    got = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
+    again = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()} == {"rows": 2, "mma": 0, "wgmma": 0}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert not got[..., v_dim:].any()  # zero value columns give zero output columns
 
 
 @pytest.mark.parametrize("B,S,D", [

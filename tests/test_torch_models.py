@@ -178,14 +178,14 @@ def test_params_from_reference_unstacks_units():
 def test_registry_refuses_unported_archs():
     assert ARCH_IDS[7] == ARCH and len(ARCH_IDS) == 10
     with pytest.raises(NotImplementedError, match="queue 1, item 10: what remains of the LLM stack"):
-        get_config("gemma2-2b")
+        get_config("xlstm-350m")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
 @pytest.mark.parametrize(
     "field,value",
-    [("num_experts", 4), ("mla", True), ("encoder_layers", 2), ("attn_q_chunk", 512), ("xent_chunk", 0), ("remat", "none")],
+    [("zloss", 1e-4), ("frontend", "vision_stub"), ("encoder_layers", 2), ("num_prefix_embeddings", 4), ("xent_chunk", 0), ("remat", "none")],
 )
 def test_config_refuses_fields_the_port_does_not_read(field, value):
     cfg = get_smoke_config(ARCH)

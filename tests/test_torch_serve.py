@@ -93,9 +93,9 @@ def test_serve_cli_runs_the_smoke_model_on_the_cpu(capsys):
 
 def test_serve_cli_refuses_what_is_not_ported(capsys):
     """``--replicas`` is ported (the dispatch demo runs; its line is held
-    against the reference in ``tests/test_torch_dispatch.py``); the other
-    families still raise."""
+    against the reference in ``tests/test_torch_dispatch.py``); the
+    families not ported yet still raise."""
     serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--replicas", "4"])
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith("DFPA dispatch over 4 replicas: d=")
     with pytest.raises(NotImplementedError, match="queue 1, item 10: what remains of the LLM stack"):
-        serve_cli.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu"])
+        serve_cli.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
