@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs sixteen phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs seventeen phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -229,13 +229,50 @@ the first fault:
                       the kernel at gemma2-2b's prefill shape timed beside
                       the plain version, SDPA (no softcap) and its bound;
                       (d) the six smoke models in float32 give the CPU's
-                      tokens on the card.
+                      tokens on the card;
+ 17. ``train``      — the training path (``repro_torch.launch.train``),
+                      random weights, seed 0, each model freed before the
+                      next: (a) gemma2-2b as published (26 layers,
+                      ``remat="full"``, ``xent_chunk`` 512) through
+                      ``train_single`` (the in-place AdamW update), 6 steps
+                      of batch 8 x 1,024: the loss finite and falling, and
+                      exactly 26 x 2 ``flash_attention`` launches a step
+                      (the forward and the remat recompute), all
+                      ``"wgmma"``; step ms, tokens/s, peak memory; (b)
+                      granite-moe-1b-a400m as published through
+                      ``train_hetero``: four groups with slowdowns 1.0 /
+                      1.4 / 2.0 / 3.1 share the card, 16 units of 2 x 512
+                      tokens a step, 8 steps, eps 0.15: at least one
+                      rebalance, ``d[3] < d[0]`` at the end, every ``d``
+                      summing to 16, the loss falling, 24 x 2 flash
+                      launches a unit; (c) recurrentgemma-2b at full width
+                      cut to its two prefix layers and one pattern unit
+                      (5 layers), 2 steps of 4 x 1,024: ``rglru_scan`` 3
+                      launches a recurrent layer a step (forward, remat,
+                      the backward's reversed recurrence); (d) on inputs
+                      captured from (a) and (c): flash's ``Function``
+                      forward (the kernel, ``"wgmma"``) against
+                      ``flash_attention_ref`` on float32 copies, as the
+                      serve phase holds it, with a planted forward fault (the first key tile
+                      dropped: at 1,024 tokens both windows cover every
+                      key), and bit-identical to ``flash_attention_cuda``
+                      with the model's arguments; each kernel's
+                      ``autograd.Function`` against autograd through its
+                      plain version (flash on float32 copies: the kernel
+                      and the backward take the logits in fp32;
+                      ``dq``/``dk``/``dv`` rel 2e-2,
+                      the scan's ``dlog_a``/``db``/``dh0`` rel 1e-4), a
+                      planted fault failing each check (a backward without
+                      the causal mask; a reversed recurrence whose decays
+                      are not shifted), timed beside the plain versions;
+                      and a smoke-width checkpoint saved, restored bit for
+                      bit and resumed to the uninterrupted step's loss.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, ``matmul_update``'s by phase, ``dfpa``,
 ``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``, and
-``flash_attention``'s and ``rglru_scan``'s, ``serve``, ``dispatch`` and
-``decoders``; flash's row also carries ``decoders_timing``), the card's name and power limit
+``flash_attention``'s and ``rglru_scan``'s, ``serve``, ``dispatch``,
+``decoders`` and ``train``; flash's row also carries ``decoders_timing``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -251,6 +288,7 @@ import subprocess
 import sys
 import time
 import weakref
+from typing import Optional
 
 import numpy as np
 import torch
@@ -281,6 +319,8 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.fleet import FleetScheduler, JobSpec  # noqa: E402
 from repro_torch.kernels import flash_attention, matmul_update, ops, rglru_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention,
+    attention_backward,
     flash_attention_cuda,
     flash_attention_route,
 )
@@ -291,7 +331,13 @@ from repro_torch.kernels.matmul_update import (  # noqa: E402
     wgmma_smem_bytes,
 )
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref  # noqa: E402
-from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda  # noqa: E402
+from repro_torch.kernels.rglru import RGLRUScan, chunk_steps, rglru_scan_cuda  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.launch.train import train_hetero, train_single  # noqa: E402
+from repro_torch.nn import tree_leaves  # noqa: E402
+from repro_torch.optim import warmup_cosine  # noqa: E402
+from repro_torch.runtime import init_train_state, make_train_step  # noqa: E402
 from repro_torch.launch import paper_tables  # noqa: E402
 from repro_torch.launch.matmul_grid import GRID_EPS, GRID_UNITS, MatmulGrid  # noqa: E402
 from repro_torch.launch.serve import demo_replica_run, kernels_for  # noqa: E402
@@ -445,6 +491,17 @@ DECODER_CHECK_CAPACITY = 8.0
 # ... and the least share of (token, choice) pairs routed alike there in
 # bfloat16 (tests/test_torch_decoders.py holds the port to the reference so)
 ROUTING_AGREEMENT = 0.99
+# the train phase: (a) gemma2-2b as published through train_single (the
+# reference CLI's batch 8, seq 1024); (b) granite-moe-1b-a400m as published
+# through train_hetero; (c) recurrentgemma-2b cut to its prefix and one
+# pattern unit through train_single
+TRAIN_SINGLE = dict(arch="gemma2-2b", batch=8, seq=1024, steps=6, lr=3e-3)
+TRAIN_HETERO = dict(arch="granite-moe-1b-a400m", groups=4, hetero=[1.0, 1.4, 2.0, 3.1], units=16,
+                    micro_batch=2, seq=512, steps=8, eps=0.15, lr=3e-3)
+TRAIN_REC = dict(arch="recurrentgemma-2b", batch=4, seq=1024, steps=2, lr=3e-3)
+# (d): a kernel's autograd.Function against autograd through its plain
+# version on the captured inputs, max |got - want| over max |want|
+TRAIN_GRAD_TOL = {"flash_attention": 2e-2, "rglru_scan": 1e-4}
 
 
 def emit(obj) -> None:
@@ -664,7 +721,7 @@ def _flash_fp32(q, k, v, *, causal, window, softcap, scale) -> tuple:
     return out, terms
 
 
-def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
+def _check_serve_flash(got, q, k, v, kw, what: str, fault: Optional[str] = None, fp32: bool = False) -> dict:
     """The kernel's output on the model's attention inputs against its plain
     version: ``|got - want| <= atol + rtol (|want| + terms)`` with
     SERVE_FLASH_TOL.  The ``terms`` part covers rows that sum few keys
@@ -674,7 +731,12 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
     a window, the window one tile short of ``min(window, Sk)``; without
     (a global layer), the first tile of keys left out (a window short by
     one tile would drop only the last rows' oldest keys, under atol at
-    Sk in the thousands).  Also
+    Sk in the thousands).  ``fault`` names the planted fault instead
+    (``"first_key_tile_dropped"`` or ``"window_one_tile_short"``).  With
+    ``fp32`` the plain version (and its fault) runs on float32 copies of
+    the inputs: the kernel takes the logits in fp32, the plain version at
+    bf16 rounds them to bf16 first, which at large logits (trained
+    weights) moves the output more than the tolerance.  Also
     reports, by query-row band, the kernel's and the plain version's
     largest error against attention in fp32 throughout."""
     atol, rtol = SERVE_FLASH_TOL
@@ -682,7 +744,10 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
     w = min(kw["window"] or k.shape[2], k.shape[2])  # window 0: every key
     exact, terms = _flash_fp32(q, k, v, **kw)
     got = got.float()
-    want = flash_attention_ref(q, k, v, **kw).float()
+    plain = flash_attention_ref(q, k, v, **kw).float()
+    operands = (q.float(), k.float(), v.float()) if fp32 else (q, k, v)
+    want = flash_attention_ref(*operands, **kw).float() if fp32 else plain
+    q, k, v = operands
 
     def within(out) -> tuple:
         err = (out.float() - want).abs()
@@ -695,14 +760,15 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
         if lo < hi <= Sq:
             bands[f"rows {lo}-{hi}"] = {
                 "kernel": float((got[:, :, lo:hi] - exact[:, :, lo:hi]).abs().max()),
-                "plain": float((want[:, :, lo:hi] - exact[:, :, lo:hi]).abs().max()),
+                "plain": float((plain[:, :, lo:hi] - exact[:, :, lo:hi]).abs().max()),
             }
     if not ok:
         raise SystemExit(f"chip_smoke: flash_attention disagrees with its plain version {what}: {bands}")
-    if kw["window"]:
-        fault_name, fault = "window_one_tile_short", flash_attention_ref(q, k, v, **dict(kw, window=w - 64))
+    fault_name = fault or ("window_one_tile_short" if kw["window"] else "first_key_tile_dropped")
+    if fault_name == "window_one_tile_short":
+        fault = flash_attention_ref(q, k, v, **dict(kw, window=w - 64))
     else:
-        fault_name, fault = "first_key_tile_dropped", flash_attention_ref(q, k[:, :, 64:], v[:, :, 64:], **kw)
+        fault = flash_attention_ref(q, k[:, :, 64:], v[:, :, 64:], **kw)
     passed, fault_err = within(fault)
     del fault
     if passed:
@@ -710,6 +776,7 @@ def _check_serve_flash(got, q, k, v, kw, what: str) -> dict:
     return {
         "max_abs_err": max_err, "tol": f"atol {atol} + rtol {rtol} (|want| + sqrt(sum w^2 v^2))",
         f"{fault_name}_max_abs_err": fault_err, "max_abs_err_vs_fp32": bands,
+        **({"against": "the plain version on float32 copies"} if fp32 else {}),
     }
 
 
@@ -1176,12 +1243,13 @@ class _Capture:
         fa, rg = self._orig
 
         def flash(q, k, v, **kw):
-            self.seen["flash_attention"] = (q.clone(), k.clone(), v.clone(), kw)
+            self.seen["flash_attention"] = (q.detach().clone(), k.detach().clone(), v.detach().clone(), kw)
             self.flash_by_window[kw.get("window", 0)] = self.seen["flash_attention"]
             return fa(q, k, v, **kw)
 
         def scan(log_a, b, h0=None, **kw):
-            self.seen["rglru_scan"] = (log_a.clone(), b.clone(), None if h0 is None else h0.clone(), kw)
+            self.seen["rglru_scan"] = (log_a.detach().clone(), b.detach().clone(),
+                                       None if h0 is None else h0.detach().clone(), kw)
             return rg(log_a, b, h0, **kw)
 
         ops.flash_attention, ops.rglru_scan = flash, scan
@@ -2993,6 +3061,291 @@ def phase_decoders() -> tuple:
         emit({"phase": "decoders", "part": "smoke", **_serve_smoke({}, arch)})
     return launches, timing
 
+# ---------------------------------------------------------------------------
+
+
+def _free(out: dict, before: int, what: str) -> None:
+    """Collect garbage, empty the cache and fail if more than 256 MiB stayed
+    allocated after ``what`` (the next part measures its own peak)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_after_free_bytes"] = torch.cuda.memory_allocated()
+    if out["allocated_after_free_bytes"] > before + 2**28:
+        raise SystemExit(f"chip_smoke: {what} outlived its part: {out['allocated_after_free_bytes']} bytes "
+                         f"allocated after it, {before} before")
+
+
+def _train_single_part(out: dict, cfg, batch: int, seq: int, steps: int, lr: float) -> list:
+    """``train_single`` on the card with the counts set to 0 just before it
+    and read just after; the step ms (host clock between two
+    synchronisations), tokens/s and peak memory.  Returns the losses."""
+    out.update({"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "batch": batch, "seq": seq,
+                "steps": steps, "remat": cfg.remat, "xent_chunk": cfg.xent_chunk})
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    _reset_serve_counts()
+    state, losses = train_single(cfg, steps=steps, batch=batch, seq=seq, lr=lr, device="cuda",
+                                 history=hist, log_every=steps)
+    torch.cuda.synchronize()
+    out["launches"] = _serve_counts()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["params"] = sum(t.numel() for _, t in tree_leaves(state.params))
+    out["state_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_leaves((state.params, state.opt.mu, state.opt.nu)))
+    out["losses"] = losses
+    out["grad_norms"] = [h["grad_norm"] for h in hist]
+    out["step_ms_runs"] = [h["ms"] for h in hist]
+    out["step_ms"] = float(np.median(out["step_ms_runs"][1:]))  # the first step carries first-use costs
+    out["tokens_per_s"] = batch * seq / (out["step_ms"] / 1e3)
+    del state
+    _free(out, before, f"{cfg.name}'s training state")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"chip_smoke: {cfg.name} training gave a loss that is not finite: {losses}")
+    return losses
+
+
+def _layer_launches(cfg, kinds, per_step: int, steps: int) -> int:
+    return sum(k in kinds for k in cfg.layer_kinds()) * per_step * steps
+
+
+def train_gemma(out: dict) -> None:
+    """(a) gemma2-2b as published, ``remat="full"``, ``xent_chunk`` 512:
+    the loss falls, and every step launches flash 26 x 2 times (the forward
+    and the remat recompute), all on ``"wgmma"``."""
+    t = TRAIN_SINGLE
+    cfg = get_config(t["arch"])
+    losses = _train_single_part(out, cfg, t["batch"], t["seq"], t["steps"], t["lr"])
+    want = _layer_launches(cfg, ("attn", "local"), 2, t["steps"])
+    counts = out["launches"]
+    if counts["flash_attention"] != want or counts["flash_attention_by_route"]["wgmma"] != want or counts["rglru_scan"]:
+        raise SystemExit(f"chip_smoke: gemma2-2b training launched {counts}, expected {want} flash, all 'wgmma'")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: gemma2-2b's loss did not fall over {t['steps']} steps: {losses}")
+
+
+def train_rec(out: dict) -> None:
+    """(c) recurrentgemma-2b at full width, cut to its prefix and one
+    pattern unit: the scan runs 3 times a recurrent layer a step (forward,
+    remat recompute, the backward's reversed recurrence), flash twice a
+    local layer."""
+    t = TRAIN_REC
+    full = get_config(t["arch"])
+    cfg = full.replace(num_layers=len(full.prefix) + len(full.pattern))
+    out["published_layers"] = full.num_layers
+    _train_single_part(out, cfg, t["batch"], t["seq"], t["steps"], t["lr"])
+    want = {"flash_attention": _layer_launches(cfg, ("attn", "local"), 2, t["steps"]),
+            "rglru_scan": _layer_launches(cfg, ("rec",), 3, t["steps"])}
+    counts = out["launches"]
+    if {k: counts[k] for k in want} != want or counts["flash_attention_by_route"]["wgmma"] != want["flash_attention"]:
+        raise SystemExit(f"chip_smoke: recurrentgemma-2b training launched {counts}, expected {want}")
+
+
+def train_groups(out: dict) -> None:
+    """(b) granite-moe-1b-a400m as published through ``train_hetero``:
+    four groups emulating 1.0 / 1.4 / 2.0 / 3.1x slowdowns share the card;
+    DFPA rebalances at least once, ends with ``d[3] < d[0]`` over 16
+    units, and the loss falls; flash 24 x 2 launches a unit."""
+    t = TRAIN_HETERO
+    cfg = get_config(t["arch"])
+    out.update({"arch": cfg.name, "layers": cfg.num_layers, **{k: t[k] for k in ("groups", "hetero", "units",
+                "micro_batch", "seq", "steps", "eps")}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    _reset_serve_counts()
+    t0 = time.perf_counter()
+    state, ctrl = train_hetero(cfg, steps=t["steps"], groups=t["groups"], hetero=t["hetero"], n_units=t["units"],
+                               micro_batch=t["micro_batch"], seq=t["seq"], lr=t["lr"], eps=t["eps"],
+                               device="cuda", history=hist)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = counts = _serve_counts()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["history"] = hist
+    out["final_d"], out["rebalances"] = list(ctrl.d), ctrl.rebalances
+    out["unit_ms_by_group"] = [[1e3 * tm / h / d if d else None for tm, h, d in zip(r["times"], t["hetero"], r["d"])]
+                               for r in hist]
+    del state, ctrl
+    _free(out, before, "granite-moe's training states")
+    losses = [r["loss"] for r in hist]
+    want = _layer_launches(cfg, ("attn", "local"), 2, t["steps"] * t["units"])
+    if counts["flash_attention"] != want or counts["flash_attention_by_route"]["wgmma"] != want:
+        raise SystemExit(f"chip_smoke: the four groups launched {counts}, expected {want} flash, all 'wgmma'")
+    if not (out["rebalances"] >= 1 and out["final_d"][3] < out["final_d"][0] and sum(out["final_d"]) == t["units"]
+            and all(sum(r["d"]) == t["units"] for r in hist)):
+        raise SystemExit(f"chip_smoke: DFPA did not move units toward the fast groups: {hist}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit(f"chip_smoke: the four groups' loss did not fall: {losses}")
+
+
+def _grad_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+def train_flash_grads(q, k, v, kw, what: str) -> dict:
+    """(d) ``FlashAttention`` on a training step's own inputs.  Its forward
+    (the kernel, on ``"wgmma"``) against ``flash_attention_ref`` on float32
+    copies (``_check_serve_flash(..., fp32=True)``: the kernel and the
+    backward take the logits in fp32; the planted fault drops the first
+    key tile where the window covers every key, else cuts the window one
+    tile short), and bit-identical to ``flash_attention_cuda`` with the
+    model's own arguments (``bq``/``bk`` included).  Its gradients against
+    autograd through ``flash_attention_ref`` on the float32 copies; a
+    backward whose causal mask is dropped must fail the same check.  Times
+    the Function's forward + backward beside the plain version's (at the
+    inputs' dtype)."""
+    plain_kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+
+    def forward():
+        return FlashAttention.apply(q, k, v, kw["causal"], kw["window"], kw["softcap"], kw["scale"],
+                                    kw["bq"], kw["bk"], True)
+
+    def fn():
+        return torch.autograd.grad(forward(), (q, k, v), dout)
+
+    def plain():
+        return torch.autograd.grad(flash_attention_ref(q, k, v, **plain_kw), (q, k, v), dout)
+
+    before = dict(flash_attention_cuda.launches_by_route)
+    out = forward()
+    routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    if routes != {r: int(r == "wgmma") for r in routes}:
+        raise SystemExit(f"chip_smoke: the Function's forward {what} went {routes}, not 'wgmma'")
+    Sk = k.shape[2]
+    fault = "first_key_tile_dropped" if not kw["window"] or kw["window"] >= Sk else "window_one_tile_short"
+    forward_check = _check_serve_flash(out.detach(), q.detach(), k.detach(), v.detach(), kw, what,
+                                       fault=fault, fp32=True)
+    same = torch.equal(out, flash_attention_cuda(q.detach(), k.detach(), v.detach(), **kw))
+    if not same:
+        raise SystemExit(f"chip_smoke: the Function's forward {what} differs from flash_attention_cuda's")
+    del out
+    got = fn()
+    want = torch.autograd.grad(flash_attention_ref(q32, k32, v32, **plain_kw), (q32, k32, v32), dout.float())
+    bad = attention_backward(q.detach(), k.detach(), v.detach(), dout, **{**plain_kw, "causal": not kw["causal"]})
+    tol = TRAIN_GRAD_TOL["flash_attention"]
+    row = {"what": what, "shape": list(q.shape), "kv": list(k.shape), "window": kw["window"], "softcap": kw["softcap"],
+           "forward": {**forward_check, "bit_identical_to_flash_attention_cuda": same},
+           "rel": {n: _grad_rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)},
+           "rel_to_the_bf16_plain_version": {n: _grad_rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, plain())},
+           "planted_rel": {n: _grad_rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), bad, want)}, "tol": tol}
+    del want
+    row["ms"], row["plain_ms"] = cuda_ms(fn, 3), cuda_ms(plain, 3)
+    if not max(row["rel"].values()) <= tol:
+        raise SystemExit(f"chip_smoke: flash_attention's gradient {what} differs from its plain version's: {row}")
+    if max(row["planted_rel"].values()) <= tol:
+        raise SystemExit(f"chip_smoke: the flash gradient check passed a backward without its causal mask: {row}")
+    return row
+
+
+def train_scan_grads(log_a, b, what: str) -> dict:
+    """(d) ``RGLRUScan`` (the kernel forward and the kernel on the reversed
+    recurrence) against autograd through ``rglru_scan_ref`` on a training
+    step's own inputs, with a random ``h0`` so that ``dh0`` is checked; a
+    reversed recurrence that does not shift the decays by one step must
+    fail the same check."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    h0 = torch.randn(log_a.shape[0], log_a.shape[2], generator=g, device="cuda")
+    dh = torch.randn(log_a.shape, generator=g, device="cuda")
+    la, bb, h0 = (t.detach().requires_grad_(True) for t in (log_a, b, h0))
+
+    def fn():
+        return torch.autograd.grad(RGLRUScan.apply(la, bb, h0, None, None, True), (la, bb, h0), dh)
+
+    def plain():
+        return torch.autograd.grad(rglru_scan_ref(la, bb, h0), (la, bb, h0), dh)
+
+    got, want = fn(), plain()
+    g_bad = rglru_scan_cuda(la.detach().flip(1).contiguous(), dh.flip(1).contiguous(), None, bs=None, bd=None).flip(1)
+    tol = TRAIN_GRAD_TOL["rglru_scan"]
+    row = {"what": what, "shape": list(la.shape),
+           "rel": {n: _grad_rel(a, w) for n, a, w in zip(("dlog_a", "db", "dh0"), got, want)},
+           "planted_rel_db": _grad_rel(g_bad, want[1]), "tol": tol}
+    row["ms"], row["plain_ms"] = cuda_ms(fn, 3), cuda_ms(plain, 1)
+    if not max(row["rel"].values()) <= tol:
+        raise SystemExit(f"chip_smoke: rglru_scan's gradient {what} differs from its plain version's: {row}")
+    if row["planted_rel_db"] <= tol:
+        raise SystemExit(f"chip_smoke: the scan gradient check passed an unshifted reversed recurrence: {row}")
+    return row
+
+
+def train_checkpoint_resume(out: dict) -> None:
+    """Checkpoints on the card at smoke width (float32): save after one
+    step, restore bit for bit, and the resumed step's loss is the
+    uninterrupted step's (its parameters within 1e-6 in L2: the backward's
+    index and scatter adds run in any order on the card)."""
+    cfg = get_smoke_config(TRAIN_SINGLE["arch"]).replace(dtype=torch.float32)
+    data = SyntheticLMData(cfg, batch=2, seq=32)
+    step = make_train_step(cfg, warmup_cosine(3e-3, 1, 3))
+    state, _ = step(init_train_state(cfg, 0, device="cuda"), data.batch_at(0))
+    path = ARTIFACTS / "train_ckpt"
+    save_checkpoint(str(path), 1, {"train": state}, extra={"data": {"next_index": 1, "seed": 0}})
+    restored, man = load_checkpoint(str(path), {"train": init_train_state(cfg, 1, device="cuda")})
+    restored = restored["train"]
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(restored), tree_leaves(state)))
+    nxt = data.batch_at(man["extra"]["data"]["next_index"])
+    (a, am), (b, bm) = step(state, nxt), step(restored, nxt)
+    with torch.no_grad():
+        dist = max(float((x - y).norm() / y.norm().clamp_min(1e-30))
+                   for (_, x), (_, y) in zip(tree_leaves(b.params), tree_leaves(a.params)))
+    out["checkpoint"] = {"restored_bit_identical": same, "resumed_loss": float(bm["loss"]), "loss": float(am["loss"]),
+                         "resumed_params_l2_rel": dist}
+    if not (same and torch.equal(am["loss"], bm["loss"]) and dist <= 1e-6):
+        raise SystemExit(f"chip_smoke: a restored checkpoint does not resume the run: {out['checkpoint']}")
+
+
+def phase_train() -> dict:
+    """(a) gemma2-2b trains at full width, (b) granite-moe's four groups
+    balanced by DFPA, (c) recurrentgemma-2b's scan under training, (d) the
+    kernels' gradients on inputs captured from (a) and (c), and the
+    checkpoint check.  Returns the launches of (a)-(c) by kernel and route."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {}
+    for part, fn in (("gemma2-2b", train_gemma), ("recurrentgemma-2b", train_rec)):
+        row = {"phase": "train", "part": part}
+        t0 = time.perf_counter()
+        try:
+            with _Capture() as cap:  # the kernels' inputs for (d)
+                fn(row)
+            rows[part] = (row, cap.flash_by_window, cap.seen.get("rglru_scan"))
+        finally:
+            row["seconds"] = time.perf_counter() - t0
+            emit(row)
+    row = {"phase": "train", "part": "groups"}
+    t0 = time.perf_counter()
+    try:
+        train_groups(row)
+    finally:
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+    rows["groups"] = (row, None, None)
+    grads = {"phase": "train", "part": "gradients", "flash_attention": {}, "rglru_scan": None}
+    t0 = time.perf_counter()
+    try:
+        for window, (q, k, v, kw) in sorted(rows["gemma2-2b"][1].items()):
+            kind = "local" if window else "global"
+            grads["flash_attention"][kind] = train_flash_grads(q, k, v, kw, f"on gemma2-2b's training inputs ({kind} layer)")
+        log_a, b, _, _ = rows["recurrentgemma-2b"][2]
+        grads["rglru_scan"] = train_scan_grads(log_a, b, "on recurrentgemma-2b's training inputs")
+        train_checkpoint_resume(grads)
+    finally:
+        grads["seconds"] = time.perf_counter() - t0
+        emit(grads)
+    launches = {"flash_attention": dict.fromkeys(flash_attention_cuda.launches_by_route, 0), "rglru_scan": 0}
+    for row, _, _ in rows.values():
+        for r, n in row["launches"]["flash_attention_by_route"].items():
+            launches["flash_attention"][r] += n
+        launches["rglru_scan"] += row["launches"]["rglru_scan"]
+    return launches
+
 
 def main() -> int:
     seconds = {}
@@ -3020,14 +3373,17 @@ def main() -> int:
     fleet_launches, fleet_routes = run("fleet", phase_fleet)
     dispatch = run("dispatch", phase_dispatch)
     decoder_routes, decoder_timing = run("decoders", phase_decoders)
+    train = run("train", phase_train)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
                 "straggler": straggler_launches, "fleet": fleet_launches}
     by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
     serve_by_phase = {k: {"serve": serve["launches"][k], "dispatch": dispatch[k]} for k in SERVE_LAUNCHES}
     serve_by_phase["flash_attention"]["decoders"] = sum(decoder_routes.values())
     serve_by_phase["rglru_scan"]["decoders"] = 0
+    serve_by_phase["flash_attention"]["train"] = sum(train["flash_attention"].values())
+    serve_by_phase["rglru_scan"]["train"] = train["rglru_scan"]
     launches = {"matmul_update": sum(by_phase.values()), **{k: sum(v.values()) for k, v in serve_by_phase.items()}}
-    flash_routes = {r: v + dispatch["flash_attention_by_route"][r] + decoder_routes[r]
+    flash_routes = {r: v + dispatch["flash_attention_by_route"][r] + decoder_routes[r] + train["flash_attention"][r]
                     for r, v in serve["launches_by_route"]["flash_attention"].items()}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},

@@ -5,9 +5,6 @@ vocab=102400, MoE 160e top-6, MLA kv_lora=512, 2 shared experts
 Notes: the assignment's d_ff=1536 is the routed-expert intermediate size;
 the first layer is dense with intermediate 12288 (per the HF config).
 MLA: q_lora 1536, kv_lora 512, rope_head 64, nope_head 128, v_head 128.
-
-The reference's config also sets ``train_accum=8``, which only training
-reads (not ported yet).
 """
 
 from ..models.config import ModelConfig
@@ -38,13 +35,12 @@ CONFIG = ModelConfig(
     mlp_kind="swiglu",
     rope_theta=10000.0,
     tie_embeddings=False,
+    train_accum=8,
     attn_chunk_threshold=4096,
 )
 
 
 def smoke_config() -> ModelConfig:
-    # The reference's smoke config also sets xent_chunk=0 and remat="none",
-    # which only training reads (not ported yet).
     return CONFIG.replace(
         name="deepseek-v2-smoke",
         num_layers=3,
@@ -64,4 +60,6 @@ def smoke_config() -> ModelConfig:
         num_shared_experts=1,
         top_k=2,
         d_ff_expert=64,
+        xent_chunk=0,
+        remat="none",
     )

@@ -1,9 +1,6 @@
 """gemma2-27b [dense] — 46L d_model=4608 32H (GQA kv=16) d_ff=36864
 vocab=256000.  Local/global alternating, softcaps, GeGLU, post-norms,
 query scale 1/sqrt(d_model/num_heads) [arXiv:2408.00118; hf].
-
-The reference's config also sets ``train_accum=4``, which only training
-reads (not ported yet).
 """
 
 import math
@@ -30,13 +27,12 @@ CONFIG = ModelConfig(
     query_scale=1.0 / math.sqrt(4608 / 32),  # 27b uses d_model/num_heads
     tie_embeddings=True,
     embed_scale=math.sqrt(4608),
+    train_accum=4,
     attn_chunk_threshold=4096,
 )
 
 
 def smoke_config() -> ModelConfig:
-    # The reference's smoke config also sets xent_chunk=0 and remat="none",
-    # which only training reads (not ported yet).
     return CONFIG.replace(
         name="gemma2-27b-smoke",
         num_layers=2,
@@ -49,4 +45,6 @@ def smoke_config() -> ModelConfig:
         window=8,
         query_scale=1.0 / math.sqrt(16),
         embed_scale=8.0,
+        xent_chunk=0,
+        remat="none",
     )

@@ -2,9 +2,6 @@
 
 Local(4096)/global alternating attention, attn-logit softcap 50, final
 softcap 30, GeGLU, sandwich post-norms, head_dim 256 [arXiv:2408.00118; hf].
-
-The reference's config also sets ``train_accum=2``, which only training
-reads (not ported yet).
 """
 
 import math
@@ -31,12 +28,11 @@ CONFIG = ModelConfig(
     query_scale=1.0 / math.sqrt(256),
     tie_embeddings=True,
     embed_scale=math.sqrt(2304),
+    train_accum=2,
 )
 
 
 def smoke_config() -> ModelConfig:
-    # The reference's smoke config also sets xent_chunk=0 and remat="none",
-    # which only training reads (not ported yet).
     return CONFIG.replace(
         name="gemma2-2b-smoke",
         num_layers=2,
@@ -49,4 +45,6 @@ def smoke_config() -> ModelConfig:
         window=8,
         query_scale=1.0 / math.sqrt(16),
         embed_scale=8.0,
+        xent_chunk=0,
+        remat="none",
     )

@@ -2,9 +2,6 @@
 
 Code LM, llama-arch per the assignment [arXiv:2405.04324; hf].  d_ff = 4x
 d_model -> non-gated GELU MLP; MQA (kv=1); RoPE; untied head.
-
-The reference's config also sets ``train_accum=4``, which only training
-reads (not ported yet).
 """
 
 from ..models.config import ModelConfig
@@ -23,13 +20,12 @@ CONFIG = ModelConfig(
     mlp_kind="gelu",
     rope_theta=10000.0,
     tie_embeddings=False,
+    train_accum=4,
     attn_chunk_threshold=4096,
 )
 
 
 def smoke_config() -> ModelConfig:
-    # The reference's smoke config also sets xent_chunk=0 and remat="none",
-    # which only training reads (not ported yet).
     return CONFIG.replace(
         name="granite-20b-smoke",
         num_layers=2,
@@ -39,4 +35,6 @@ def smoke_config() -> ModelConfig:
         head_dim=16,
         d_ff=256,
         vocab_size=512,
+        xent_chunk=0,
+        remat="none",
     )

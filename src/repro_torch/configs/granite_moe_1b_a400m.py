@@ -26,8 +26,6 @@ CONFIG = ModelConfig(
 
 
 def smoke_config() -> ModelConfig:
-    # The reference's smoke config also sets xent_chunk=0 and remat="none",
-    # which only training reads (not ported yet).
     return CONFIG.replace(
         name="granite-moe-smoke",
         num_layers=2,
@@ -40,4 +38,6 @@ def smoke_config() -> ModelConfig:
         num_experts=4,
         top_k=2,
         d_ff_expert=64,
+        xent_chunk=0,
+        remat="none",
     )

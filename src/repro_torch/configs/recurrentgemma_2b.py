@@ -37,8 +37,6 @@ CONFIG = ModelConfig(
 
 
 def smoke_config() -> ModelConfig:
-    # The reference's smoke config also sets xent_chunk=0 and remat="none",
-    # which only training reads (not ported yet).
     return CONFIG.replace(
         name="recurrentgemma-smoke",
         num_layers=5,
@@ -52,4 +50,6 @@ def smoke_config() -> ModelConfig:
         d_rnn=64,
         embed_scale=8.0,
         query_scale=1.0 / math.sqrt(16),
+        xent_chunk=0,
+        remat="none",
     )

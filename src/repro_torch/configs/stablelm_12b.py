@@ -1,9 +1,6 @@
 """stablelm-12b [dense] — 40L d_model=5120 32H (GQA kv=8) d_ff=13824
 vocab=100352.  SwiGLU, partial rotary 25%, untied head
 [hf:stabilityai/stablelm-2-12b; hf].
-
-The reference's config also sets ``train_accum=4``, which only training
-reads (not ported yet).
 """
 
 from ..models.config import ModelConfig
@@ -23,13 +20,12 @@ CONFIG = ModelConfig(
     rope_theta=10000.0,
     rope_fraction=0.25,
     tie_embeddings=False,
+    train_accum=4,
     attn_chunk_threshold=4096,
 )
 
 
 def smoke_config() -> ModelConfig:
-    # The reference's smoke config also sets xent_chunk=0 and remat="none",
-    # which only training reads (not ported yet).
     return CONFIG.replace(
         name="stablelm-12b-smoke",
         num_layers=2,
@@ -39,4 +35,6 @@ def smoke_config() -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=512,
+        xent_chunk=0,
+        remat="none",
     )

@@ -35,6 +35,16 @@ run time.
 ``flash_attention_cuda.launches`` counts the kernel's launches and
 ``flash_attention_cuda.launches_by_route`` the same launches by route; the
 wrapper increments both where it launches the kernel and nowhere else.
+
+Gradients: :class:`FlashAttention` is the ``autograd.Function`` that
+``ops.flash_attention`` applies to CUDA tensors.  Its forward is the kernel
+(no log-sum-exp is kept); its backward recomputes the attention weights in
+plain torch from the saved ``q``, ``k`` and ``v``, one block of query rows
+at a time, with the logits in fp32 as the kernel takes them, and
+differentiates that (:func:`attention_backward`) — the reference's
+training schedule
+(``_sdpa_chunked``, which its training differentiates; the Pallas kernel
+has no backward).  No backward kernel runs.
 """
 
 from __future__ import annotations
@@ -47,9 +57,14 @@ import torch
 
 from .. import _build
 
-__all__ = ["ROUTES", "check_blocks", "check_causal", "flash_attention_cuda", "flash_attention_route", "wgmma_smem_bytes"]
+__all__ = [
+    "ROUTES", "FlashAttention", "attention_backward", "attention_rows", "check_blocks", "check_causal",
+    "flash_attention_cuda", "flash_attention_route", "wgmma_smem_bytes",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NEG_INF = -2.0e38
+BACKWARD_LOGITS = 2**27  # logits a block of query rows may hold in the backward
 ROUTES = ("rows", "mma", "wgmma")  # in the C entry's numbering
 
 
@@ -179,3 +194,91 @@ def flash_attention_cuda(
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+
+
+def attention_rows(q, k, v, q_pos, k_pos, *, causal: bool, window: int, softcap: float, scale: float):
+    """Plain softmax attention of query rows at positions ``q_pos`` over
+    keys at ``k_pos``: GQA by repeating K/V; logits, softcap, masks and
+    softmax in float32 (float64 for float64 inputs), the weights cast to
+    ``v``'s dtype.  The same function as the kernel's, which accumulates
+    the logits in fp32 (``ref.flash_attention_ref``, as the reference's
+    plain attention, rounds bf16 logits to bf16 first)."""
+    G = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(G, dim=1) if G > 1 else k
+    vr = v.repeat_interleave(G, dim=1) if G > 1 else v
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kr.to(acc)) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vr)
+
+
+def attention_backward(q, k, v, dout, *, causal: bool, window: int, softcap: float, scale: float) -> tuple:
+    """``(dq, dk, dv)`` of attention at ``dout``: each block of query rows
+    recomputed by :func:`attention_rows` and differentiated there, so at
+    most ``BACKWARD_LOGITS`` logits are live."""
+    B, H, Sq, _ = q.shape
+    Sk = k.shape[2]
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    k_pos = torch.arange(Sk, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.promote_types(k.dtype, torch.float32), device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.promote_types(v.dtype, torch.float32), device=v.device)
+    L = max(1, min(Sq, BACKWARD_LOGITS // max(B * H * Sk, 1)))
+    for i0 in range(0, Sq, L):
+        i1 = min(Sq, i0 + L)
+        q_pos = torch.arange(i0, i1, device=q.device) + (Sk - Sq)  # rows right-aligned to the keys
+        with torch.enable_grad():
+            qi = q[:, :, i0:i1].detach().requires_grad_(True)
+            ki, vi = k.detach().requires_grad_(True), v.detach().requires_grad_(True)
+            out = attention_rows(qi, ki, vi, q_pos, k_pos, **kw)
+            gq, gk, gv = torch.autograd.grad(out, (qi, ki, vi), dout[:, :, i0:i1])
+        dq[:, :, i0:i1] = gq
+        dk += gk
+        dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward is the kernel when ``kernel``
+    (``ops.flash_attention`` on CUDA tensors; it raises on others); the
+    backward is :func:`attention_backward`.  ``kernel=False`` exists for
+    the CPU gradcheck only (no caller of the model passes it): the forward
+    is then :func:`attention_rows` on host tensors, so the backward can be
+    checked without the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, bq, bk, kernel):
+        kw = dict(causal=bool(causal), window=int(window), softcap=float(softcap),
+                  scale=float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])))
+        if kernel:
+            out = flash_attention_cuda(q, k, v, bq=bq, bk=bk, **kw)
+        else:
+            check_causal(q.shape[-2], k.shape[-2], causal)
+            check_operands(q, k, v)
+            check_blocks(q.shape[2], k.shape[2], bq, bk)
+            Sq, Sk = q.shape[2], k.shape[2]
+            out = attention_rows(q, k, v, torch.arange(Sk - Sq, Sk, device=q.device),
+                                 torch.arange(Sk, device=q.device), **kw)
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None

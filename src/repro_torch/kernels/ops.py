@@ -6,6 +6,14 @@ PyTorch version, a CUDA tensor runs the kernel or raises — nothing falls
 back from the card to the plain version.  ``impl="cuda"`` insists on the
 kernel, ``impl="ref"`` on the plain version, which takes CPU tensors only.
 The reference's block rule applies on every path where blocks are given.
+
+Gradients: on a CUDA tensor ``flash_attention`` and ``rglru_scan`` go
+through their ``autograd.Function`` (``flash_attention.FlashAttention``,
+``rglru.RGLRUScan``), whose forward is the kernel with its counts and
+routes and whose backward is plain torch (and, for the scan, the kernel
+again on the reversed recurrence); it never calls ``ref``.  On a CPU tensor
+autograd runs through the plain version.  ``matmul_update`` writes ``c``
+in place and has no gradient (DFPA's measured kernel, not the model's).
 """
 
 from __future__ import annotations
@@ -15,9 +23,7 @@ from typing import Optional
 from . import ref
 from . import flash_attention as _fa
 from . import rglru as _rg
-from .flash_attention import flash_attention_cuda
 from .matmul_update import check_blocks, matmul_update_cuda
-from .rglru import rglru_scan_cuda
 
 __all__ = ["matmul_update", "flash_attention", "rglru_scan"]
 
@@ -53,7 +59,7 @@ def flash_attention(
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     _fa.check_causal(q.shape[-2], k.shape[-2], causal)
     if _use_kernel("flash_attention", impl, q):
-        return flash_attention_cuda(q, k, v, bq=bq, bk=bk, **kw)
+        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap, scale, bq, bk, True)
     _fa.check_operands(q, k, v)
     _fa.check_blocks(q.shape[2], k.shape[2], bq, bk)
     return ref.flash_attention_ref(q, k, v, **kw)
@@ -63,7 +69,7 @@ def rglru_scan(log_a, b, h0=None, *, impl: str = "auto", bs: Optional[int] = 256
     """``h_t = exp(log_a_t) * h_{t-1} + b_t`` along axis 1 from ``h0``
     (zeros when None); returns a new ``(B, S, D)`` float32 tensor."""
     if _use_kernel("rglru_scan", impl, log_a):
-        return rglru_scan_cuda(log_a, b, h0, bs=bs, bd=bd)
+        return _rg.RGLRUScan.apply(log_a, b, h0, bs, bd, True)
     _, S, D = _rg.check_operands(log_a, b, h0)
     _rg.check_blocks(S, D, bs, bd)
     return ref.rglru_scan_ref(log_a, b, h0)

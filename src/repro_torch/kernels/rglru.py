@@ -17,6 +17,17 @@ the wrapper allocates.
 
 ``rglru_scan_cuda.launches`` counts the kernel's launches; the wrapper
 increments it where it launches the kernel and nowhere else.
+
+Gradients: :class:`RGLRUScan` is the ``autograd.Function`` that
+``ops.rglru_scan`` applies to CUDA tensors.  Its forward is the kernel.
+Its backward is the same linear recurrence run in reverse,
+``g_t = dh_t + a_{t+1} g_{t+1}`` (``a = exp(log_a)``), which it runs
+through the same kernel on flipped inputs with the decays shifted by one
+step (:func:`reverse_scan`); then ``db_t = g_t``,
+``dlog_a_t = g_t a_t h_{t-1}`` and ``dh0 = a_0 g_0`` are elementwise torch.
+So a backward launches the kernel once more.  (The reference
+differentiates its ``associative_scan``; the Pallas kernel has no
+backward.)
 """
 
 from __future__ import annotations
@@ -27,8 +38,9 @@ from typing import Optional
 import torch
 
 from .. import _build
+from . import ref
 
-__all__ = ["check_blocks", "chunk_steps", "rglru_scan_cuda"]
+__all__ = ["RGLRUScan", "check_blocks", "chunk_steps", "reverse_scan", "rglru_scan_cuda"]
 
 
 def check_blocks(S: int, D: int, bs: Optional[int] = 256, bd: Optional[int] = 512) -> None:
@@ -119,3 +131,56 @@ def rglru_scan_cuda(
 
 
 rglru_scan_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+
+
+def reverse_scan(log_a: torch.Tensor, x: torch.Tensor, kernel: bool) -> torch.Tensor:
+    """``g_t = x_t + exp(log_a_{t+1}) g_{t+1}`` from ``g_{S-1} = x_{S-1}``:
+    the forward recurrence on the flipped sequence with the decays shifted
+    by one step — the kernel when ``kernel``, else ``ref.rglru_scan_ref``
+    (host tensors: the CPU gradcheck's path only)."""
+    shifted = torch.cat([log_a[:, 1:], torch.zeros_like(log_a[:, :1])], dim=1)
+    la, xr = shifted.flip(1).contiguous(), x.flip(1).contiguous()
+    if kernel:
+        g = rglru_scan_cuda(la, xr, None, bs=None, bd=None)
+    else:
+        g = ref.rglru_scan_ref(la, xr)
+    return g.flip(1)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The recurrence with a gradient: with ``kernel`` (``ops.rglru_scan``
+    on CUDA tensors; it raises on others) the forward and the backward's
+    reversed recurrence are the kernel; the rest of the backward is
+    elementwise torch.  ``kernel=False`` exists for the CPU gradcheck only
+    (no caller of the model passes it): the recurrence is then
+    ``ref.rglru_scan_ref`` on host tensors, so the backward's formulas can
+    be checked without the card."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, h0, bs, bd, kernel):
+        if kernel:
+            h = rglru_scan_cuda(log_a, b, h0, bs=bs, bd=bd)
+        else:
+            _, S, D = check_operands(log_a, b, h0)
+            check_blocks(S, D, bs, bd)
+            h = ref.rglru_scan_ref(log_a, b, h0)
+        ctx.save_for_backward(log_a, h, h0)
+        ctx.kernel = kernel
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh):
+        log_a, h, h0 = ctx.saved_tensors
+        g = reverse_scan(log_a, dh.to(h.dtype), ctx.kernel)
+        a = torch.exp(log_a)
+        first = h0 if h0 is not None else torch.zeros_like(h[:, 0])
+        h_prev = torch.cat([first[:, None], h[:, :-1]], dim=1)
+        dlog_a = g * a * h_prev if ctx.needs_input_grad[0] else None
+        dh0 = a[:, 0] * g[:, 0] if h0 is not None and ctx.needs_input_grad[2] else None
+        return dlog_a, g, dh0, None, None, None

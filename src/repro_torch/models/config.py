@@ -2,12 +2,12 @@
 
 The port's copy of the reference's ``models/config.py``: the same fields,
 defaults and checks, with torch dtypes for ``dtype`` and ``logit_dtype``.
-The serving paths of the dense, MoE, MLA and hybrid decoders run in this
-package.  The fields that only the encoder-decoder and frontend families,
-training or the reference's distribution knobs read are kept so that a
-config reads the same on both sides, but a value other than the default
-raises ``NotImplementedError``: nothing in the port would read it yet
-(ROADMAP queue 1, item 10: what remains of the LLM stack).
+The serving and training paths of the dense, MoE, MLA and hybrid decoders
+run in this package.  The fields that only the encoder-decoder and frontend
+families or the reference's dry run read are kept so that a config reads
+the same on both sides, but a value other than the default raises
+``NotImplementedError``: nothing in the port would read it yet (ROADMAP
+queue 1, item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -99,8 +99,11 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     xent_chunk: int = 512
 
-    # Distribution knobs of the reference (remat, scanned layers, gradient
-    # accumulation, dry-run unrolling); the port reads only scan_layers.
+    # Training and distribution knobs: ``remat="full"`` recomputes each
+    # layer in the backward (``torch.utils.checkpoint``); ``train_accum``,
+    # the configured gradient-accumulation length, is carried as the
+    # reference carries it (only its dry run reads it); the dry run's
+    # ``unroll_scans`` is refused.
     remat: str = "full"
     scan_layers: bool = True
     train_accum: int = 1
@@ -155,10 +158,9 @@ class ModelConfig:
         return replace(self, **kw)
 
 
-# Fields whose families (encoder-decoder, frontends), training path or
-# knobs are not ported yet.
+# Fields whose families (encoder-decoder, frontends) or dry run (item 10f)
+# are not ported yet.
 _NOT_READ = (
-    "encoder_layers", "encoder_pattern", "frontend", "num_prefix_embeddings",
-    "zloss", "xent_chunk", "remat", "train_accum", "unroll_scans",
+    "encoder_layers", "encoder_pattern", "frontend", "num_prefix_embeddings", "unroll_scans",
 )
 _DEFAULTS = {f.name: f.default for f in fields(ModelConfig)}

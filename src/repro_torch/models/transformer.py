@@ -1,4 +1,5 @@
-"""Decoder-LM assembly: blocks, the layer loop, caches, serving entry points.
+"""Decoder-LM assembly: blocks, the layer loop, caches, loss, serving entry
+points.
 
 The port's copy of the reference's ``models/transformer.py`` for the layer
 kinds ``attn``, ``local`` and ``rec``, with GQA or MLA attention and dense
@@ -8,8 +9,11 @@ repeated layer's MLP is a mixture of experts when the config has experts
 (:func:`_layer_is_moe`).  The reference scans one unit body over stacked
 parameters with ``lax.scan`` (under ``jax.checkpoint`` when
 ``remat="full"``, with ``maybe_constrain`` sharding hints); the port keeps
-one module per layer and runs a Python loop over them.  Remat and sharding
-hints have no counterpart in serving and are dropped.
+one module per layer and runs a Python loop over them.  When the
+parameters require gradients and ``remat="full"``, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward, as the reference recomputes its unit body.  Sharding
+hints have no counterpart on one card and are dropped.
 
 Parameters: ``LanguageModel`` holds them under the reference's tree keys
 (``embed.embedding``, ``prefix.0.rec.wa``, ``layers.4.attn.wq``,
@@ -21,11 +25,16 @@ are gathered before the cast to ``cfg.dtype`` (the reference casts the
 table first, for sharding): the values are the same, and the 256k-row
 table is not cast whole per token.
 
+Training reads the parameters in the reference's stacked layout
+(:class:`StackedParams`: ``units[s]`` leaves with a leading ``num_units``
+axis, sliced per layer by ``unbind``, so each stacked tensor gets one
+gradient).  :func:`lm_loss` is the reference's chunked cross-entropy.
+
 Caches: a list with one entry per layer, in depth order (the reference
 stacks the units' caches).  Prefill and decode update them in place.
 
-The self-contained ``mlstm``/``slstm`` kinds, ``prefix_embeds``,
-cross-attention units and ``lm_loss`` come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
+The self-contained ``mlstm``/``slstm`` kinds, ``prefix_embeds`` and
+cross-attention units come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
 """
 
 from __future__ import annotations
@@ -33,9 +42,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.convert import unstack_tree
-from ..nn.params import ParamSpec, ParamTree, init_tree
+from ..nn.params import ParamSpec, ParamTree, init_tree, tree_leaves
 from .attention import apply_attn, apply_mla, attn_spec, init_attn_cache, init_mla_cache, mla_spec
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, embedding_spec, mlp_spec, norm_spec, softcap, stacked
@@ -44,6 +54,7 @@ from .recurrent import apply_rglru_block, init_rglru_cache, rglru_spec
 
 __all__ = [
     "LanguageModel",
+    "StackedParams",
     "apply_block",
     "apply_lm",
     "block_spec",
@@ -51,6 +62,7 @@ __all__ = [
     "init_cache",
     "init_lm",
     "lm_logits",
+    "lm_loss",
     "lm_spec",
     "prefill",
 ]
@@ -194,6 +206,43 @@ class LanguageModel(torch.nn.Module):
         return model
 
 
+def _split_units(node, n: int) -> List:
+    """A stacked (sub)tree as ``n`` trees of slices, one ``unbind`` a leaf."""
+    if isinstance(node, dict):
+        parts = {k: _split_units(v, n) for k, v in node.items()}
+        return [{k: parts[k][u] for k in node} for u in range(n)]
+    return list(node.unbind(0))
+
+
+class StackedParams:
+    """A parameter tree in the reference's layout (``embed``, ``prefix``,
+    ``units`` stacked along a leading ``num_units`` axis, ``final_norm``,
+    ``head``) read as :func:`apply_lm` reads a ``LanguageModel``:
+    ``block(i)`` is layer ``i``'s dict of tensors, the units' as slices of
+    the stacked leaves (one ``unbind`` per leaf, so autograd hands each
+    stacked tensor one gradient)."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict):
+        self.cfg, self.tree = cfg, tree
+        n_pre, n_slots = len(cfg.prefix), len(cfg.pattern)
+        slots = [_split_units(slot, cfg.num_units) for slot in tree["units"]]
+        if len(tree["prefix"]) != n_pre or len(slots) != n_slots:
+            raise ValueError(f"{cfg.name}: the tree has {len(tree['prefix'])} prefix layers and {len(slots)} "
+                             f"pattern slots, the config {n_pre} and {n_slots}")
+        self._blocks = list(tree["prefix"]) + [slots[s][u] for u in range(cfg.num_units) for s in range(n_slots)]
+
+    def __getitem__(self, key: str):
+        return self.tree[key]
+
+    def block(self, i: int) -> Dict:
+        return self._blocks[i]
+
+
+def _requires_grad(params) -> bool:
+    leaves = (t for _, t in tree_leaves(params.tree)) if isinstance(params, StackedParams) else params.parameters()
+    return any(t.requires_grad for t in leaves)
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> LanguageModel:
     """A ``LanguageModel`` with random weights drawn by ``init_tree`` from
     ``generator`` (which must live on ``device``)."""
@@ -243,17 +292,26 @@ def apply_lm(
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
     """Returns (hidden (B,S,d), new_caches, aux_loss_sum): the MoE layers'
-    aux losses summed in depth order."""
+    aux losses summed in depth order.  ``params``: a ``LanguageModel`` or
+    :class:`StackedParams`.  With gradients on, ``remat="full"`` and no
+    caches, each layer runs under ``torch.utils.checkpoint``."""
     x = _embed_tokens(params, cfg, tokens)
     new_caches = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     n_pre = len(cfg.prefix)
+    remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled() and _requires_grad(params)
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if caches is not None else None
-        x, nc, aux = apply_block(
-            params.block(i), cfg, kind, x, positions,
-            moe=_layer_is_moe(cfg, kind, i < n_pre), cache=c, decode=decode, causal=causal,
-        )
+        kw = dict(moe=_layer_is_moe(cfg, kind, i < n_pre), cache=c, decode=decode, causal=causal)
+        if remat:
+            def layer(x, block=params.block(i), kind=kind, kw=kw):
+                y, _, aux = apply_block(block, cfg, kind, x, positions, **kw)
+                return y, aux
+
+            x, aux = checkpoint(layer, x, use_reentrant=False)
+            nc = None
+        else:
+            x, nc, aux = apply_block(params.block(i), cfg, kind, x, positions, **kw)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
@@ -265,6 +323,105 @@ def lm_logits(params: LanguageModel, cfg: ModelConfig, hidden: torch.Tensor) -> 
     w = params["embed"]["embedding"].T if cfg.tie_embeddings else params["head"]
     logits = (hidden @ w.to(hidden.dtype)).to(cfg.logit_dtype)
     return softcap(logits, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy over the sequence)
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor, cap: float):
+    """One chunk's summed nll, label count and summed ``lse**2``."""
+    logits = softcap((h @ w).to(torch.float32), cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y.clamp_min(0)[..., None])[..., 0]
+    mask = (y >= 0).to(torch.float32)
+    return ((lse - gold) * mask).sum(), mask.sum(), (lse.square() * mask).sum()
+
+
+class _XentChunk(torch.autograd.Function):
+    """:func:`_xent_chunk` with its logits recomputed in the backward, as
+    the reference's ``jax.checkpoint`` of the chunk recomputes them; the
+    backward works on the float32 logits in place, so a chunk holds about
+    two logits-sized float32 buffers (autograd through the forward would
+    keep five)."""
+
+    @staticmethod
+    def forward(ctx, h, w, y, cap):
+        with torch.no_grad():
+            out = _xent_chunk(h, w, y, cap)
+        ctx.save_for_backward(h, w, y)
+        ctx.cap = cap
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_nll, g_cnt, g_zl):
+        h, w, y = ctx.saved_tensors
+        cap = ctx.cap
+        z = (h @ w).to(torch.float32)
+        t = z.div_(cap).tanh_() if cap > 0 else None  # tanh(z / cap), in z's buffer
+        s = t * cap if t is not None else z
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        mask = (y >= 0).to(torch.float32)[..., None]
+        p = s.sub_(lse).exp_()  # softmax, in s's buffer
+        # d(nll_sum)/ds = mask (p - onehot); d(zl_sum)/ds = mask 2 lse p
+        p.mul_(mask * (g_nll + 2.0 * g_zl * lse))
+        p.scatter_add_(-1, y.clamp_min(0)[..., None], -(g_nll * mask))
+        if t is not None:
+            p.mul_(t.square_().neg_().add_(1.0))  # ds/dz = 1 - tanh^2
+            del t
+        dz = p.to(h.dtype)
+        del p, s, z
+        dh = dz @ w.T if ctx.needs_input_grad[0] else None
+        dw = h.reshape(-1, h.shape[-1]).T @ dz.reshape(-1, dz.shape[-1]) if ctx.needs_input_grad[1] else None
+        return dh, dw, None, None
+
+
+def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``lm_loss``: ``batch`` holds ``tokens`` and
+    ``labels`` ``(B, S)`` (label -1 = ignored); returns ``(loss,
+    metrics)`` with ``nll``, ``tokens`` and ``aux``.  ``params``: the
+    parameter tree in the reference's stacked layout (the training state's;
+    read through :class:`StackedParams`).  The cross-entropy runs over
+    ``xent_chunk`` positions of every sequence at a time (the whole
+    sequence when it is 0 or does not divide it), each chunk's logits
+    recomputed in the backward when gradients are on (:class:`_XentChunk`),
+    so the backward holds one chunk's float32 logits; ``final_softcap``,
+    the ``zloss`` term and the MoE aux term ``aux_loss_weight * aux /
+    num_layers`` as the reference adds them."""
+    if not isinstance(params, dict):
+        raise TypeError(f"lm_loss takes the stacked parameter tree, not {type(params).__name__} "
+                        "(nn.convert.stack_tree turns a model's state_dict into it)")
+    if "prefix_embeds" in batch:
+        raise NotImplementedError(f"prefix_embeds (modality frontends) are not ported yet {_LATER}")
+    params = StackedParams(cfg, params)
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    hidden, _, aux = apply_lm(params, cfg, tokens, torch.arange(S, device=tokens.device))
+    w = params["embed"]["embedding"].T if cfg.tie_embeddings else params["head"]
+    w = w.to(hidden.dtype)
+
+    L = min(cfg.xent_chunk if cfg.xent_chunk > 0 else S, S)
+    if S % L != 0:
+        L = S
+    grad = torch.is_grad_enabled() and (hidden.requires_grad or w.requires_grad)
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    nll_sum, cnt, zl_sum = zero, zero, zero
+    for c in range(S // L):
+        h, y = hidden[:, c * L:(c + 1) * L], labels[:, c * L:(c + 1) * L]
+        if grad:
+            nll, n, zl = _XentChunk.apply(h, w, y, cfg.final_softcap)
+        else:
+            nll, n, zl = _xent_chunk(h, w, y, cfg.final_softcap)
+        nll_sum, cnt, zl_sum = nll_sum + nll, cnt + n, zl_sum + zl
+    denom = torch.clamp_min(cnt, 1.0)
+    loss = nll_sum / denom
+    if cfg.zloss > 0:
+        loss = loss + cfg.zloss * zl_sum / denom
+    if cfg.is_moe:
+        loss = loss + cfg.aux_loss_weight * aux / max(cfg.num_layers, 1)
+    return loss, {"nll": nll_sum / denom, "tokens": cnt, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

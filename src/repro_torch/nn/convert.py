@@ -1,4 +1,4 @@
-"""Carry a reference parameter tree into the port's module names.
+"""Carry a reference parameter tree into the port's module names, and back.
 
 The reference keeps the repeated layers stacked: ``tree["units"][s]`` holds
 pattern slot ``s`` of every unit, each leaf with a leading ``num_units``
@@ -6,7 +6,9 @@ axis.  The port's ``LanguageModel`` keeps one module per layer, named by
 the layer's depth: unit ``u``, slot ``s`` is ``layers.<len(prefix) +
 u * len(pattern) + s>``.  ``prefix``, ``embed``, ``final_norm`` and
 ``head`` keep the reference's names.  The unstacked tensors are views of
-the stacked ones (no copy).
+the stacked ones (no copy).  :func:`stack_tree` is the inverse: the port's
+``state_dict`` (or any dict shaped like it: gradients, AdamW moments) back
+in the reference's stacked layout, as numpy arrays.
 """
 
 from __future__ import annotations
@@ -21,33 +23,76 @@ from .params import tree_leaves
 if TYPE_CHECKING:  # models/ imports nn/; the config is only a type here
     from ..models.config import ModelConfig
 
-__all__ = ["params_from_reference", "unstack_tree"]
+__all__ = ["params_from_reference", "stack_tree", "to_numpy", "tree_from_reference", "unstack_tree"]
 
 
-def _flat(prefix: str, node, out: Dict[str, torch.Tensor]) -> None:
-    for path, leaf in tree_leaves(node):
-        out[".".join([prefix, *map(str, path)])] = leaf
+def _layer_name(cfg: "ModelConfig", path) -> list:
+    """The port's names of one leaf of the reference's tree: one name, or
+    one a unit for a leaf under ``units``."""
+    if path[0] != "units":
+        return [".".join(map(str, path))]
+    n_pre, n_slots, s = len(cfg.prefix), len(cfg.pattern), path[1]
+    return [".".join(["layers", str(n_pre + u * n_slots + s), *map(str, path[2:])]) for u in range(cfg.num_units)]
 
 
 def unstack_tree(tree: Dict, cfg: "ModelConfig") -> Dict[str, torch.Tensor]:
     """A parameter tree of the reference's structure (tensors) as the
     ``state_dict`` of the port's ``LanguageModel``."""
     out: Dict[str, torch.Tensor] = {}
-    _flat("embed", tree["embed"], out)
-    for i, block in enumerate(tree["prefix"]):
-        _flat(f"prefix.{i}", block, out)
-    n_pre, n_slots = len(cfg.prefix), len(cfg.pattern)
-    for s, slot in enumerate(tree["units"]):
-        for path, leaf in tree_leaves(slot):
-            if leaf.shape[0] != cfg.num_units:
-                raise ValueError(f"units[{s}]{list(path)}: leading axis {leaf.shape[0]} != {cfg.num_units} units")
-            for u in range(cfg.num_units):
-                name = ".".join(["layers", str(n_pre + u * n_slots + s), *map(str, path)])
-                out[name] = leaf[u]
-    _flat("final_norm", tree["final_norm"], out)
-    if "head" in tree:
-        out["head"] = tree["head"]
+    for path, leaf in tree_leaves(tree):
+        names = _layer_name(cfg, path)
+        if path[0] != "units":
+            out[names[0]] = leaf
+            continue
+        if leaf.shape[0] != cfg.num_units:
+            raise ValueError(f"units{list(path[1:])}: leading axis {leaf.shape[0]} != {cfg.num_units} units")
+        out.update({name: leaf[u] for u, name in enumerate(names)})
     return out
+
+
+def to_numpy(t) -> np.ndarray:
+    """A tensor as a numpy array on the host, bit for bit; bfloat16 as
+    ``ml_dtypes.bfloat16`` where that package is installed, else float32
+    (exact)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            import ml_dtypes
+        except ImportError:
+            return t.to(torch.float32).numpy()
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def stack_tree(flat: Dict[str, torch.Tensor], cfg: "ModelConfig", *, numpy: bool = True) -> Dict:
+    """The inverse of :func:`unstack_tree`: a dict under the port's
+    ``state_dict`` names (parameters, gradients, AdamW moments) as the
+    reference's tree, ``units`` stacked along a leading ``num_units`` axis,
+    every leaf a numpy array (:func:`to_numpy`), or, with ``numpy=False``,
+    a tensor on the leaves' device (a copy)."""
+    from ..models.transformer import lm_spec  # models/ imports nn/
+
+    spec = lm_spec(cfg)
+    names = {path: _layer_name(cfg, path) for path, _ in tree_leaves(spec)}
+    want = {n for ns in names.values() for n in ns}
+    if set(flat) != want:
+        raise KeyError(f"names differ from {cfg.name}'s: missing {sorted(want - set(flat))[:5]}, "
+                       f"unexpected {sorted(set(flat) - want)[:5]}")
+
+    def build(node, path=()):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(build(v, path + (i,)) for i, v in enumerate(node))
+        if not numpy:
+            ts = [flat[n].detach() for n in names[path]]
+            return torch.stack(ts) if path[0] == "units" else ts[0].clone()
+        arrays = [to_numpy(flat[n]) for n in names[path]]
+        return np.stack(arrays) if path[0] == "units" else arrays[0]
+
+    return build(spec)
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -57,16 +102,18 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def tree_from_reference(np_tree):
+    """A tree of numpy arrays (dicts and tuples, the reference's layout
+    kept) as the same tree of CPU tensors, dtypes kept."""
+    if isinstance(np_tree, dict):
+        return {k: tree_from_reference(v) for k, v in np_tree.items()}
+    if isinstance(np_tree, (tuple, list)):
+        return tuple(tree_from_reference(v) for v in np_tree)
+    return _to_tensor(np_tree)
+
+
 def params_from_reference(np_tree: Dict, cfg: "ModelConfig") -> Dict[str, torch.Tensor]:
     """The reference's parameter tree, its leaves as numpy arrays (for
     example ``jax.tree_util.tree_map(np.asarray, params)``), as the port
     model's ``state_dict`` on the CPU, dtypes kept."""
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (tuple, list)):
-            return tuple(conv(v) for v in node)
-        return _to_tensor(node)
-
-    return unstack_tree(conv(np_tree), cfg)
+    return unstack_tree(tree_from_reference(np_tree), cfg)

@@ -8,8 +8,9 @@ the random numbers come from a ``torch.Generator`` and are not the
 reference's (a test that needs equal weights carries them over with
 ``nn.convert.params_from_reference``).
 
-``axes_tree`` and ``spec_tree_shapes`` (sharding, the dry run) come later
-(ROADMAP queue 1, item 10: what remains of the LLM stack).
+Parameters are built frozen (``requires_grad=False``): serving's forwards,
+inside ``torch.inference_mode`` or not, build no autograd graph.  Training
+(``runtime.train_loop.init_train_state``) makes its own tensors trainable.
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "ParamTree", "init_tree", "param_count", "tree_leaves", "tree_map"]
+__all__ = [
+    "ParamSpec", "ParamTree", "axes_tree", "init_tree", "param_count", "spec_tree_shapes", "tree_leaves", "tree_map",
+    "tree_map_n",
+]
 
 _STACK_AXES = ("layers", "stack", "experts")
 
@@ -86,13 +90,28 @@ def tree_leaves(tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
         yield path, tree
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` applied to every leaf, the structure kept."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` applied to every leaf of ``tree`` (and the leaves at the same
+    place in each tree of ``rest``), the structure of ``tree`` kept; lists
+    become tuples."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return tuple(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return tuple(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_map_n(fn: Callable, n: int, tree, *rest) -> Tuple:
+    """``fn`` returns ``n`` values for each leaf (of ``tree`` and the trees
+    of ``rest``, as :func:`tree_map` passes them); returns ``n`` trees of
+    ``tree``'s structure, the ``i``-th holding each leaf's ``i``-th value."""
+    results = []
+    tree_map(lambda *leaves: results.append(fn(*leaves)), tree, *rest)
+    out = []
+    for i in range(n):
+        it = iter([r[i] for r in results])
+        out.append(tree_map(lambda _: next(it), tree))
+    return tuple(out)
 
 
 def init_tree(spec: Dict, generator: torch.Generator, device="cuda") -> Dict:
@@ -112,6 +131,17 @@ def init_tree(spec: Dict, generator: torch.Generator, device="cuda") -> Dict:
         return values[path]
 
     return build(spec)
+
+
+def axes_tree(spec: Dict) -> Dict:
+    """The logical-axes tree (leaves: tuples of axis names)."""
+    return tree_map(lambda leaf: leaf.axes, spec)
+
+
+def spec_tree_shapes(spec: Dict) -> Dict:
+    """The spec tree as ``meta`` tensors of each leaf's shape and dtype: the
+    no-allocation stand-in (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda leaf: torch.empty(leaf.shape, dtype=leaf.dtype, device="meta"), spec)
 
 
 def param_count(spec: Dict) -> int:

@@ -106,7 +106,11 @@ def test_matmul_grid_converges_on_card(card):
     )
     launched = matmul_update_cuda.launches - before[0]
     routes = {r: n - before[1][r] for r, n in matmul_update_cuda.launches_by_route.items()}
-    assert part.converged and part.imbalance <= GRID_EPS
+    assert part.converged and part.imbalance <= GRID_EPS, (
+        f"grid partition stalled: converged={part.converged} imbalance={part.imbalance} (eps {GRID_EPS}) "
+        f"after {part.iterations} outer iterations; col_widths={part.col_widths} row_heights={part.row_heights} "
+        f"times={part.times} evaluations={app.evals} diagnostics={part.diagnostics}"
+    )
     assert launched == app.expected > 0 and app.evals > 0
     assert routes == {"tile": 0, "wgmma": launched}
     assert sum(part.col_widths) == GRID_UNITS and all(sum(r) == GRID_UNITS for r in part.row_heights)

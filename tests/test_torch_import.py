@@ -40,6 +40,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.runtime.balance, repro_torch.runtime.elastic, repro_torch.runtime.serve_loop\n"
         "from repro_torch.runtime import ReplicaDispatcher, BalanceController, GroupTimer, elastic_rebalance\n"
         "from repro_torch.core.executor import TraceExecutor2D\n"
+        "import repro_torch.launch.train, repro_torch.runtime.train_loop, repro_torch.checkpoint\n"
+        "import repro_torch.data, repro_torch.optim, repro_torch.optim.compress, repro_torch.checkpoint.store\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -85,8 +87,9 @@ def test_chip_smoke_fails_without_cuda():
 
 
 def test_runtime_exports_the_serving_dispatch():
-    """``repro_torch.runtime`` exports what the reference's does, but the
-    training names; ``RoundLog`` carries ``t_wall`` outside equality."""
+    """``repro_torch.runtime`` exports what the reference's does, the
+    training names among them, and the serving dispatch; ``RoundLog``
+    carries ``t_wall`` outside equality."""
     import dataclasses
 
     import repro_torch.runtime as runtime
@@ -95,6 +98,7 @@ def test_runtime_exports_the_serving_dispatch():
     assert set(runtime.__all__) == {
         "ServeEngine", "ReplicaDispatcher", "BalanceController", "GroupTimer",
         "StragglerDetector", "StragglerAction", "elastic_rebalance",
+        "TrainState", "make_train_step", "init_train_state", "loss_for_config",
     }
     assert "TraceExecutor2D" in executor.__all__
     t_wall = {f.name: f for f in dataclasses.fields(executor.RoundLog)}["t_wall"]

@@ -37,7 +37,16 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
   ``h0``, each launched twice (bit-identical); S = 4096 with decays near 1
   (log_a scaled by 0.002), where every chunk's carry reaches the far end
   of the chunk, and a carry lost at a mid-sequence chunk boundary fails
-  the same check.
+  the same check;
+* the gradients of the two ``autograd.Function`` s (``FlashAttention``,
+  ``RGLRUScan``) through ``ops`` on CUDA tensors against autograd through
+  the plain versions: flash ``dq``/``dk``/``dv`` at ``GRAD_FLASH_CASES``
+  against the plain version on float32 copies (the kernel and the
+  backward take the logits in fp32), rel 1e-4 in float32 and 2e-2 in
+  bfloat16 (of the largest magnitude),
+  one kernel launch (the forward) a call; the scan's ``dlog_a``/``db``/
+  ``dh0`` rel 1e-4, two launches a call (the forward and the reversed
+  recurrence).
 """
 
 import numpy as np
@@ -45,6 +54,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
+from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.matmul_update import matmul_update_cuda, matmul_update_route
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
@@ -344,3 +354,48 @@ def test_model_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         rglru_scan(la.transpose(1, 2), la)
     assert (flash_attention_cuda.launches, rglru_scan_cuda.launches) == before
+
+
+GRAD_FLASH_CASES = [  # (B, H, Kv, S, D, kwargs, dtype, tol)
+    (2, 8, 4, 256, 256, dict(causal=True, softcap=50.0, window=100, scale=0.0625), torch.bfloat16, 2e-2),
+    (2, 10, 1, 300, 256, dict(causal=True, window=90), torch.bfloat16, 2e-2),
+    (1, 4, 2, 97, 64, dict(causal=True), torch.float32, 1e-4),
+    (1, 2, 2, 130, 128, dict(causal=False), torch.bfloat16, 2e-2),
+]
+
+
+def _grad_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("B,H,Kv,S,D,kwargs,dtype,tol", GRAD_FLASH_CASES)
+def test_flash_attention_gradients_on_card(card, B, H, Kv, S, D, kwargs, dtype, tol):
+    rng = np.random.default_rng(7)
+    # the model's (B, S, H, D) tensors, passed as transposed views
+    q, k, v = (_randn(rng, (B, S, n, D)).to(card, dtype).transpose(1, 2).requires_grad_(True) for n in (H, Kv, Kv))
+    dout = _randn(rng, (B, H, S, D)).to(card, dtype)
+    before = flash_attention_cuda.launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, bq=None, bk=None, **kwargs), (q, k, v), dout)
+    assert flash_attention_cuda.launches - before == 1  # the forward; the backward is plain torch
+    q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(flash_attention_ref(q32, k32, v32, **kwargs), (q32, k32, v32), dout.float())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert _grad_rel(g, w) <= tol, name
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,D", [(2, 300, 160), (4, 1024, 256)])
+def test_rglru_scan_gradients_on_card(card, B, S, D, with_h0):
+    rng = np.random.default_rng(8)
+    la = (-_randn(rng, (B, S, D)).abs() * 0.05).to(card).requires_grad_(True)
+    b = _randn(rng, (B, S, D)).to(card).requires_grad_(True)
+    h0 = _randn(rng, (B, D)).to(card).requires_grad_(True) if with_h0 else None
+    dh = _randn(rng, (B, S, D)).to(card)
+    inputs = (la, b) + ((h0,) if with_h0 else ())
+    before = rglru_scan_cuda.launches
+    got = torch.autograd.grad(rglru_scan(la, b, h0, bs=None, bd=None), inputs, dh)
+    assert rglru_scan_cuda.launches - before == 2  # the forward and the reversed recurrence
+    want = torch.autograd.grad(rglru_scan_ref(la, b, h0), inputs, dh)
+    for name, g, w in zip(("dlog_a", "db", "dh0"), got, want):
+        assert _grad_rel(g, w) <= 1e-4, name

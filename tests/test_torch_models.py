@@ -185,12 +185,20 @@ def test_registry_refuses_unported_archs():
 
 @pytest.mark.parametrize(
     "field,value",
-    [("zloss", 1e-4), ("frontend", "vision_stub"), ("encoder_layers", 2), ("num_prefix_embeddings", 4), ("xent_chunk", 0), ("remat", "none")],
+    [("frontend", "vision_stub"), ("encoder_layers", 2), ("num_prefix_embeddings", 4)],
 )
 def test_config_refuses_fields_the_port_does_not_read(field, value):
     cfg = get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match=f"{field} not read by the port yet .*queue 1, item 10: what remains of the LLM stack"):
         cfg.replace(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("zloss", 1e-4), ("xent_chunk", 0), ("remat", "none")])
+def test_config_accepts_the_training_fields(field, value):
+    """The training path reads ``zloss``, ``xent_chunk`` and ``remat``
+    (``models.transformer.lm_loss``, ``apply_lm``): a config takes them."""
+    cfg = get_smoke_config(ARCH).replace(**{field: value})
+    assert getattr(cfg, field) == value
 
 
 # ---------------------------------------------------------------------------
