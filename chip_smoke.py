@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs seventeen phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs eighteen phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -266,13 +266,46 @@ the first fault:
                       the causal mask; a reversed recurrence whose decays
                       are not shifted), timed beside the plain versions;
                       and a smoke-width checkpoint saved, restored bit for
-                      bit and resumed to the uninterrupted step's loss.
+                      bit and resumed to the uninterrupted step's loss;
+ 18. ``families``   — the xLSTM, encoder-decoder and vision-prefix
+                      families (``FAMILY_*``, random weights, seed 0, each
+                      freed before the next): (a) xlstm-350m as published
+                      (24 layers, 0.39 B parameters) served by
+                      ``ServeEngine``, batch 4, a 1,024-token prompt, 16
+                      tokens: no kernel launched, two ``generate`` calls
+                      identical, a 768-token prefill and 256 teacher-forced
+                      decode steps within rel 0.05 of the full forward
+                      (decode timed over those steps); (b)
+                      seamless-m4t-medium as published (12 + 12 layers,
+                      0.61 B) through ``encdec_prefill`` and
+                      ``encdec_decode_step``: frames 2 x 1,024, a prompt of
+                      128, 16 tokens; 36 flash launches a run (12 encoder,
+                      12 decoder, 12 cross), all ``"wgmma"``; two runs
+                      identical; prefill + decode within rel 0.05 of the
+                      full decoder; the kernel on the prefill's own
+                      encoder, decoder and cross inputs and on random
+                      operands at (Sq, Sk) = (1,000, 130) and (130, 1,000),
+                      each with its planted fault; (c) pixtral-12b at full
+                      width cut to 4 layers, 256 prefix embeddings + 1,024
+                      text tokens, batch 2, 8 tokens: 4 ``"wgmma"``
+                      launches, identical runs, rel 0.05 to the full
+                      forward, the kernel on its prefill's inputs; (d)
+                      ``train_single`` of xlstm-350m and seamless-m4t-medium
+                      as published, 2 steps of 4 x 512: losses finite and
+                      falling, no launch (xLSTM) and 144 ``"wgmma"``
+                      launches (seamless: forward and remat), then
+                      ``FlashAttention``'s gradients on (b)'s captured
+                      cross inputs (Sq 128, Sk 1,024) within
+                      ``TRAIN_GRAD_TOL`` with the causal-mask fault
+                      planted; (e) the three smoke models in float32 give
+                      the CPU's tokens on the card.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, ``matmul_update``'s by phase, ``dfpa``,
 ``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``, and
 ``flash_attention``'s and ``rglru_scan``'s, ``serve``, ``dispatch``,
-``decoders`` and ``train``; flash's row also carries ``decoders_timing``), the card's name and power limit
+``decoders``, ``train`` and ``families``; flash's row also carries
+``decoders_timing``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
 trace as data.
@@ -344,6 +377,18 @@ from repro_torch.launch.serve import demo_replica_run, kernels_for  # noqa: E402
 from repro_torch.obs import FlightRecorder, Telemetry, export_chrome_trace, use  # noqa: E402
 from repro_torch.obs.report import MetricsSnapshot  # noqa: E402
 from repro_torch.models import transformer as lm_module  # noqa: E402
+from repro_torch.models.encdec import (  # noqa: E402
+    EncoderDecoder,
+    _cross_kv_all,
+    _dec_logits,
+    apply_decoder,
+    encdec_decode_step,
+    encdec_prefill,
+    encode,
+    init_encdec,
+    init_encdec_cache,
+)
+from repro_torch.models.frontends import stub_frame_embeddings, stub_patch_embeddings  # noqa: E402
 from repro_torch.models.moe import router_probs, top_k as moe_top_k  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     LanguageModel,
@@ -502,6 +547,20 @@ TRAIN_REC = dict(arch="recurrentgemma-2b", batch=4, seq=1024, steps=2, lr=3e-3)
 # (d): a kernel's autograd.Function against autograd through its plain
 # version on the captured inputs, max |got - want| over max |want|
 TRAIN_GRAD_TOL = {"flash_attention": 2e-2, "rglru_scan": 1e-4}
+# the families phase: (a) xlstm-350m as published through ServeEngine (the
+# decode check: a prefill of 768 tokens and 256 teacher-forced steps, since
+# the mLSTM's 256-position chunks must divide a prefill); (b)
+# seamless-m4t-medium as published through encdec_prefill /
+# encdec_decode_step, and flash on random operands with Sq != Sk both ways;
+# (c) pixtral-12b at full width cut to 4 layers (49 GB in fp32 at its
+# published 40), its 256 prefix embeddings + text; (d) train_single of
+# xlstm-350m and seamless-m4t-medium as published
+FAMILY_XLSTM = dict(arch="xlstm-350m", batch=4, prompt=1024, new=16, check_prefill=768)
+FAMILY_SEAMLESS = dict(arch="seamless-m4t-medium", batch=2, frames=1024, prompt=128, new=16)
+FAMILY_RANDOM_CROSS = [(2, 16, 16, 1000, 130, 64), (2, 16, 16, 130, 1000, 64)]  # (B, H, Kv, Sq, Sk, D)
+FAMILY_PIXTRAL = dict(arch="pixtral-12b", layers=4, batch=2, text=1024, new=8)
+FAMILY_TRAIN = (dict(arch="xlstm-350m", batch=4, seq=512, steps=2, lr=3e-3),
+                dict(arch="seamless-m4t-medium", batch=4, seq=512, steps=2, lr=3e-3))
 
 
 def emit(obj) -> None:
@@ -891,20 +950,27 @@ def _flash_timing() -> dict:
     return row
 
 
-def _visible_mask(S: int, window: int):
-    pos = torch.arange(S, device="cuda")
-    mask = pos[None, :] <= pos[:, None]
+def _visible_mask(S: int, window: int, Sk: Optional[int] = None, causal: bool = True):
+    """The ``(S, Sk)`` (query, key) pairs attention computes, query rows
+    right-aligned to the keys (``Sk`` defaults to ``S``)."""
+    Sk = S if Sk is None else Sk
+    qpos, kpos = torch.arange(Sk - S, Sk, device="cuda"), torch.arange(Sk, device="cuda")
+    mask = torch.ones((S, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
     if window > 0:
-        mask &= pos[None, :] > pos[:, None] - window
+        mask &= kpos[None, :] > qpos[:, None] - window
     return mask
 
 
-def _flash_bound(B, H, Kv, S, D, window) -> tuple:
-    """(bound ms, bound_by, visible pairs a head) of causal self-attention
-    at this shape in bf16: q, k, v read once, o written once; 4 D
-    operations a visible (query, key) pair."""
-    pairs = int(_visible_mask(S, window).sum())
-    nbytes = 2 * (2 * B * H * S * D + 2 * B * Kv * S * D)
+def _flash_bound(B, H, Kv, S, D, window, Sk: Optional[int] = None, causal: bool = True) -> tuple:
+    """(bound ms, bound_by, visible pairs a head) of attention at this shape
+    in bf16 (causal self-attention unless ``Sk``/``causal`` say otherwise):
+    q, k, v read once, o written once; 4 D operations a visible (query,
+    key) pair."""
+    Sk = S if Sk is None else Sk
+    pairs = int(_visible_mask(S, window, Sk, causal).sum())
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * Kv * Sk * D)
     return (*_bound_ms(4.0 * D * pairs * B * H, torch.bfloat16, nbytes), pairs)
 
 
@@ -1232,11 +1298,13 @@ class _Capture:
     """Records the inputs of the last ``ops.flash_attention`` and
     ``ops.rglru_scan`` call (the model calls them through ``ops``) while
     active, and passes every call on unchanged.  ``flash_by_window`` keeps
-    the last flash call of each window (0: a global layer's)."""
+    the last flash call of each window (0: a global layer's),
+    ``flash_by_shape`` the last of each ``(causal, Sq, Sk)``."""
 
     def __init__(self):
         self.seen = {}
         self.flash_by_window = {}
+        self.flash_by_shape = {}
         self._orig = (ops.flash_attention, ops.rglru_scan)
 
     def __enter__(self):
@@ -1245,6 +1313,7 @@ class _Capture:
         def flash(q, k, v, **kw):
             self.seen["flash_attention"] = (q.detach().clone(), k.detach().clone(), v.detach().clone(), kw)
             self.flash_by_window[kw.get("window", 0)] = self.seen["flash_attention"]
+            self.flash_by_shape[(kw.get("causal", True), q.shape[2], k.shape[2])] = self.seen["flash_attention"]
             return fa(q, k, v, **kw)
 
         def scan(log_a, b, h0=None, **kw):
@@ -1260,14 +1329,19 @@ class _Capture:
         return False
 
 
-def _timed_generate(eng, prompt, new) -> tuple:
-    """(tokens, ms): one ``generate`` timed with CUDA events."""
+def _cuda_timed(fn) -> tuple:
+    """(result, ms): one call of ``fn`` timed with CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    toks = eng.generate(prompt, new)
+    result = fn()
     end.record()
     end.synchronize()
-    return toks, start.elapsed_time(end)
+    return result, start.elapsed_time(end)
+
+
+def _timed_generate(eng, prompt, new) -> tuple:
+    """(tokens, ms): one ``generate`` timed with CUDA events."""
+    return _cuda_timed(lambda: eng.generate(prompt, new))
 
 
 def _serve_full(out: dict) -> dict:
@@ -1381,7 +1455,7 @@ def _serve_smoke(out: dict, arch: str = SERVE_ARCH) -> dict:
         "arch": cfg.name, "tokens_equal": bool(torch.equal(got.cpu(), want)), "logits_rel": rel,
         "launches": launched, "tokens": got[0].tolist(),
     }
-    if not out["smoke"]["tokens_equal"] or not rel < 1e-4 or min(launched.values()) < 1:
+    if not out["smoke"]["tokens_equal"] or not rel < 1e-4 or any(n < 1 for n in launched.values()):
         raise SystemExit(f"chip_smoke: the smoke model on the card differs from the CPU: {out['smoke']}")
     return out["smoke"]
 
@@ -2857,10 +2931,11 @@ def _captured_flash(q, k, v, kw, route, what) -> dict:
     plain_kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **plain_kw), 3)
     B, H, S, D = q.shape
-    bound_ms, bound_by, pairs = _flash_bound(B, H, k.shape[1], S, D, kw["window"])
-    return {"shape": [B, H, k.shape[1], S, S, D], "window": kw["window"], "softcap": kw["softcap"],
-            "route": route, **check, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "visible_pairs_per_head": pairs}
+    Sk = k.shape[2]
+    bound_ms, bound_by, pairs = _flash_bound(B, H, k.shape[1], S, D, kw["window"], Sk, kw["causal"])
+    return {"shape": [B, H, k.shape[1], S, Sk, D], "causal": kw["causal"], "window": kw["window"],
+            "softcap": kw["softcap"], "route": route, **check, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "visible_pairs_per_head": pairs}
 
 
 def _routes_of(fn) -> tuple:
@@ -3347,6 +3422,349 @@ def phase_train() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+
+
+def _no_kernel_launched(counts: dict, what: str) -> None:
+    if counts["flash_attention"] or counts["rglru_scan"]:
+        raise SystemExit(f"chip_smoke: {what} launched {counts}, expected no kernel")
+
+
+def _flash_launched(counts: dict, want: int, what: str) -> None:
+    if counts["flash_attention"] != want or counts["flash_attention_by_route"]["wgmma"] != want or counts["rglru_scan"]:
+        raise SystemExit(f"chip_smoke: {what} launched {counts}, expected {want} flash, all 'wgmma'")
+
+
+def _serving_times(out: dict, gen_ms: list, prefill_ms: list, batch: int, prompt: int, new: int) -> None:
+    out["generate_ms_runs"], out["prefill_ms_runs"] = gen_ms, prefill_ms
+    out["prefill_ms"] = float(np.median(prefill_ms))
+    out["decode_ms_per_token"] = (float(np.median(gen_ms)) - out["prefill_ms"]) / (new - 1)
+    out["prefill_tok_per_s"] = batch * prompt / (out["prefill_ms"] / 1e3)
+    out["decode_tok_per_s"] = batch / (out["decode_ms_per_token"] / 1e3)
+
+
+def family_xlstm(out: dict) -> None:
+    """(a) xlstm-350m as published (24 layers, d 1024) served by
+    ``ServeEngine``: batch 4, a 1,024-token prompt (four mLSTM chunks), 16
+    greedy tokens.  Gates: no kernel launched (the xLSTM blocks have
+    none); two ``generate`` calls give identical tokens; a prefill of the
+    first 768 prompt tokens and 256 teacher-forced decode steps agree with
+    the full forward over the prompt (rel 0.05 at the last position; a
+    prefill of 1,023 tokens is refused, as the reference refuses it: 256
+    does not divide it).  Decode ms a token is timed over those 256 steps
+    (CUDA events); the difference of two ``generate`` lengths is kept
+    beside it."""
+    t = FAMILY_XLSTM
+    cfg = get_config(t["arch"])
+    B, S, new, S0 = t["batch"], t["prompt"], t["new"], t["check_prefill"]
+    out.update({"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "batch": B, "prompt": S,
+                "new_tokens": new})
+    before = torch.cuda.memory_allocated()
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    eng = ServeEngine(cfg, model, batch=B, seq_budget=S + new, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_serve_counts()
+    tokens, ms = _timed_generate(eng, prompt, new)
+    out["launches"] = counts = _serve_counts()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    _no_kernel_launched(counts, "one xlstm-350m generate")
+    again, ms2 = _timed_generate(eng, prompt, new)
+    if not torch.equal(again, tokens):
+        raise SystemExit("chip_smoke: two xlstm-350m generate calls gave different tokens")
+    prefill_ms = []
+    for _ in range(2):
+        first, pms = _timed_generate(eng, prompt, 1)
+        prefill_ms.append(pms)
+        if not torch.equal(first[:, 0], tokens[:, 0]):
+            raise SystemExit("chip_smoke: xlstm-350m generate of one token differs from the first of 16")
+    _serving_times(out, [ms, ms2], prefill_ms, B, S, new)
+    out["tokens_identical"], out["sample"] = True, tokens[0, :8].tolist()
+    with torch.inference_mode():
+        hid, _, _ = apply_lm(model, cfg, prompt, torch.arange(S, device="cuda"))
+        full = lm_logits(model, cfg, hid[:, S0:])
+        del hid
+        caches = init_cache(cfg, B, S, cfg.dtype, "cuda")
+        _, caches = prefill(model, cfg, prompt[:, :S0], caches)
+
+        def steps():
+            nonlocal caches
+            got = []
+            for i in range(S0, S):
+                step, caches = decode_step(model, cfg, prompt[:, i:i + 1], i, caches)
+                got.append(step)
+            return got
+
+        got, ms = _cuda_timed(steps)
+        # the host-bound prefill varies by hundreds of ms between calls, more
+        # than 15 decode steps take: time decode directly, over these steps
+        out["decode_ms_per_token_from_generate"] = out["decode_ms_per_token"]
+        out["decode_ms_per_token"] = ms / (S - S0)
+        out["decode_tok_per_s"] = B / (out["decode_ms_per_token"] / 1e3)
+        rels = [_rel(step, full[:, i]) for i, step in enumerate(got)]
+        del full, caches, got
+    out["decode_vs_full"] = {"prefill": S0, "decode_steps": S - S0, "rel_last": rels[-1], "rel_max": max(rels)}
+    if not rels[-1] < 0.05:
+        raise SystemExit(f"chip_smoke: xlstm-350m prefill + decode differs from the full forward: {out['decode_vs_full']}")
+    del model, eng
+    _free(out, before, "xlstm-350m's model")
+
+
+def _seamless_greedy(model, cfg, frames, prompt, new: int) -> torch.Tensor:
+    """``encdec_prefill`` then ``new - 1`` greedy ``encdec_decode_step`` s,
+    as the reference's tests drive it; returns ``(B, new)`` tokens."""
+    B, P = prompt.shape
+    with torch.inference_mode():
+        caches = init_encdec_cache(cfg, B, P + new, frames.shape[1], cfg.dtype, "cuda")
+        logits, caches = encdec_prefill(model, cfg, frames, prompt, caches)
+        tok = torch.argmax(logits, -1)[:, None]
+        out = [tok]
+        for i in range(1, new):
+            logits, caches = encdec_decode_step(model, cfg, tok, P + i - 1, caches)
+            tok = torch.argmax(logits, -1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+
+def family_seamless(out: dict) -> dict:
+    """(b) seamless-m4t-medium as published (12 encoder + 12 decoder
+    layers, d 1024, vocab 256,206): frames of 2 x 1,024, a decoder prompt
+    of 128 and 16 greedy tokens.  Gates: one greedy run launches flash 36
+    times (12 encoder, 12 decoder self-attention, 12 cross-attention), all
+    ``"wgmma"``; two runs give identical tokens; prefill + one decode step
+    agree with the full decoder (rel 0.05); the kernel agrees with its
+    plain version on the prefill's own encoder, decoder and cross inputs,
+    and on random operands with ``Sq != Sk`` both ways.  Returns the
+    captured cross-attention inputs (for (d)'s gradient check)."""
+    t = FAMILY_SEAMLESS
+    cfg = get_config(t["arch"])
+    B, F, P, new = t["batch"], t["frames"], t["prompt"], t["new"]
+    out.update({"arch": cfg.name, "encoder_layers": cfg.encoder_layers, "decoder_layers": cfg.num_layers,
+                "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": B, "frames": F, "prompt": P,
+                "new_tokens": new})
+    before = torch.cuda.memory_allocated()
+    model = init_encdec(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    frames = stub_frame_embeddings(cfg, B, F, seed=2, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+    per_run = cfg.encoder_layers + 2 * cfg.num_layers
+    _seamless_greedy(model, cfg, frames, prompt, 2)  # warm-up, before the counts are set to 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_serve_counts()
+    tokens, ms = _cuda_timed(lambda: _seamless_greedy(model, cfg, frames, prompt, new))
+    out["launches"] = counts = _serve_counts()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    _flash_launched(counts, per_run, "one seamless-m4t-medium greedy run")
+    again, ms2 = _cuda_timed(lambda: _seamless_greedy(model, cfg, frames, prompt, new))
+    if not torch.equal(again, tokens):
+        raise SystemExit("chip_smoke: two seamless-m4t-medium greedy runs gave different tokens")
+    prefill_ms = []
+    for _ in range(2):
+        first, pms = _cuda_timed(lambda: _seamless_greedy(model, cfg, frames, prompt, 1))
+        prefill_ms.append(pms)
+        if not torch.equal(first[:, 0], tokens[:, 0]):
+            raise SystemExit("chip_smoke: seamless-m4t-medium's first token differs between runs of 1 and 16")
+    _serving_times(out, [ms, ms2], prefill_ms, B, P, new)
+    out["tokens_identical"], out["sample"] = True, tokens[0, :8].tolist()
+    with torch.inference_mode():
+        xkv = _cross_kv_all(model, cfg, encode(model, cfg, frames))
+        hid, _ = apply_decoder(model, cfg, prompt, torch.arange(P, device="cuda"), xkv)
+        full = _dec_logits(model, cfg, hid[:, -1])
+        del xkv, hid
+        caches = init_encdec_cache(cfg, B, P, F, cfg.dtype, "cuda")
+        _, caches = encdec_prefill(model, cfg, frames, prompt[:, :-1], caches)
+        got, _ = encdec_decode_step(model, cfg, prompt[:, -1:], P - 1, caches)
+        out["decode_vs_full_rel"] = _rel(got, full)
+        del caches, got, full
+        if not out["decode_vs_full_rel"] < 0.05:
+            raise SystemExit(f"chip_smoke: seamless prefill + decode differs from the full decoder ({out['decode_vs_full_rel']})")
+        with _Capture() as cap:
+            encdec_prefill(model, cfg, frames, prompt, init_encdec_cache(cfg, B, P, F, cfg.dtype, "cuda"))
+        out["captured_flash"] = {}
+        for name, key in (("encoder", (False, F, F)), ("decoder", (True, P, P)), ("cross", (False, P, F))):
+            q, k, v, kw = cap.flash_by_shape[key]
+            out["captured_flash"][name] = _captured_flash(q, k, v, kw, "wgmma",
+                                                          f"on seamless's prefill inputs ({name} attention)")
+        cross = cap.flash_by_shape[(False, P, F)]
+        del cap, q, k, v
+    out["random_operands"] = []
+    for Bq, H, Kv, Sq, Sk, D in FAMILY_RANDOM_CROSS:
+        q, k, v = _flash_operands(Bq, H, Kv, Sq, Sk, D, torch.bfloat16, seed=Sq + Sk)
+        kw = dict(causal=False, window=0, softcap=0.0, scale=1.0 / D ** 0.5, bq=None, bk=None)
+        out["random_operands"].append(_captured_flash(q, k, v, kw, "wgmma", f"at Sq {Sq}, Sk {Sk} (non-causal)"))
+    del model, frames, q, k, v
+    _free(out, before, "seamless-m4t-medium's model")
+    return cross
+
+
+def family_pixtral(out: dict) -> None:
+    """(c) pixtral-12b at full width cut to 4 layers: 256 prefix embeddings
+    (the vision stub's) + 1,024 text tokens, batch 2, 8 new tokens through
+    ``prefill(prefix_embeds=)`` and ``decode_step``.  Gates: one run
+    launches flash once a layer on ``"wgmma"`` (head_dim 128, 32 query
+    heads over 8 KV heads); two runs give identical tokens; prefill + one
+    decode step agree with the full forward over prefix + text (rel 0.05);
+    the kernel agrees with its plain version on the prefill's own inputs."""
+    t = FAMILY_PIXTRAL
+    full_cfg = get_config(t["arch"])
+    cfg = full_cfg.replace(num_layers=t["layers"])
+    B, S, new, P = t["batch"], t["text"], t["new"], cfg.num_prefix_embeddings
+    out.update({"arch": cfg.name, "layers": cfg.num_layers, "published_layers": full_cfg.num_layers,
+                "d_model": cfg.d_model, "batch": B, "prefix": P, "text": S, "new_tokens": new})
+    before = torch.cuda.memory_allocated()
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    pe = stub_patch_embeddings(cfg, B, seed=2, device="cuda")
+    text = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+
+    def run(n: int):
+        with torch.inference_mode():
+            caches = init_cache(cfg, B, P + S + n, cfg.dtype, "cuda")
+            logits, caches = prefill(model, cfg, text[:, :S], caches, prefix_embeds=pe)
+            tok = torch.argmax(logits, -1)[:, None]
+            toks = [tok]
+            for i in range(1, n):
+                logits, caches = decode_step(model, cfg, tok, P + S + i - 1, caches)
+                tok = torch.argmax(logits, -1)[:, None]
+                toks.append(tok)
+            return torch.cat(toks, dim=1)
+
+    run(2)  # warm-up, before the counts are set to 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_serve_counts()
+    tokens, ms = _cuda_timed(lambda: run(new))
+    out["launches"] = counts = _serve_counts()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    _flash_launched(counts, cfg.num_layers, "one pixtral-12b run")
+    again, ms2 = _cuda_timed(lambda: run(new))
+    if not torch.equal(again, tokens):
+        raise SystemExit("chip_smoke: two pixtral-12b runs gave different tokens")
+    prefill_ms = []
+    for _ in range(2):
+        first, pms = _cuda_timed(lambda: run(1))
+        prefill_ms.append(pms)
+        if not torch.equal(first[:, 0], tokens[:, 0]):
+            raise SystemExit("chip_smoke: pixtral-12b's first token differs between runs of 1 and 8")
+    _serving_times(out, [ms, ms2], prefill_ms, B, P + S, new)
+    out["tokens_identical"], out["sample"] = True, tokens[0, :8].tolist()
+    with torch.inference_mode():
+        hid, _, _ = apply_lm(model, cfg, text, torch.arange(P + S + 1, device="cuda"), prefix_embeds=pe)
+        full = lm_logits(model, cfg, hid[:, -1])
+        del hid
+        caches = init_cache(cfg, B, P + S + 1, cfg.dtype, "cuda")
+        _, caches = prefill(model, cfg, text[:, :S], caches, prefix_embeds=pe)
+        got, _ = decode_step(model, cfg, text[:, S:], P + S, caches)
+        out["decode_vs_full_rel"] = _rel(got, full)
+        del caches, got, full
+        if not out["decode_vs_full_rel"] < 0.05:
+            raise SystemExit(f"chip_smoke: pixtral prefill + decode differs from the full forward ({out['decode_vs_full_rel']})")
+        with _Capture() as cap:
+            prefill(model, cfg, text[:, :S], init_cache(cfg, B, P + S, cfg.dtype, "cuda"), prefix_embeds=pe)
+        q, k, v, kw = cap.flash_by_shape[(True, P + S, P + S)]
+        out["captured_flash"] = _captured_flash(q, k, v, kw, "wgmma", "on pixtral's prefill inputs (prefix + text)")
+        del cap, q, k, v
+    del model, pe
+    _free(out, before, "pixtral-12b's model")
+
+
+def family_train(out: dict, t: dict) -> None:
+    """(d) ``train_single`` at the published size: the loss finite and
+    falling; flash twice an attention call a step (the forward and the
+    remat recompute; the encoder-decoder's encoder, decoder and cross
+    attention), none for xLSTM."""
+    cfg = get_config(t["arch"])
+    losses = _train_single_part(out, cfg, t["batch"], t["seq"], t["steps"], t["lr"])
+    if cfg.is_encdec:
+        per_call = 2 if cfg.remat == "full" else 1  # the forward, and the recompute of a remat layer
+        want = (cfg.encoder_layers + 2 * cfg.num_layers) * per_call * t["steps"]
+        _flash_launched(out["launches"], want, f"{cfg.name} training")
+    else:
+        _no_kernel_launched(out["launches"], f"{cfg.name} training")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s loss did not fall over {t['steps']} steps: {losses}")
+
+
+def _encdec_smoke(arch: str) -> dict:
+    """The encoder-decoder's smoke model in float32: the card's greedy
+    tokens (kernels) equal the CPU's (plain versions), decoder logits within
+    rel 1e-4, and flash launched."""
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    cpu_model = init_encdec(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_model = EncoderDecoder.from_state_dict(cfg, {n: t.to("cuda") for n, t in cpu_model.state_dict().items()})
+    frames = torch.from_numpy((0.02 * np.random.default_rng(2).standard_normal((SMOKE_BATCH, 10, cfg.d_model)))
+                              .astype(np.float32))
+    prompt = torch.randint(0, cfg.vocab_size, (SMOKE_BATCH, SMOKE_PROMPT), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        before = flash_attention_cuda.launches
+        f, p = frames.to(dev), prompt.to(dev)
+        with torch.inference_mode():
+            caches = init_encdec_cache(cfg, SMOKE_BATCH, SMOKE_PROMPT + SMOKE_NEW, 10, cfg.dtype, dev)
+            logits, caches = encdec_prefill(model, cfg, f, p, caches)
+            toks = [torch.argmax(logits, -1)[:, None]]
+            for i in range(1, SMOKE_NEW):
+                logits, caches = encdec_decode_step(model, cfg, toks[-1], SMOKE_PROMPT + i - 1, caches)
+                toks.append(torch.argmax(logits, -1)[:, None])
+            xkv = _cross_kv_all(model, cfg, encode(model, cfg, f))
+            hid, _ = apply_decoder(model, cfg, p, torch.arange(SMOKE_PROMPT, device=dev), xkv)
+        out[dev] = (torch.cat(toks, 1).cpu(), _dec_logits(model, cfg, hid).cpu(), flash_attention_cuda.launches - before)
+    rel = _rel(out["cuda"][1], out["cpu"][1])
+    row = {"arch": cfg.name, "tokens_equal": bool(torch.equal(out["cuda"][0], out["cpu"][0])), "logits_rel": rel,
+           "launches": {"flash_attention": out["cuda"][2]}, "tokens": out["cuda"][0][0].tolist()}
+    if not row["tokens_equal"] or not rel < 1e-4 or out["cuda"][2] < 1:
+        raise SystemExit(f"chip_smoke: the encoder-decoder smoke model on the card differs from the CPU: {row}")
+    return row
+
+
+def phase_families() -> dict:
+    """(a) xlstm-350m, (b) seamless-m4t-medium and (c) pixtral-12b (4
+    layers) served at full width, (d) xlstm-350m and seamless-m4t-medium
+    trained as published and ``FlashAttention``'s gradients on (b)'s
+    captured cross-attention inputs, (e) the three smoke models in float32
+    against the CPU; each model freed before the next.  Returns the flash
+    launches of the counted runs of (a)-(d), by route."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
+    parts = [("xlstm-350m", family_xlstm), ("seamless-m4t-medium", family_seamless), ("pixtral-12b", family_pixtral)]
+    parts += [(f"train {t['arch']}", lambda row, t=t: family_train(row, t)) for t in FAMILY_TRAIN]
+    cross = None
+    for name, fn in parts:
+        row = {"phase": "families", "part": name}
+        t0 = time.perf_counter()
+        try:
+            result = fn(row)
+            cross = result if result is not None else cross
+        finally:
+            row["seconds"] = time.perf_counter() - t0
+            emit(row)
+        for r, n in row["launches"]["flash_attention_by_route"].items():
+            launches[r] += n
+    row = {"phase": "families", "part": "cross-attention gradient"}
+    t0 = time.perf_counter()
+    try:
+        q, k, v = (t.clone() for t in cross[:3])  # normal tensors: the capture ran under inference_mode
+        kw = cross[3]
+        row.update(train_flash_grads(q, k, v, kw, "on seamless's captured cross-attention inputs (Sq 128, Sk 1,024)"))
+    finally:
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+    t0 = time.perf_counter()
+    smoke = [_serve_smoke({}, "xlstm-350m"), _serve_smoke({}, "pixtral-12b"), _encdec_smoke("seamless-m4t-medium")]
+    emit({"phase": "families", "part": "smoke", "smoke": smoke, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     seconds = {}
 
@@ -3374,6 +3792,7 @@ def main() -> int:
     dispatch = run("dispatch", phase_dispatch)
     decoder_routes, decoder_timing = run("decoders", phase_decoders)
     train = run("train", phase_train)
+    family_routes = run("families", phase_families)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
                 "straggler": straggler_launches, "fleet": fleet_launches}
     by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
@@ -3382,9 +3801,11 @@ def main() -> int:
     serve_by_phase["rglru_scan"]["decoders"] = 0
     serve_by_phase["flash_attention"]["train"] = sum(train["flash_attention"].values())
     serve_by_phase["rglru_scan"]["train"] = train["rglru_scan"]
+    serve_by_phase["flash_attention"]["families"] = sum(family_routes.values())
+    serve_by_phase["rglru_scan"]["families"] = 0
     launches = {"matmul_update": sum(by_phase.values()), **{k: sum(v.values()) for k, v in serve_by_phase.items()}}
     flash_routes = {r: v + dispatch["flash_attention_by_route"][r] + decoder_routes[r] + train["flash_attention"][r]
-                    for r, v in serve["launches_by_route"]["flash_attention"].items()}
+                    + family_routes[r] for r, v in serve["launches_by_route"]["flash_attention"].items()}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},
         "flash_attention": flash_routes,

@@ -1,12 +1,12 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``.
 
 The registry names every architecture the reference assigns (``ARCH_IDS``)
-and its input-shape set (``SHAPES``).  A config comes to the port with the
-slice that runs it: so far the dense decoders (gemma2-2b, gemma2-27b,
-granite-20b, stablelm-12b), the MoE and MLA decoders (granite-moe-1b-a400m,
-deepseek-v2-236b) and the hybrid recurrentgemma-2b.  Asking for any other
-architecture raises ``NotImplementedError`` (ROADMAP queue 1, item 10:
-what remains of the LLM stack).
+and its input-shape set (``SHAPES``), and serves all ten: the dense decoders
+(gemma2-2b, gemma2-27b, granite-20b, stablelm-12b), the MoE and MLA
+decoders (granite-moe-1b-a400m, deepseek-v2-236b), the hybrid
+recurrentgemma-2b, xLSTM (xlstm-350m), the vision-prefix decoder
+(pixtral-12b) and the encoder-decoder (seamless-m4t-medium).  Each config
+equals the reference's field for field.
 """
 
 from __future__ import annotations
@@ -38,17 +38,6 @@ ARCH_IDS = [
     "xlstm-350m",
 ]
 
-PORTED = (
-    "granite-20b",
-    "gemma2-2b",
-    "stablelm-12b",
-    "gemma2-27b",
-    "deepseek-v2-236b",
-    "granite-moe-1b-a400m",
-    "recurrentgemma-2b",
-)
-
-
 @dataclass(frozen=True)
 class ShapeSpec:
     name: str
@@ -68,10 +57,6 @@ SHAPES: Tuple[ShapeSpec, ...] = (
 def _module(name: str):
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{name}: not ported yet (ROADMAP queue 1, item 10: what remains of the LLM stack); ported: {list(PORTED)}"
-        )
     return importlib.import_module(f".{name.replace('-', '_')}", __package__)
 
 

@@ -9,8 +9,7 @@ groups.  The pipeline is:
   * deterministic & resumable — batch ``i`` is a pure function of
     (seed, i), so restarts and elastic re-partitions replay identically;
   * shift-labelled — ``labels[t] = tokens[t+1]``, last position ignored;
-  * frontend-aware — vlm/audio configs get stub prefix/frame embeddings
-    (the port's configs refuse those frontends so far).
+  * frontend-aware — vlm/audio configs get stub prefix/frame embeddings.
 
 Synthetic tokens follow a Zipf-ish distribution with a Markov drift so the
 loss is learnable.

@@ -6,13 +6,18 @@ dispatch.
         --prompt-len 8192 --new-tokens 32          # full width, on the card
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 4 \\
         --prompt-len 4096 --new-tokens 32
+    python -m repro_torch.launch.serve --arch xlstm-350m --batch 4 \\
+        --prompt-len 1024 --new-tokens 16       # xLSTM: no kernel launched
     python -m repro_torch.launch.serve --smoke --replicas 4 --chunks 64
         # DFPA dispatch demo across emulated replicas, bank on --device
 
-``--arch`` defaults to gemma2-2b, as in the reference.  Every decoder the
-port serves is a choice: the dense gemma2-2b, gemma2-27b, granite-20b and
-stablelm-12b, the MoE granite-moe-1b-a400m and deepseek-v2-236b (MLA), and
-the hybrid recurrentgemma-2b; the rest raise ``NotImplementedError``.
+``--arch`` defaults to gemma2-2b, as in the reference.  Every decoder-only
+architecture is a choice: the dense gemma2-2b, gemma2-27b, granite-20b and
+stablelm-12b, the MoE granite-moe-1b-a400m and deepseek-v2-236b (MLA), the
+hybrid recurrentgemma-2b, xlstm-350m and pixtral-12b (served on text
+alone, as the reference's ``ServeEngine`` serves it).  An encoder-decoder
+(seamless-m4t-medium) exits with the reference's message:
+``models.encdec``'s ``encdec_prefill`` / ``encdec_decode_step`` serve it.
 
 Weights are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; the prompt's tokens from another, seeded with ``--seed + 1``.
@@ -48,7 +53,8 @@ __all__ = ["demo_replica_run", "kernels_for", "main"]
 
 def kernels_for(cfg) -> list:
     """The CUDA kernels the architecture's serving path launches: flash
-    attention for attention layers, the RG-LRU scan for recurrent ones."""
+    attention for attention layers, the RG-LRU scan for recurrent ones
+    (none for xLSTM's ``mlstm`` / ``slstm``)."""
     kinds = set(cfg.layer_kinds())
     return [name for name, used in (("flash_attention", kinds & {"attn", "local"}), ("rglru_scan", "rec" in kinds)) if used]
 
@@ -69,6 +75,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encdec:
+        raise SystemExit("serve CLI demonstrates decoder-only archs; see tests for enc-dec")
     params = init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     budget = args.prompt_len + args.new_tokens
     eng = ServeEngine(cfg, params, batch=args.batch, seq_budget=budget, device=device)

@@ -14,13 +14,17 @@ The port's copy of the reference's ``launch/train.py``.  Two modes:
     the same state and group 0's result is kept (single-device emulation;
     the groups' gradients are averaged in production).
 
-Weights are random, from a ``torch.Generator`` seeded with 0.  ``--device``
-defaults to ``cuda``; ``--device cpu`` runs on the host.
+Every architecture trains: the decoder LMs, xLSTM, pixtral-12b (its batches
+carry the vision stub's ``prefix_embeds``) and the encoder-decoder
+seamless-m4t-medium (its batches carry the audio stub's ``frames``, one per
+token).  Weights are random, from a ``torch.Generator`` seeded with 0.
+``--device`` defaults to ``cuda``; ``--device cpu`` runs on the host.
 
 Usage:
     python -m repro_torch.launch.train --arch gemma2-2b --smoke --steps 20 --device cpu
     python -m repro_torch.launch.train --arch granite-moe-1b-a400m --smoke --groups 4 \\
         --hetero 1.0,1.4,2.0,3.1 --steps 12 --device cpu
+    python -m repro_torch.launch.train --arch xlstm-350m --smoke --groups 4 --device cpu
 """
 
 from __future__ import annotations

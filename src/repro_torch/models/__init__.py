@@ -1,9 +1,23 @@
-"""The LM model stack, ported slice by slice: so far the layers,
-attention (``attn``/``local``, GQA and MLA), mixture-of-experts MLPs, the
-RG-LRU block and the decoder assembly that serve the dense, MoE, MLA and
-hybrid decoders."""
+"""The LM model stack: the layers, attention (``attn``/``local``/cross,
+GQA and MLA), mixture-of-experts MLPs, the recurrent blocks (RG-LRU, mLSTM,
+sLSTM), the decoder assembly, the encoder-decoder and the frontend stubs:
+every family the reference assigns."""
 
 from .config import ModelConfig
+from .encdec import EncoderDecoder, encdec_decode_step, encdec_prefill, init_encdec, init_encdec_cache
 from .transformer import LanguageModel, decode_step, init_cache, init_lm, lm_spec, prefill
 
-__all__ = ["LanguageModel", "ModelConfig", "decode_step", "init_cache", "init_lm", "lm_spec", "prefill"]
+__all__ = [
+    "EncoderDecoder",
+    "LanguageModel",
+    "ModelConfig",
+    "decode_step",
+    "encdec_decode_step",
+    "encdec_prefill",
+    "init_cache",
+    "init_encdec",
+    "init_encdec_cache",
+    "init_lm",
+    "lm_spec",
+    "prefill",
+]

@@ -1,8 +1,8 @@
-"""Attention: GQA/MQA self-attention (global and sliding-window) and MLA
+"""Attention: GQA/MQA (global, sliding-window and cross) and MLA
 (deepseek-v2).
 
-The port's copy of the reference's ``models/attention.py`` for the kinds
-``attn`` and ``local``.  Cache convention (per attention layer):
+The port's copy of the reference's ``models/attention.py``.  Cache
+convention (per self-attention layer):
 
   * GQA: ``{"k": (B, S_buf, Kv, hd), "v": (B, S_buf, Kv, hd), "pos":
     (S_buf,) absolute positions, -1 = empty}``;
@@ -16,19 +16,24 @@ case.  As in the reference, a global layer's buffer wraps the same way
 once the prompt and the new tokens run past the budget: the oldest
 positions are overwritten and no longer seen.
 
+Cross-attention (the encoder-decoder's decoder) reads ``cross_kv = (k,
+v)``, each ``(B, S_enc, Kv, hd)``, projected once from the encoder's
+output (``models.encdec``); its query takes no rope, and it attends over
+every encoder position (no causal mask, no window).
+
 Where the kernels run: full-sequence attention (no cache, and prefill)
 calls ``kernels.ops.flash_attention`` — the hand-written kernel on the card,
 its plain version on the CPU — for both of the reference's branches (its
 ``_sdpa`` below ``attn_chunk_threshold`` and ``_sdpa_chunked`` above, which
-compute the same function), MLA's prefill among them.  The ring-buffer
-writes and decode (one query over the buffer, masked by the stored
-positions; MLA's absorbed decode) stay plain torch, as in the reference,
-where no Pallas kernel covers them.
+compute the same function), MLA's prefill and cross-attention outside
+decode among them.  The ring-buffer writes and decode (one query over the
+buffer, masked by the stored positions; MLA's absorbed decode; one query
+over the cross K/V) stay plain torch, as in the reference, where no Pallas
+kernel covers them.
 
 Unlike the reference's functional updates, prefill and decode write the
 given cache's tensors in place and return them (no copy of the cache per
-step).  Cross-attention comes later (ROADMAP queue 1, item 10: what
-remains of the LLM stack).
+step).
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ NEG_INF = -2.0e38
 # ---------------------------------------------------------------------------
 
 
-def attn_spec(cfg: ModelConfig) -> Dict:
+def attn_spec(cfg: ModelConfig, *, cross: bool = False) -> Dict:
     d, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "wq": ParamSpec((d, H, hd), ("embed", "heads", "head_dim")),
@@ -205,16 +210,27 @@ def apply_attn(
     Modes:
       * train:   cache=None, decode=False — full-sequence attention;
       * prefill: cache given (empty), decode=False — fills the cache;
-      * decode:  cache given, decode=True, S == 1.
+      * decode:  cache given, decode=True, S == 1;
+      * cross-attention: ``cross_kv=(k, v)`` precomputed from the encoder's
+        output; the cache is returned untouched.
     """
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention is not ported yet (ROADMAP queue 1, item 10: what remains of the LLM stack)")
     dtype = x.dtype
     B, S, _ = x.shape
     window = cfg.window if kind == "local" else 0
     scale = cfg.query_scale if cfg.query_scale > 0 else 1.0 / math.sqrt(cfg.head_dim)
 
     q = _project(x, params["wq"].to(dtype))
+    if cross_kv is not None:
+        k, v = cross_kv
+        if decode:  # one query over the cached cross K/V, plain torch
+            out = _sdpa(q, k, v, None, scale=scale, cap=cfg.attn_softcap)
+        else:
+            out = ops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=False, window=0, softcap=cfg.attn_softcap, scale=scale, bq=None, bk=None,
+            ).transpose(1, 2)
+        return _out(out, params["wo"].to(dtype)), cache
+
     k = _project(x, params["wk"].to(dtype))
     v = _project(x, params["wv"].to(dtype))
     q = rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)

@@ -2,12 +2,10 @@
 
 The port's copy of the reference's ``models/config.py``: the same fields,
 defaults and checks, with torch dtypes for ``dtype`` and ``logit_dtype``.
-The serving and training paths of the dense, MoE, MLA and hybrid decoders
-run in this package.  The fields that only the encoder-decoder and frontend
-families or the reference's dry run read are kept so that a config reads
-the same on both sides, but a value other than the default raises
-``NotImplementedError``: nothing in the port would read it yet (ROADMAP
-queue 1, item 10: what remains of the LLM stack).
+Every family the reference assigns runs in this package.  Only the dry
+run's ``unroll_scans`` is kept unread, so that a config reads the same on
+both sides: a value other than the default raises ``NotImplementedError``
+(the dry run is the mesh code's, ROADMAP queue 1, item 10f).
 """
 
 from __future__ import annotations
@@ -113,7 +111,7 @@ class ModelConfig:
         set_unread = [f for f in _NOT_READ if getattr(self, f) != _DEFAULTS[f]]
         if set_unread:
             raise NotImplementedError(
-                f"{self.name}: {', '.join(set_unread)} not read by the port yet (ROADMAP queue 1, item 10: what remains of the LLM stack)"
+                f"{self.name}: {', '.join(set_unread)} not read by the port yet (the dry run: ROADMAP queue 1, item 10f)"
             )
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
@@ -158,9 +156,6 @@ class ModelConfig:
         return replace(self, **kw)
 
 
-# Fields whose families (encoder-decoder, frontends) or dry run (item 10f)
-# are not ported yet.
-_NOT_READ = (
-    "encoder_layers", "encoder_pattern", "frontend", "num_prefix_embeddings", "unroll_scans",
-)
+# Fields whose reader (the dry run, item 10f) is not ported yet.
+_NOT_READ = ("unroll_scans",)
 _DEFAULTS = {f.name: f.default for f in fields(ModelConfig)}

@@ -1,10 +1,14 @@
 """Decoder-LM assembly: blocks, the layer loop, caches, loss, serving entry
 points.
 
-The port's copy of the reference's ``models/transformer.py`` for the layer
+The port's copy of the reference's ``models/transformer.py``: the layer
 kinds ``attn``, ``local`` and ``rec``, with GQA or MLA attention and dense
-or MoE MLPs.  Depth is ``prefix`` layers (unrepeated, dense: deepseek-v2's
-first layer) followed by ``num_units`` repetitions of ``cfg.pattern``; a
+or MoE MLPs, and the self-contained xLSTM kinds ``mlstm`` and ``slstm``
+(a norm and the mixer, no MLP sub-layer, never MoE).  A block built with
+``cross=True`` (the encoder-decoder's decoder, ``models.encdec``) adds a
+cross-attention sub-layer after self-attention.  Depth is ``prefix``
+layers (unrepeated, dense: deepseek-v2's first layer) followed by
+``num_units`` repetitions of ``cfg.pattern``; a
 repeated layer's MLP is a mixture of experts when the config has experts
 (:func:`_layer_is_moe`).  The reference scans one unit body over stacked
 parameters with ``lax.scan`` (under ``jax.checkpoint`` when
@@ -31,10 +35,14 @@ axis, sliced per layer by ``unbind``, so each stacked tensor gets one
 gradient).  :func:`lm_loss` is the reference's chunked cross-entropy.
 
 Caches: a list with one entry per layer, in depth order (the reference
-stacks the units' caches).  Prefill and decode update them in place.
+stacks the units' caches).  Prefill and decode update attention caches in
+place; recurrent layers return new state tensors.
 
-The self-contained ``mlstm``/``slstm`` kinds, ``prefix_embeds`` and
-cross-attention units come later (ROADMAP queue 1, item 10: what remains of the LLM stack).
+``prefix_embeds`` (the vision frontend's stub patch embeddings, ``(B, P,
+d)``) are prepended to the embedded text in :func:`apply_lm`,
+:func:`prefill` and :func:`lm_loss`: positions run over prefix plus text,
+the loss is taken over the text positions only, and a cache's budget must
+cover ``P + S_text`` plus the tokens to decode.
 """
 
 from __future__ import annotations
@@ -50,7 +58,17 @@ from .attention import apply_attn, apply_mla, attn_spec, init_attn_cache, init_m
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, embedding_spec, mlp_spec, norm_spec, softcap, stacked
 from .moe import apply_moe, moe_spec
-from .recurrent import apply_rglru_block, init_rglru_cache, rglru_spec
+from .recurrent import (
+    apply_mlstm_block,
+    apply_rglru_block,
+    apply_slstm_block,
+    init_mlstm_cache,
+    init_rglru_cache,
+    init_slstm_cache,
+    mlstm_spec,
+    rglru_spec,
+    slstm_spec,
+)
 
 __all__ = [
     "LanguageModel",
@@ -58,6 +76,7 @@ __all__ = [
     "apply_block",
     "apply_lm",
     "block_spec",
+    "chunked_xent",
     "decode_step",
     "init_cache",
     "init_lm",
@@ -65,9 +84,8 @@ __all__ = [
     "lm_loss",
     "lm_spec",
     "prefill",
+    "run_layers",
 ]
-
-_LATER = "(ROADMAP queue 1, item 10: what remains of the LLM stack)"
 
 
 # ---------------------------------------------------------------------------
@@ -79,10 +97,10 @@ _SELF_CONTAINED = ("mlstm", "slstm")  # kinds with no separate MLP sub-layer
 
 
 def block_spec(cfg: ModelConfig, kind: str, *, moe: bool = False, d_ff: int, cross: bool = False) -> Dict:
-    if cross:
-        raise NotImplementedError(f"cross-attention blocks are not ported yet {_LATER}")
-    if kind in _SELF_CONTAINED:
-        raise NotImplementedError(f"{kind} blocks are not ported yet {_LATER}")
+    if kind == "mlstm":
+        return {"norm": norm_spec(cfg.d_model, cfg.norm_kind), "mix": mlstm_spec(cfg)}
+    if kind == "slstm":
+        return {"norm": norm_spec(cfg.d_model, cfg.norm_kind), "mix": slstm_spec(cfg)}
     spec: Dict[str, Any] = {"norm1": norm_spec(cfg.d_model, cfg.norm_kind)}
     if kind in ("attn", "local"):
         spec["attn"] = mla_spec(cfg) if cfg.mla else attn_spec(cfg)
@@ -90,6 +108,9 @@ def block_spec(cfg: ModelConfig, kind: str, *, moe: bool = False, d_ff: int, cro
         spec["rec"] = rglru_spec(cfg)
     else:
         raise ValueError(f"unknown layer kind {kind}")
+    if cross:
+        spec["norm_x"] = norm_spec(cfg.d_model, cfg.norm_kind)
+        spec["xattn"] = attn_spec(cfg, cross=True)
     spec["norm2"] = norm_spec(cfg.d_model, cfg.norm_kind)
     spec["mlp"] = moe_spec(cfg) if moe else mlp_spec(cfg.d_model, d_ff, cfg.mlp_kind)
     if cfg.post_norms:
@@ -109,10 +130,17 @@ def apply_block(
     cache: Optional[Dict] = None,
     decode: bool = False,
     causal: bool = True,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (x, new_cache, aux_loss); the aux loss is zero unless
-    ``moe``."""
+    ``moe``.  ``cross_kv``: the encoder's K/V for a ``cross=True`` block."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in _SELF_CONTAINED:
+        h = apply_norm(params["norm"], x)
+        fn = apply_mlstm_block if kind == "mlstm" else apply_slstm_block
+        y, new_cache = fn(params["mix"], cfg, h, cache=cache, decode=decode)
+        return x + y, new_cache, aux
+
     h = apply_norm(params["norm1"], x)
     if kind in ("attn", "local"):
         if cfg.mla:
@@ -126,6 +154,12 @@ def apply_block(
     if cfg.post_norms:
         y = apply_norm(params["post_norm1"], y)
     x = x + y
+
+    if cross_kv is not None:
+        h = apply_norm(params["norm_x"], x)
+        y, _ = apply_attn(params["xattn"], cfg, h, positions, kind="attn", causal=False, decode=decode,
+                          cross_kv=cross_kv)
+        x = x + y
 
     h = apply_norm(params["norm2"], x)
     if moe:
@@ -220,16 +254,22 @@ class StackedParams:
     ``head``) read as :func:`apply_lm` reads a ``LanguageModel``:
     ``block(i)`` is layer ``i``'s dict of tensors, the units' as slices of
     the stacked leaves (one ``unbind`` per leaf, so autograd hands each
-    stacked tensor one gradient)."""
+    stacked tensor one gradient).  ``pattern`` and ``num_units`` default
+    to the config's; the encoder-decoder passes its halves' (a tree without
+    ``prefix`` has none)."""
 
-    def __init__(self, cfg: ModelConfig, tree: Dict):
+    def __init__(self, cfg: ModelConfig, tree: Dict, *, pattern: Optional[Tuple[str, ...]] = None,
+                 num_units: Optional[int] = None):
         self.cfg, self.tree = cfg, tree
-        n_pre, n_slots = len(cfg.prefix), len(cfg.pattern)
-        slots = [_split_units(slot, cfg.num_units) for slot in tree["units"]]
-        if len(tree["prefix"]) != n_pre or len(slots) != n_slots:
-            raise ValueError(f"{cfg.name}: the tree has {len(tree['prefix'])} prefix layers and {len(slots)} "
+        pattern = cfg.pattern if pattern is None else pattern
+        num_units = cfg.num_units if num_units is None else num_units
+        prefix = tree.get("prefix", ())
+        n_pre, n_slots = len(cfg.prefix) if "prefix" in tree else 0, len(pattern)
+        slots = [_split_units(slot, num_units) for slot in tree["units"]]
+        if len(prefix) != n_pre or len(slots) != n_slots:
+            raise ValueError(f"{cfg.name}: the tree has {len(prefix)} prefix layers and {len(slots)} "
                              f"pattern slots, the config {n_pre} and {n_slots}")
-        self._blocks = list(tree["prefix"]) + [slots[s][u] for u in range(cfg.num_units) for s in range(n_slots)]
+        self._blocks = list(prefix) + [slots[s][u] for u in range(num_units) for s in range(n_slots)]
 
     def __getitem__(self, key: str):
         return self.tree[key]
@@ -256,17 +296,21 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Lang
 
 def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, dtype=torch.bfloat16, device="cuda") -> List[Dict]:
     """One empty cache per layer, in depth order."""
-    caches = []
-    for kind in cfg.layer_kinds():
-        if kind in ("attn", "local") and cfg.mla:
-            caches.append(init_mla_cache(cfg, batch, seq_budget, dtype, device))
-        elif kind in ("attn", "local"):
-            caches.append(init_attn_cache(cfg, kind, batch, seq_budget, dtype, device))
-        elif kind == "rec":
-            caches.append(init_rglru_cache(cfg, batch, dtype, device))
-        else:
-            raise NotImplementedError(f"{kind} caches are not ported yet {_LATER}")
-    return caches
+    return [_kind_cache(cfg, kind, batch, seq_budget, dtype, device) for kind in cfg.layer_kinds()]
+
+
+def _kind_cache(cfg: ModelConfig, kind: str, batch: int, seq_budget: int, dtype, device) -> Dict:
+    if kind in ("attn", "local"):
+        if cfg.mla:
+            return init_mla_cache(cfg, batch, seq_budget, dtype, device)
+        return init_attn_cache(cfg, kind, batch, seq_budget, dtype, device)
+    if kind == "rec":
+        return init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return init_slstm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -281,28 +325,31 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tenso
     return x
 
 
-def apply_lm(
-    params: LanguageModel,
+def run_layers(
+    params,
     cfg: ModelConfig,
-    tokens: torch.Tensor,  # (B, S)
-    positions: torch.Tensor,  # (S,)
+    kinds: Tuple[str, ...],
+    x: torch.Tensor,
+    positions: torch.Tensor,
     *,
+    n_pre: int = 0,
     caches: Optional[List[Dict]] = None,
     decode: bool = False,
     causal: bool = True,
+    cross_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
-    """Returns (hidden (B,S,d), new_caches, aux_loss_sum): the MoE layers'
-    aux losses summed in depth order.  ``params``: a ``LanguageModel`` or
-    :class:`StackedParams`.  With gradients on, ``remat="full"`` and no
+    """The layer loop: layer ``i`` of kind ``kinds[i]`` is ``params.block(i)``
+    (its MLP dense for the first ``n_pre``), reading ``caches[i]`` and
+    ``cross_kv[i]`` when given.  Returns (x, new_caches, the MoE aux losses
+    summed in depth order).  With gradients on, ``remat="full"`` and no
     caches, each layer runs under ``torch.utils.checkpoint``."""
-    x = _embed_tokens(params, cfg, tokens)
     new_caches = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    n_pre = len(cfg.prefix)
     remat = cfg.remat == "full" and caches is None and torch.is_grad_enabled() and _requires_grad(params)
-    for i, kind in enumerate(cfg.layer_kinds()):
+    for i, kind in enumerate(kinds):
         c = caches[i] if caches is not None else None
-        kw = dict(moe=_layer_is_moe(cfg, kind, i < n_pre), cache=c, decode=decode, causal=causal)
+        xkv = cross_kv[i] if cross_kv is not None else None
+        kw = dict(moe=_layer_is_moe(cfg, kind, i < n_pre), cache=c, decode=decode, causal=causal, cross_kv=xkv)
         if remat:
             def layer(x, block=params.block(i), kind=kind, kw=kw):
                 y, _, aux = apply_block(block, cfg, kind, x, positions, **kw)
@@ -315,6 +362,31 @@ def apply_lm(
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
+    return x, new_caches, aux_total
+
+
+def apply_lm(
+    params: LanguageModel,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, S_text)
+    positions: torch.Tensor,  # (S,) over the whole sequence (prefix + text)
+    *,
+    caches: Optional[List[Dict]] = None,
+    decode: bool = False,
+    prefix_embeds: Optional[torch.Tensor] = None,  # (B, P, d) modality stub
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
+    """Returns (hidden (B,S,d), new_caches, aux_loss_sum): the MoE layers'
+    aux losses summed in depth order.  ``params``: a ``LanguageModel`` or
+    :class:`StackedParams`.  ``prefix_embeds`` are cast to ``cfg.dtype``
+    and prepended to the embedded tokens.  With gradients on,
+    ``remat="full"`` and no caches, each layer runs under
+    ``torch.utils.checkpoint``."""
+    x = _embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x, new_caches, aux_total = run_layers(params, cfg, cfg.layer_kinds(), x, positions, n_pre=len(cfg.prefix),
+                                          caches=caches, decode=decode, causal=causal)
     x = apply_norm(params["final_norm"], x)
     return x, new_caches, aux_total
 
@@ -380,41 +452,28 @@ class _XentChunk(torch.autograd.Function):
 
 def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``lm_loss``: ``batch`` holds ``tokens`` and
-    ``labels`` ``(B, S)`` (label -1 = ignored); returns ``(loss,
-    metrics)`` with ``nll``, ``tokens`` and ``aux``.  ``params``: the
+    ``labels`` ``(B, S)`` (label -1 = ignored) and, for a vision config,
+    ``prefix_embeds (B, P, d)``, prepended to the text (the loss is taken
+    over the text positions only); returns ``(loss, metrics)`` with
+    ``nll``, ``tokens`` and ``aux``.  ``params``: the
     parameter tree in the reference's stacked layout (the training state's;
-    read through :class:`StackedParams`).  The cross-entropy runs over
-    ``xent_chunk`` positions of every sequence at a time (the whole
-    sequence when it is 0 or does not divide it), each chunk's logits
-    recomputed in the backward when gradients are on (:class:`_XentChunk`),
-    so the backward holds one chunk's float32 logits; ``final_softcap``,
-    the ``zloss`` term and the MoE aux term ``aux_loss_weight * aux /
+    read through :class:`StackedParams`).  The cross-entropy runs in
+    chunks of ``xent_chunk`` positions (:func:`chunked_xent`), so the
+    backward holds one chunk's float32 logits; ``final_softcap``, the
+    ``zloss`` term and the MoE aux term ``aux_loss_weight * aux /
     num_layers`` as the reference adds them."""
     if not isinstance(params, dict):
         raise TypeError(f"lm_loss takes the stacked parameter tree, not {type(params).__name__} "
                         "(nn.convert.stack_tree turns a model's state_dict into it)")
-    if "prefix_embeds" in batch:
-        raise NotImplementedError(f"prefix_embeds (modality frontends) are not ported yet {_LATER}")
     params = StackedParams(cfg, params)
     tokens, labels = batch["tokens"], batch["labels"]
-    B, S = tokens.shape
-    hidden, _, aux = apply_lm(params, cfg, tokens, torch.arange(S, device=tokens.device))
+    prefix_embeds = batch.get("prefix_embeds")
+    P = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    hidden, _, aux = apply_lm(params, cfg, tokens, torch.arange(P + tokens.shape[1], device=tokens.device),
+                              prefix_embeds=prefix_embeds)
+    hidden = hidden[:, P:]  # loss over text positions only
     w = params["embed"]["embedding"].T if cfg.tie_embeddings else params["head"]
-    w = w.to(hidden.dtype)
-
-    L = min(cfg.xent_chunk if cfg.xent_chunk > 0 else S, S)
-    if S % L != 0:
-        L = S
-    grad = torch.is_grad_enabled() and (hidden.requires_grad or w.requires_grad)
-    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    nll_sum, cnt, zl_sum = zero, zero, zero
-    for c in range(S // L):
-        h, y = hidden[:, c * L:(c + 1) * L], labels[:, c * L:(c + 1) * L]
-        if grad:
-            nll, n, zl = _XentChunk.apply(h, w, y, cfg.final_softcap)
-        else:
-            nll, n, zl = _xent_chunk(h, w, y, cfg.final_softcap)
-        nll_sum, cnt, zl_sum = nll_sum + nll, cnt + n, zl_sum + zl
+    nll_sum, cnt, zl_sum = chunked_xent(hidden, w.to(hidden.dtype), labels, cfg.xent_chunk, cfg.final_softcap)
     denom = torch.clamp_min(cnt, 1.0)
     loss = nll_sum / denom
     if cfg.zloss > 0:
@@ -424,18 +483,48 @@ def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, 
     return loss, {"nll": nll_sum / denom, "tokens": cnt, "aux": aux}
 
 
+def chunked_xent(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, xent_chunk: int, cap: float):
+    """The summed nll, label count and summed ``lse**2`` of ``hidden @ w``
+    (softcapped by ``cap``) against ``labels``, ``xent_chunk`` positions of
+    every sequence at a time (the whole sequence when it is 0 or does not
+    divide it), each chunk's logits recomputed in the backward when
+    gradients are on (:class:`_XentChunk`)."""
+    S = hidden.shape[1]
+    L = min(xent_chunk if xent_chunk > 0 else S, S)
+    if S % L != 0:
+        L = S
+    grad = torch.is_grad_enabled() and (hidden.requires_grad or w.requires_grad)
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    nll_sum, cnt, zl_sum = zero, zero, zero
+    for c in range(S // L):
+        h, y = hidden[:, c * L:(c + 1) * L], labels[:, c * L:(c + 1) * L]
+        if grad:
+            nll, n, zl = _XentChunk.apply(h, w, y, cap)
+        else:
+            nll, n, zl = _xent_chunk(h, w, y, cap)
+        nll_sum, cnt, zl_sum = nll_sum + nll, cnt + n, zl_sum + zl
+    return nll_sum, cnt, zl_sum
+
+
 # ---------------------------------------------------------------------------
 # Serving entry points
 # ---------------------------------------------------------------------------
 
 
 def prefill(
-    params: LanguageModel, cfg: ModelConfig, tokens: torch.Tensor, caches: List[Dict]
+    params: LanguageModel,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    caches: List[Dict],
+    *,
+    prefix_embeds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
-    """Run the prompt through the model, filling caches; returns
-    (last-position logits (B, V), caches)."""
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    hidden, caches, _ = apply_lm(params, cfg, tokens, positions, caches=caches)
+    """Run the prompt (after ``prefix_embeds``, when given) through the
+    model, filling caches; returns (last-position logits (B, V), caches).
+    The next token's position is ``P + S_text``."""
+    P = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    positions = torch.arange(P + tokens.shape[1], device=tokens.device)
+    hidden, caches, _ = apply_lm(params, cfg, tokens, positions, caches=caches, prefix_embeds=prefix_embeds)
     return lm_logits(params, cfg, hidden[:, -1:])[:, 0], caches
 
 

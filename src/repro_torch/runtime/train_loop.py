@@ -6,8 +6,9 @@ gradient accumulation — the accumulation length IS the paper's
 per-processor allocation ``d_i``.
 
 The state holds the fp32 master weights in the reference's layout (the
-tree of ``lm_spec``, ``units`` stacked along a leading ``num_units`` axis),
-trainable, and the model reads them through ``StackedParams``; so
+tree of ``lm_spec``, or of ``encdec_spec`` for an encoder-decoder, each
+``units`` stacked along a leading unit axis), trainable, and the model
+reads them through ``StackedParams``; so
 gradients, AdamW moments and checkpoints have the reference's paths leaf
 for leaf.  ``step`` and the optimizer's ``count`` are 0-d int32 tensors on
 the host (the schedule and the bias corrections need no sync with the
@@ -19,8 +20,7 @@ every group from the same state).  ``make_train_step(..., inplace=True)``
 writes the update into ``state``'s parameters and moments instead and
 returns them (the counterpart of JAX's buffer donation, for a caller that
 never reuses the old state, as ``train_single``): the same values bit for
-bit, without a second copy of the parameters and moments.  Encoder-decoder
-configs raise ``NotImplementedError`` (ROADMAP queue 1, item 10e).
+bit, without a second copy of the parameters and moments.
 """
 
 from __future__ import annotations
@@ -32,13 +32,12 @@ import torch
 
 from ..core.modelbank_torch import resolve_device
 from ..models.config import ModelConfig
+from ..models.encdec import encdec_loss, encdec_spec
 from ..models.transformer import lm_loss, lm_spec
 from ..nn.params import init_tree, tree_map
 from ..optim import AdamWState, adamw_init, adamw_update
 
 __all__ = ["TrainState", "init_train_state", "make_train_step", "loss_for_config", "model_spec_for"]
-
-_ENCDEC = "encoder-decoder training is not ported yet (ROADMAP queue 1, item 10e)"
 
 
 class TrainState(NamedTuple):
@@ -48,14 +47,12 @@ class TrainState(NamedTuple):
 
 
 def model_spec_for(cfg: ModelConfig):
-    if cfg.is_encdec:
-        raise NotImplementedError(_ENCDEC)
-    return lm_spec(cfg)
+    return encdec_spec(cfg) if cfg.is_encdec else lm_spec(cfg)
 
 
 def loss_for_config(cfg: ModelConfig) -> Callable:
     if cfg.is_encdec:
-        raise NotImplementedError(_ENCDEC)
+        return lambda p, b: encdec_loss(p, cfg, b)
     return lambda p, b: lm_loss(p, cfg, b)
 
 

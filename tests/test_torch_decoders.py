@@ -150,10 +150,14 @@ def test_config_matches_reference_field_for_field(arch):
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "pixtral-12b", "seamless-m4t-medium"])
 def test_registry_still_refuses_the_other_families(arch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 10: what remains of the LLM stack"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        get_smoke_config(arch)
+    """The families this file does not serve (xLSTM, the vision prefix,
+    the encoder-decoder; ``test_torch_xlstm.py`` and
+    ``test_torch_encdec.py`` hold them) are no longer refused: each config
+    equals the reference's field for field."""
+    for smoke in (False, True):
+        jcfg = ref_smoke_config(arch) if smoke else ref_get_config(arch)
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        assert _fields(jcfg) == _port_fields(cfg), (arch, smoke)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -46,7 +46,14 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
   bfloat16 (of the largest magnitude),
   one kernel launch (the forward) a call; the scan's ``dlog_a``/``db``/
   ``dh0`` rel 1e-4, two launches a call (the forward and the reversed
-  recurrence).
+  recurrence);
+* ``flash_attention`` at the encoder-decoder's and the vision prefix's
+  operands (``SLICE_CASES``): non-causal bf16 head_dim 64 with ``Sq !=
+  Sk`` both ways and a key length no 64-key tile divides (seamless's
+  cross-attention), and causal head_dim 128, 32 query heads over 8 KV
+  heads, at 256 prefix + 1,024 text positions (pixtral), on ``"wgmma"``
+  against the plain version on float32 copies at 2e-2; and
+  ``FlashAttention``'s gradients at ``Sq != Sk`` (non-causal), rel 2e-2.
 """
 
 import numpy as np
@@ -399,3 +406,45 @@ def test_rglru_scan_gradients_on_card(card, B, S, D, with_h0):
     want = torch.autograd.grad(rglru_scan_ref(la, b, h0), inputs, dh)
     for name, g, w in zip(("dlog_a", "db", "dh0"), got, want):
         assert _grad_rel(g, w) <= 1e-4, name
+
+
+SLICE_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs): seamless's cross and encoder attention, pixtral's prefix + text
+    (2, 16, 16, 130, 1000, 64, dict(causal=False)),
+    (2, 16, 16, 1000, 130, 64, dict(causal=False)),
+    (1, 32, 8, 1280, 1280, 128, dict(causal=True)),
+]
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,D,kwargs", SLICE_CASES)
+def test_flash_attention_at_the_encdec_and_prefix_operands_on_card(card, B, H, Kv, Sq, Sk, D, kwargs):
+    rng = np.random.default_rng(9)
+    # the model's (B, S, H, D) tensors, passed as transposed views
+    q = _randn(rng, (B, Sq, H, D), 0.3).to(card, torch.bfloat16).transpose(1, 2)
+    k = _randn(rng, (B, Sk, Kv, D), 0.3).to(card, torch.bfloat16).transpose(1, 2)
+    v = _randn(rng, (B, Sk, Kv, D)).to(card, torch.bfloat16).transpose(1, 2)
+    before = dict(flash_attention_cuda.launches_by_route)
+    got = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
+    again = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
+    torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    assert routes == {"rows": 0, "mma": 0, "wgmma": 2}
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), **kwargs)
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(130, 1000), (1000, 130)])
+def test_flash_attention_gradients_at_unequal_lengths_on_card(card, Sq, Sk):
+    rng = np.random.default_rng(10)
+    B, H, D = 2, 4, 64
+    q = _randn(rng, (B, Sq, H, D)).to(card, torch.bfloat16).transpose(1, 2).requires_grad_(True)
+    k, v = (_randn(rng, (B, Sk, H, D)).to(card, torch.bfloat16).transpose(1, 2).requires_grad_(True) for _ in range(2))
+    dout = _randn(rng, (B, H, Sq, D)).to(card, torch.bfloat16)
+    before = flash_attention_cuda.launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=False, bq=None, bk=None), (q, k, v), dout)
+    assert flash_attention_cuda.launches - before == 1
+    q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(flash_attention_ref(q32, k32, v32, causal=False), (q32, k32, v32), dout.float())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert _grad_rel(g, w) <= 2e-2, name

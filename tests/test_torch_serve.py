@@ -93,9 +93,13 @@ def test_serve_cli_runs_the_smoke_model_on_the_cpu(capsys):
 
 def test_serve_cli_refuses_what_is_not_ported(capsys):
     """``--replicas`` is ported (the dispatch demo runs; its line is held
-    against the reference in ``tests/test_torch_dispatch.py``); the
-    families not ported yet still raise."""
+    against the reference in ``tests/test_torch_dispatch.py``); xLSTM
+    serves; an encoder-decoder gets the reference's ``SystemExit`` (its
+    CLI serves decoder-only architectures)."""
     serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--replicas", "4"])
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith("DFPA dispatch over 4 replicas: d=")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10: what remains of the LLM stack"):
-        serve_cli.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
+    out = serve_cli.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu", "--batch", "2",
+                          "--prompt-len", "8", "--new-tokens", "3"])
+    assert tuple(out.shape) == (2, 3)
+    with pytest.raises(SystemExit, match="serve CLI demonstrates decoder-only archs; see tests for enc-dec"):
+        serve_cli.main(["--arch", "seamless-m4t-medium", "--smoke", "--device", "cpu"])
