@@ -1299,12 +1299,16 @@ class _Capture:
     ``ops.rglru_scan`` call (the model calls them through ``ops``) while
     active, and passes every call on unchanged.  ``flash_by_window`` keeps
     the last flash call of each window (0: a global layer's),
-    ``flash_by_shape`` the last of each ``(causal, Sq, Sk)``."""
+    ``flash_by_shape`` the last of each ``(causal, Sq, Sk)``, and
+    ``flash_calls`` the flash calls whose ordinals (from 0) are in
+    ``keep``."""
 
-    def __init__(self):
+    def __init__(self, keep=()):
         self.seen = {}
         self.flash_by_window = {}
         self.flash_by_shape = {}
+        self.flash_calls = {}
+        self._keep, self._calls = set(keep), 0
         self._orig = (ops.flash_attention, ops.rglru_scan)
 
     def __enter__(self):
@@ -1314,6 +1318,9 @@ class _Capture:
             self.seen["flash_attention"] = (q.detach().clone(), k.detach().clone(), v.detach().clone(), kw)
             self.flash_by_window[kw.get("window", 0)] = self.seen["flash_attention"]
             self.flash_by_shape[(kw.get("causal", True), q.shape[2], k.shape[2])] = self.seen["flash_attention"]
+            if self._calls in self._keep:
+                self.flash_calls[self._calls] = self.seen["flash_attention"]
+            self._calls += 1
             return fa(q, k, v, **kw)
 
         def scan(log_a, b, h0=None, **kw):
@@ -3110,13 +3117,14 @@ def phase_decoders() -> tuple:
     through ``decoder_full`` and freed before the next; the kernel at
     gemma2-2b's prefill shape (random operands) timed beside the plain
     version, SDPA and its bound; (d) all six at smoke widths in float32,
-    the card's tokens equal to the CPU's.  Returns (the flash launches of
-    the timed ``generate`` calls of (a)-(c), by route; the timing row)."""
+    the card's tokens equal to the CPU's.  Returns (the launches of the
+    timed ``generate`` calls of (a)-(c): flash by route, and the scan; the
+    timing row)."""
     # the dispatch phase's replicas keep its model through reference
     # cycles until a collection: free it before the first part measures
     gc.collect()
     torch.cuda.empty_cache()
-    launches = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
+    launches = {"flash_attention": dict.fromkeys(flash_attention_cuda.launches_by_route, 0), "rglru_scan": 0}
     for arch, layers, batch, prompt_len, new, route in DECODERS:
         t0 = time.perf_counter()
         row = {"phase": "decoders", "part": "full"}
@@ -3126,7 +3134,8 @@ def phase_decoders() -> tuple:
             row["seconds"] = time.perf_counter() - t0
             emit(row)
         for r, n in row["launches"]["flash_attention_by_route"].items():
-            launches[r] += n
+            launches["flash_attention"][r] += n
+        launches["rglru_scan"] += row["launches"]["rglru_scan"]
     cfg = get_config("gemma2-2b")
     kw = dict(causal=True, window=cfg.window, softcap=cfg.attn_softcap, scale=cfg.query_scale)
     timing = _flash_timing_at(DECODERS[0][2], cfg.num_heads, cfg.num_kv_heads, DECODERS[0][3], cfg.head_dim, kw,
@@ -3425,14 +3434,9 @@ def phase_train() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _no_kernel_launched(counts: dict, what: str) -> None:
-    if counts["flash_attention"] or counts["rglru_scan"]:
-        raise SystemExit(f"chip_smoke: {what} launched {counts}, expected no kernel")
-
-
 def _flash_launched(counts: dict, want: int, what: str) -> None:
     if counts["flash_attention"] != want or counts["flash_attention_by_route"]["wgmma"] != want or counts["rglru_scan"]:
-        raise SystemExit(f"chip_smoke: {what} launched {counts}, expected {want} flash, all 'wgmma'")
+        raise SystemExit(f"chip_smoke: {what} launched {counts}, expected {want} flash, all 'wgmma', and no scan")
 
 
 def _serving_times(out: dict, gen_ms: list, prefill_ms: list, batch: int, prompt: int, new: int) -> None:
@@ -3443,17 +3447,69 @@ def _serving_times(out: dict, gen_ms: list, prefill_ms: list, batch: int, prompt
     out["decode_tok_per_s"] = batch / (out["decode_ms_per_token"] / 1e3)
 
 
+def _serve_family(out: dict, model, run, new: int, prompt: int, flash: int, what: str) -> torch.Tensor:
+    """The serving gates of a family: ``run(n)`` gives ``(B, n)`` greedy
+    tokens.  A warm-up run of 2; with the counts set to 0, one run of
+    ``new`` (CUDA events) that launches flash ``flash`` times, all
+    ``"wgmma"``, and no scan; a second run with the same tokens; two runs
+    of 1 whose token is the first.  Records the parameters, the peak memory
+    of the counted run and ``_serving_times``; returns its tokens."""
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_serve_counts()
+    tokens, ms = _cuda_timed(lambda: run(new))
+    out["launches"] = _serve_counts()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    _flash_launched(out["launches"], flash, f"one {what} run of {new} tokens")
+    again, ms2 = _cuda_timed(lambda: run(new))
+    if not torch.equal(again, tokens):
+        raise SystemExit(f"chip_smoke: two {what} runs gave different tokens")
+    prefill_ms = []
+    for _ in range(2):
+        first, pms = _cuda_timed(lambda: run(1))
+        prefill_ms.append(pms)
+        if not torch.equal(first[:, 0], tokens[:, 0]):
+            raise SystemExit(f"chip_smoke: {what}'s first token differs between runs of 1 and {new}")
+    _serving_times(out, [ms, ms2], prefill_ms, tokens.shape[0], prompt, new)
+    out["tokens_identical"], out["sample"] = True, tokens[0, :8].tolist()
+    return tokens
+
+
+def _greedy(prefill_fn, step_fn, pos: int, new: int) -> torch.Tensor:
+    """``prefill_fn()`` gives ``(logits, caches)`` and the first token, then
+    ``new - 1`` greedy ``step_fn(token, position, caches)`` from position
+    ``pos``; returns ``(B, new)`` tokens."""
+    with torch.inference_mode():
+        logits, caches = prefill_fn()
+        toks = [torch.argmax(logits, -1)[:, None]]
+        for i in range(new - 1):
+            logits, caches = step_fn(toks[-1], pos + i, caches)
+            toks.append(torch.argmax(logits, -1)[:, None])
+        return torch.cat(toks, dim=1)
+
+
+def _seamless_greedy(model, cfg, frames, prompt, new: int) -> torch.Tensor:
+    """``encdec_prefill`` then greedy ``encdec_decode_step`` s on
+    ``frames``' device, as the reference's tests drive it."""
+    B, P = prompt.shape
+    return _greedy(lambda: encdec_prefill(model, cfg, frames, prompt,
+                                          init_encdec_cache(cfg, B, P + new, frames.shape[1], cfg.dtype, frames.device)),
+                   lambda tok, pos, caches: encdec_decode_step(model, cfg, tok, pos, caches), P, new)
+
+
 def family_xlstm(out: dict) -> None:
     """(a) xlstm-350m as published (24 layers, d 1024) served by
     ``ServeEngine``: batch 4, a 1,024-token prompt (four mLSTM chunks), 16
-    greedy tokens.  Gates: no kernel launched (the xLSTM blocks have
-    none); two ``generate`` calls give identical tokens; a prefill of the
-    first 768 prompt tokens and 256 teacher-forced decode steps agree with
-    the full forward over the prompt (rel 0.05 at the last position; a
-    prefill of 1,023 tokens is refused, as the reference refuses it: 256
-    does not divide it).  Decode ms a token is timed over those 256 steps
-    (CUDA events); the difference of two ``generate`` lengths is kept
-    beside it."""
+    greedy tokens through ``_serve_family``, which launch no kernel (the
+    xLSTM blocks have none).  A prefill of the first 768 prompt tokens and
+    256 teacher-forced decode steps agree with the full forward over the
+    prompt (rel 0.05 at the last position; a prefill of 1,023 tokens is
+    refused, as the reference refuses it: 256 does not divide it).  Decode
+    ms a token is timed over those 256 steps (CUDA events); the difference
+    of two ``generate`` lengths is kept beside it."""
     t = FAMILY_XLSTM
     cfg = get_config(t["arch"])
     B, S, new, S0 = t["batch"], t["prompt"], t["new"], t["check_prefill"]
@@ -3461,29 +3517,10 @@ def family_xlstm(out: dict) -> None:
                 "new_tokens": new})
     before = torch.cuda.memory_allocated()
     model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    out["params"] = sum(p.numel() for p in model.parameters())
-    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
     eng = ServeEngine(cfg, model, batch=B, seq_budget=S + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator(device="cuda").manual_seed(1),
                            device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_serve_counts()
-    tokens, ms = _timed_generate(eng, prompt, new)
-    out["launches"] = counts = _serve_counts()
-    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    _no_kernel_launched(counts, "one xlstm-350m generate")
-    again, ms2 = _timed_generate(eng, prompt, new)
-    if not torch.equal(again, tokens):
-        raise SystemExit("chip_smoke: two xlstm-350m generate calls gave different tokens")
-    prefill_ms = []
-    for _ in range(2):
-        first, pms = _timed_generate(eng, prompt, 1)
-        prefill_ms.append(pms)
-        if not torch.equal(first[:, 0], tokens[:, 0]):
-            raise SystemExit("chip_smoke: xlstm-350m generate of one token differs from the first of 16")
-    _serving_times(out, [ms, ms2], prefill_ms, B, S, new)
-    out["tokens_identical"], out["sample"] = True, tokens[0, :8].tolist()
+    _serve_family(out, model, lambda n: eng.generate(prompt, n), new, S, 0, cfg.name)
     with torch.inference_mode():
         hid, _, _ = apply_lm(model, cfg, prompt, torch.arange(S, device="cuda"))
         full = lm_logits(model, cfg, hid[:, S0:])
@@ -3514,32 +3551,16 @@ def family_xlstm(out: dict) -> None:
     _free(out, before, "xlstm-350m's model")
 
 
-def _seamless_greedy(model, cfg, frames, prompt, new: int) -> torch.Tensor:
-    """``encdec_prefill`` then ``new - 1`` greedy ``encdec_decode_step`` s,
-    as the reference's tests drive it; returns ``(B, new)`` tokens."""
-    B, P = prompt.shape
-    with torch.inference_mode():
-        caches = init_encdec_cache(cfg, B, P + new, frames.shape[1], cfg.dtype, "cuda")
-        logits, caches = encdec_prefill(model, cfg, frames, prompt, caches)
-        tok = torch.argmax(logits, -1)[:, None]
-        out = [tok]
-        for i in range(1, new):
-            logits, caches = encdec_decode_step(model, cfg, tok, P + i - 1, caches)
-            tok = torch.argmax(logits, -1)[:, None]
-            out.append(tok)
-        return torch.cat(out, dim=1)
-
-
 def family_seamless(out: dict) -> dict:
     """(b) seamless-m4t-medium as published (12 encoder + 12 decoder
     layers, d 1024, vocab 256,206): frames of 2 x 1,024, a decoder prompt
-    of 128 and 16 greedy tokens.  Gates: one greedy run launches flash 36
-    times (12 encoder, 12 decoder self-attention, 12 cross-attention), all
-    ``"wgmma"``; two runs give identical tokens; prefill + one decode step
-    agree with the full decoder (rel 0.05); the kernel agrees with its
-    plain version on the prefill's own encoder, decoder and cross inputs,
-    and on random operands with ``Sq != Sk`` both ways.  Returns the
-    captured cross-attention inputs (for (d)'s gradient check)."""
+    of 128 and 16 greedy tokens through ``_serve_family``: flash 36 times a
+    run (12 encoder, 12 decoder self-attention, 12 cross-attention).
+    Prefill + one decode step agree with the full decoder (rel 0.05); the
+    kernel agrees with its plain version on the prefill's own encoder,
+    decoder and cross inputs, and on random operands with ``Sq != Sk``
+    both ways.  Returns the captured cross-attention inputs, named, for
+    (d)'s gradient checks."""
     t = FAMILY_SEAMLESS
     cfg = get_config(t["arch"])
     B, F, P, new = t["batch"], t["frames"], t["prompt"], t["new"]
@@ -3548,31 +3569,11 @@ def family_seamless(out: dict) -> dict:
                 "new_tokens": new})
     before = torch.cuda.memory_allocated()
     model = init_encdec(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    out["params"] = sum(p.numel() for p in model.parameters())
-    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
     frames = stub_frame_embeddings(cfg, B, F, seed=2, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator(device="cuda").manual_seed(1),
                            device="cuda")
-    per_run = cfg.encoder_layers + 2 * cfg.num_layers
-    _seamless_greedy(model, cfg, frames, prompt, 2)  # warm-up, before the counts are set to 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_serve_counts()
-    tokens, ms = _cuda_timed(lambda: _seamless_greedy(model, cfg, frames, prompt, new))
-    out["launches"] = counts = _serve_counts()
-    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    _flash_launched(counts, per_run, "one seamless-m4t-medium greedy run")
-    again, ms2 = _cuda_timed(lambda: _seamless_greedy(model, cfg, frames, prompt, new))
-    if not torch.equal(again, tokens):
-        raise SystemExit("chip_smoke: two seamless-m4t-medium greedy runs gave different tokens")
-    prefill_ms = []
-    for _ in range(2):
-        first, pms = _cuda_timed(lambda: _seamless_greedy(model, cfg, frames, prompt, 1))
-        prefill_ms.append(pms)
-        if not torch.equal(first[:, 0], tokens[:, 0]):
-            raise SystemExit("chip_smoke: seamless-m4t-medium's first token differs between runs of 1 and 16")
-    _serving_times(out, [ms, ms2], prefill_ms, B, P, new)
-    out["tokens_identical"], out["sample"] = True, tokens[0, :8].tolist()
+    _serve_family(out, model, lambda n: _seamless_greedy(model, cfg, frames, prompt, n), new, P,
+                  cfg.encoder_layers + 2 * cfg.num_layers, cfg.name)
     with torch.inference_mode():
         xkv = _cross_kv_all(model, cfg, encode(model, cfg, frames))
         hid, _ = apply_decoder(model, cfg, prompt, torch.arange(P, device="cuda"), xkv)
@@ -3601,17 +3602,17 @@ def family_seamless(out: dict) -> dict:
         out["random_operands"].append(_captured_flash(q, k, v, kw, "wgmma", f"at Sq {Sq}, Sk {Sk} (non-causal)"))
     del model, frames, q, k, v
     _free(out, before, "seamless-m4t-medium's model")
-    return cross
+    return {f"prefill's cross-attention (B {B}, Sq {P}, Sk {F})": cross}
 
 
 def family_pixtral(out: dict) -> None:
     """(c) pixtral-12b at full width cut to 4 layers: 256 prefix embeddings
     (the vision stub's) + 1,024 text tokens, batch 2, 8 new tokens through
-    ``prefill(prefix_embeds=)`` and ``decode_step``.  Gates: one run
-    launches flash once a layer on ``"wgmma"`` (head_dim 128, 32 query
-    heads over 8 KV heads); two runs give identical tokens; prefill + one
-    decode step agree with the full forward over prefix + text (rel 0.05);
-    the kernel agrees with its plain version on the prefill's own inputs."""
+    ``prefill(prefix_embeds=)`` and ``decode_step`` in ``_serve_family``:
+    flash once a layer (head_dim 128, 32 query heads over 8 KV heads).
+    Prefill + one decode step agree with the full forward over prefix +
+    text (rel 0.05); the kernel agrees with its plain version on the
+    prefill's own inputs."""
     t = FAMILY_PIXTRAL
     full_cfg = get_config(t["arch"])
     cfg = full_cfg.replace(num_layers=t["layers"])
@@ -3620,43 +3621,16 @@ def family_pixtral(out: dict) -> None:
                 "d_model": cfg.d_model, "batch": B, "prefix": P, "text": S, "new_tokens": new})
     before = torch.cuda.memory_allocated()
     model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    out["params"] = sum(p.numel() for p in model.parameters())
-    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
     pe = stub_patch_embeddings(cfg, B, seed=2, device="cuda")
     text = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator(device="cuda").manual_seed(1),
                          device="cuda")
 
     def run(n: int):
-        with torch.inference_mode():
-            caches = init_cache(cfg, B, P + S + n, cfg.dtype, "cuda")
-            logits, caches = prefill(model, cfg, text[:, :S], caches, prefix_embeds=pe)
-            tok = torch.argmax(logits, -1)[:, None]
-            toks = [tok]
-            for i in range(1, n):
-                logits, caches = decode_step(model, cfg, tok, P + S + i - 1, caches)
-                tok = torch.argmax(logits, -1)[:, None]
-                toks.append(tok)
-            return torch.cat(toks, dim=1)
+        return _greedy(lambda: prefill(model, cfg, text[:, :S], init_cache(cfg, B, P + S + n, cfg.dtype, "cuda"),
+                                       prefix_embeds=pe),
+                       lambda tok, pos, caches: decode_step(model, cfg, tok, pos, caches), P + S, n)
 
-    run(2)  # warm-up, before the counts are set to 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_serve_counts()
-    tokens, ms = _cuda_timed(lambda: run(new))
-    out["launches"] = counts = _serve_counts()
-    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    _flash_launched(counts, cfg.num_layers, "one pixtral-12b run")
-    again, ms2 = _cuda_timed(lambda: run(new))
-    if not torch.equal(again, tokens):
-        raise SystemExit("chip_smoke: two pixtral-12b runs gave different tokens")
-    prefill_ms = []
-    for _ in range(2):
-        first, pms = _cuda_timed(lambda: run(1))
-        prefill_ms.append(pms)
-        if not torch.equal(first[:, 0], tokens[:, 0]):
-            raise SystemExit("chip_smoke: pixtral-12b's first token differs between runs of 1 and 8")
-    _serving_times(out, [ms, ms2], prefill_ms, B, P + S, new)
-    out["tokens_identical"], out["sample"] = True, tokens[0, :8].tolist()
+    _serve_family(out, model, run, new, P + S, cfg.num_layers, cfg.name)
     with torch.inference_mode():
         hid, _, _ = apply_lm(model, cfg, text, torch.arange(P + S + 1, device="cuda"), prefix_embeds=pe)
         full = lm_logits(model, cfg, hid[:, -1])
@@ -3677,21 +3651,33 @@ def family_pixtral(out: dict) -> None:
     _free(out, before, "pixtral-12b's model")
 
 
-def family_train(out: dict, t: dict) -> None:
+def family_train(out: dict, t: dict) -> dict:
     """(d) ``train_single`` at the published size: the loss finite and
     falling; flash twice an attention call a step (the forward and the
     remat recompute; the encoder-decoder's encoder, decoder and cross
-    attention), none for xLSTM."""
+    attention), none for xLSTM.  For the encoder-decoder, returns the
+    inputs of the first step's first encoder, decoder and cross-attention
+    calls, named, for the gradient checks: ``encdec_loss`` runs the
+    encoder's E layers, then each decoder layer's self- and then
+    cross-attention, so these are flash calls 0, E and E + 1."""
     cfg = get_config(t["arch"])
-    losses = _train_single_part(out, cfg, t["batch"], t["seq"], t["steps"], t["lr"])
-    if cfg.is_encdec:
-        per_call = 2 if cfg.remat == "full" else 1  # the forward, and the recompute of a remat layer
-        want = (cfg.encoder_layers + 2 * cfg.num_layers) * per_call * t["steps"]
-        _flash_launched(out["launches"], want, f"{cfg.name} training")
-    else:
-        _no_kernel_launched(out["launches"], f"{cfg.name} training")
+    E = cfg.encoder_layers if cfg.is_encdec else 0
+    with _Capture(keep=(0, E, E + 1) if cfg.is_encdec else ()) as cap:
+        losses = _train_single_part(out, cfg, t["batch"], t["seq"], t["steps"], t["lr"])
+    per_call = 2 if cfg.remat == "full" else 1  # the forward, and the recompute of a remat layer
+    want = (E + 2 * cfg.num_layers) * per_call * t["steps"] if cfg.is_encdec else 0
+    _flash_launched(out["launches"], want, f"{cfg.name} training")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"chip_smoke: {cfg.name}'s loss did not fall over {t['steps']} steps: {losses}")
+    if not cfg.is_encdec:
+        return {}
+    calls = {"encoder": cap.flash_calls[0], "decoder": cap.flash_calls[E], "cross": cap.flash_calls[E + 1]}
+    causal = {name: kw["causal"] for name, (_, _, _, kw) in calls.items()}
+    if causal != {"encoder": False, "decoder": True, "cross": False}:
+        raise SystemExit(f"chip_smoke: {cfg.name} training's flash calls 0, {E} and {E + 1} are not an encoder, "
+                         f"a decoder and a cross-attention call: causal {causal}")
+    return {f"training {name} attention (B {q.shape[0]}, Sq {q.shape[2]}, Sk {k.shape[2]})": (q, k, v, kw)
+            for name, (q, k, v, kw) in calls.items()}
 
 
 def _encdec_smoke(arch: str) -> dict:
@@ -3708,16 +3694,11 @@ def _encdec_smoke(arch: str) -> dict:
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
         before = flash_attention_cuda.launches
         f, p = frames.to(dev), prompt.to(dev)
+        toks = _seamless_greedy(model, cfg, f, p, SMOKE_NEW)
         with torch.inference_mode():
-            caches = init_encdec_cache(cfg, SMOKE_BATCH, SMOKE_PROMPT + SMOKE_NEW, 10, cfg.dtype, dev)
-            logits, caches = encdec_prefill(model, cfg, f, p, caches)
-            toks = [torch.argmax(logits, -1)[:, None]]
-            for i in range(1, SMOKE_NEW):
-                logits, caches = encdec_decode_step(model, cfg, toks[-1], SMOKE_PROMPT + i - 1, caches)
-                toks.append(torch.argmax(logits, -1)[:, None])
             xkv = _cross_kv_all(model, cfg, encode(model, cfg, f))
             hid, _ = apply_decoder(model, cfg, p, torch.arange(SMOKE_PROMPT, device=dev), xkv)
-        out[dev] = (torch.cat(toks, 1).cpu(), _dec_logits(model, cfg, hid).cpu(), flash_attention_cuda.launches - before)
+        out[dev] = (toks.cpu(), _dec_logits(model, cfg, hid).cpu(), flash_attention_cuda.launches - before)
     rel = _rel(out["cuda"][1], out["cpu"][1])
     row = {"arch": cfg.name, "tokens_equal": bool(torch.equal(out["cuda"][0], out["cpu"][0])), "logits_rel": rel,
            "launches": {"flash_attention": out["cuda"][2]}, "tokens": out["cuda"][0][0].tolist()}
@@ -3729,33 +3710,36 @@ def _encdec_smoke(arch: str) -> dict:
 def phase_families() -> dict:
     """(a) xlstm-350m, (b) seamless-m4t-medium and (c) pixtral-12b (4
     layers) served at full width, (d) xlstm-350m and seamless-m4t-medium
-    trained as published and ``FlashAttention``'s gradients on (b)'s
-    captured cross-attention inputs, (e) the three smoke models in float32
-    against the CPU; each model freed before the next.  Returns the flash
-    launches of the counted runs of (a)-(d), by route."""
+    trained as published, and ``FlashAttention``'s gradients on the inputs
+    captured from seamless's training (its encoder, decoder and cross
+    attention) and from (b)'s prefill (cross-attention, ``Sq != Sk``), (e)
+    the three smoke models in float32 against the CPU; each model freed
+    before the next.  Returns the launches of the counted runs of (a)-(d):
+    flash by route, and the scan."""
     gc.collect()
     torch.cuda.empty_cache()
-    launches = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
+    launches = {"flash_attention": dict.fromkeys(flash_attention_cuda.launches_by_route, 0), "rglru_scan": 0}
     parts = [("xlstm-350m", family_xlstm), ("seamless-m4t-medium", family_seamless), ("pixtral-12b", family_pixtral)]
     parts += [(f"train {t['arch']}", lambda row, t=t: family_train(row, t)) for t in FAMILY_TRAIN]
-    cross = None
+    captured = {}
     for name, fn in parts:
         row = {"phase": "families", "part": name}
         t0 = time.perf_counter()
         try:
-            result = fn(row)
-            cross = result if result is not None else cross
+            captured.update(fn(row) or {})
         finally:
             row["seconds"] = time.perf_counter() - t0
             emit(row)
         for r, n in row["launches"]["flash_attention_by_route"].items():
-            launches[r] += n
-    row = {"phase": "families", "part": "cross-attention gradient"}
+            launches["flash_attention"][r] += n
+        launches["rglru_scan"] += row["launches"]["rglru_scan"]
+    row = {"phase": "families", "part": "flash gradients", "flash_attention": {}}
     t0 = time.perf_counter()
     try:
-        q, k, v = (t.clone() for t in cross[:3])  # normal tensors: the capture ran under inference_mode
-        kw = cross[3]
-        row.update(train_flash_grads(q, k, v, kw, "on seamless's captured cross-attention inputs (Sq 128, Sk 1,024)"))
+        for what, (q, k, v, kw) in captured.items():
+            # clones: normal tensors (the prefill's capture ran under inference_mode)
+            row["flash_attention"][what] = train_flash_grads(q.clone(), k.clone(), v.clone(), kw,
+                                                             f"on seamless's {what} inputs")
     finally:
         row["seconds"] = time.perf_counter() - t0
         emit(row)
@@ -3790,22 +3774,19 @@ def main() -> int:
     straggler_launches, straggler_routes = run("straggler", phase_straggler)
     fleet_launches, fleet_routes = run("fleet", phase_fleet)
     dispatch = run("dispatch", phase_dispatch)
-    decoder_routes, decoder_timing = run("decoders", phase_decoders)
+    decoders, decoder_timing = run("decoders", phase_decoders)
     train = run("train", phase_train)
-    family_routes = run("families", phase_families)
+    families = run("families", phase_families)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
                 "straggler": straggler_launches, "fleet": fleet_launches}
     by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
     serve_by_phase = {k: {"serve": serve["launches"][k], "dispatch": dispatch[k]} for k in SERVE_LAUNCHES}
-    serve_by_phase["flash_attention"]["decoders"] = sum(decoder_routes.values())
-    serve_by_phase["rglru_scan"]["decoders"] = 0
-    serve_by_phase["flash_attention"]["train"] = sum(train["flash_attention"].values())
-    serve_by_phase["rglru_scan"]["train"] = train["rglru_scan"]
-    serve_by_phase["flash_attention"]["families"] = sum(family_routes.values())
-    serve_by_phase["rglru_scan"]["families"] = 0
+    for name, counted in (("decoders", decoders), ("train", train), ("families", families)):
+        serve_by_phase["flash_attention"][name] = sum(counted["flash_attention"].values())
+        serve_by_phase["rglru_scan"][name] = counted["rglru_scan"]
     launches = {"matmul_update": sum(by_phase.values()), **{k: sum(v.values()) for k, v in serve_by_phase.items()}}
-    flash_routes = {r: v + dispatch["flash_attention_by_route"][r] + decoder_routes[r] + train["flash_attention"][r]
-                    + family_routes[r] for r, v in serve["launches_by_route"]["flash_attention"].items()}
+    flash_routes = {r: v + dispatch["flash_attention_by_route"][r] + sum(c["flash_attention"][r] for c in (decoders, train, families))
+                    for r, v in serve["launches_by_route"]["flash_attention"].items()}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},
         "flash_attention": flash_routes,

@@ -9,6 +9,9 @@ conventions:
     and ``"conv": (B, w-1, d_in)``;
   * slstm: ``{"c", "n", "h", "m": (B, d)}`` float32.
 
+The caches' logical axes (the reference's ``*_cache_axes``) are read only
+by the mesh code, which is not ported yet (ROADMAP queue 1, item 10f).
+
 Where the kernel runs: the RG-LRU's full-sequence recurrence (no cache,
 and prefill) calls ``kernels.ops.rglru_scan(log_a, b, h0)`` — the
 hand-written kernel on the card, its plain version on the CPU — with the
@@ -43,15 +46,12 @@ __all__ = [
     "rglru_spec",
     "apply_rglru_block",
     "init_rglru_cache",
-    "rglru_cache_axes",
     "mlstm_spec",
     "apply_mlstm_block",
     "init_mlstm_cache",
-    "mlstm_cache_axes",
     "slstm_spec",
     "apply_slstm_block",
     "init_slstm_cache",
-    "slstm_cache_axes",
 ]
 
 _RGLRU_C = 8.0
@@ -95,23 +95,6 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
         "h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn), dtype=dtype, device=device),
     }
-
-
-def rglru_cache_axes(cfg: ModelConfig) -> Dict:
-    return {"h": ("batch", "rnn"), "conv": ("batch", "conv", "rnn")}
-
-
-def mlstm_cache_axes(cfg: ModelConfig) -> Dict:
-    return {
-        "C": ("batch", "heads", "head_dim", "head_dim"),
-        "n": ("batch", "heads", "head_dim"),
-        "m": ("batch", "heads"),
-        "conv": ("batch", "conv", "mlp"),
-    }
-
-
-def slstm_cache_axes(cfg: ModelConfig) -> Dict:
-    return {"c": ("batch", "rnn"), "n": ("batch", "rnn"), "h": ("batch", "rnn"), "m": ("batch", "rnn")}
 
 
 def apply_rglru_block(

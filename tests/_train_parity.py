@@ -16,6 +16,7 @@ most 1e-3 of those whose gradient is not zero.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.optim import warmup_cosine as ref_warmup_cosine
@@ -79,24 +80,29 @@ def step_rels(before, ref_state, state) -> tuple:
     return moments, updates, unresolved / max(moving, 1)
 
 
-def check_train_steps(jcfg, tcfg, batches, *, loss_tol=LOSS_TOL) -> None:
+def check_train_steps(jcfg, tcfg, batches, *, accum=1, loss_tol=LOSS_TOL) -> None:
     """``make_train_step`` against the reference's jitted step over
-    ``batches`` (host batches, one a step), from the reference's initial
-    state: the port's own run keeps the reference's loss, and each step
-    taken from the reference's state gives its moments and update."""
+    ``batches`` (host batches, one a step; with ``accum > 1`` each stacks
+    ``accum`` micro-batches), from the reference's initial state: the
+    port's own run keeps the reference's loss and learning rate, and each
+    step taken from the reference's state gives its moments, update, step
+    and count."""
     ref_state = jtrain.init_train_state(jcfg, KEY)
     state = init_train_state(tcfg, params=tree_from_reference(np_tree(ref_state.params)), device="cpu")
-    ref_step = jax.jit(jtrain.make_train_step(jcfg, ref_warmup_cosine(3e-3, 1, 3)))
-    step = make_train_step(tcfg, warmup_cosine(3e-3, 1, 3))
+    ref_step = jax.jit(jtrain.make_train_step(jcfg, ref_warmup_cosine(3e-3, 1, 3), accum_steps=accum))
+    step = make_train_step(tcfg, warmup_cosine(3e-3, 1, 3), accum_steps=accum)
     for i, b in enumerate(batches):
         before = ref_state
         ref_state, jm = ref_step(ref_state, {k: jnp.asarray(v) for k, v in b.items()})
         state, tm = step(state, b)
         assert rel(jm["loss"], tm["loss"]) <= loss_tol, i
+        assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
         synced, sm = step(state_from_reference(before), b)
         assert rel(jm["loss"], sm["loss"]) <= loss_tol, i
+        assert int(synced.step) == int(ref_state.step) and int(synced.opt.count) == int(ref_state.opt.count)
         moments, updates, unresolved = step_rels(before, ref_state, synced)
         assert max(moments.values()) <= STEP_MOMENT_TOL, (i, max(moments.items(), key=lambda kv: kv[1]))
         assert max(updates.values()) <= STEP_UPDATE_TOL, (i, max(updates.items(), key=lambda kv: kv[1]))
         assert unresolved <= UNRESOLVED_SHARE, (i, unresolved)
     assert int(state.step) == int(ref_state.step) == len(batches)
+    assert all(t.requires_grad for _, t in tree_leaves(state.params))

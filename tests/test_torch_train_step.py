@@ -12,32 +12,21 @@ before it: the AdamW moments 1e-4 in each leaf, and each leaf's update
 gradient the two packages resolve (``_train_parity`` says how).
 """
 
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from _train_parity import KEY, STEP_MOMENT_TOL, STEP_UPDATE_TOL, UNRESOLVED_SHARE
-from _train_parity import np_tree as _np
-from _train_parity import rel as _rel
-from _train_parity import state_from_reference as _state_from_reference
-from _train_parity import step_rels as _step_rels
+from _train_parity import check_train_steps
 
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.data import SyntheticLMData as RefData
 from repro.data import UnitBatcher as RefBatcher
-from repro.optim import warmup_cosine as ref_warmup_cosine
-from repro.runtime import train_loop as jtrain
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.nn import tree_from_reference, tree_leaves
-from repro_torch.optim import warmup_cosine
-from repro_torch.runtime import init_train_state, make_train_step
 
 ARCHS = ["gemma2-2b", "gemma2-27b", "granite-20b", "stablelm-12b", "granite-moe-1b-a400m",
          "deepseek-v2-236b", "recurrentgemma-2b"]
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-LOSS_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
 def _cfgs(arch, dtype="float32", **kw):
@@ -53,25 +42,6 @@ def test_train_step_matches_the_reference(arch, accum):
     """Three steps: the port's own run keeps the reference's loss, and each
     step taken from the reference's state gives its moments and update."""
     jcfg, tcfg = _cfgs(arch)
-    ref_state = jtrain.init_train_state(jcfg, KEY)
-    state = init_train_state(tcfg, params=tree_from_reference(_np(ref_state.params)), device="cpu")
-    ref_step = jax.jit(jtrain.make_train_step(jcfg, ref_warmup_cosine(3e-3, 1, 3), accum_steps=accum))
-    step = make_train_step(tcfg, warmup_cosine(3e-3, 1, 3), accum_steps=accum)
     batcher = RefBatcher(RefData(jcfg, batch=2, seq=16), micro_batch=2)
-    for i in range(3):
-        units = batcher.global_step_units(accum, i)
-        b = units if accum > 1 else {k: v[0] for k, v in units.items()}
-        before = ref_state
-        ref_state, jm = ref_step(ref_state, {k: jnp.asarray(v) for k, v in b.items()})
-        state, tm = step(state, b)
-        assert _rel(jm["loss"], tm["loss"]) <= LOSS_TOL["float32"], i
-        assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
-        synced, sm = step(_state_from_reference(before), b)
-        assert _rel(jm["loss"], sm["loss"]) <= LOSS_TOL["float32"], i
-        assert int(synced.step) == int(ref_state.step) and int(synced.opt.count) == int(ref_state.opt.count)
-        moments, updates, unresolved = _step_rels(before, ref_state, synced)
-        assert max(moments.values()) <= STEP_MOMENT_TOL, (i, max(moments.items(), key=lambda kv: kv[1]))
-        assert max(updates.values()) <= STEP_UPDATE_TOL, (i, max(updates.items(), key=lambda kv: kv[1]))
-        assert unresolved <= UNRESOLVED_SHARE, (i, unresolved)
-    assert int(state.step) == int(ref_state.step) == 3
-    assert all(t.requires_grad for _, t in tree_leaves(state.params))
+    units = [batcher.global_step_units(accum, i) for i in range(3)]
+    check_train_steps(jcfg, tcfg, [u if accum > 1 else {k: v[0] for k, v in u.items()} for u in units], accum=accum)

@@ -122,8 +122,9 @@ def test_config_spec_and_cache_axes_match_the_reference():
     n = param_count(tt.lm_spec(cfg))
     assert n == jparams.param_count(jt.lm_spec(jcfg)) and 0.2e9 < n < 0.6e9
     assert sum(p.numel() for p in tt.LanguageModel(cfg).parameters()) == n  # the meta-device model
+    # the cache axes are the mesh code's (10f): the reference's, not yet the port's
     for name in ("rglru_cache_axes", "mlstm_cache_axes", "slstm_cache_axes"):
-        assert getattr(trec, name)(cfg) == getattr(jrec, name)(jcfg), name
+        assert callable(getattr(jrec, name)) and not hasattr(trec, name), name
 
 
 # ---------------------------------------------------------------------------
