@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs eighteen phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs nineteen phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -300,11 +300,27 @@ the first fault:
                       planted; (e) the three smoke models in float32 give
                       the CPU's tokens on the card.
 
+ 19. ``dryrun``     — the dry run (``repro_torch.launch.dryrun``) held
+                      against the card: (a) ``launch.mesh.HW.HBM_BYTES``
+                      equals the card's ``total_memory``; every
+                      architecture at decode_32k and the cells of (b)
+                      traced on meta tensors (each ends ``ok`` or
+                      ``skipped``, never ``error``; the full 40-cell sweep
+                      takes minutes, ``python -m repro_torch.launch.dryrun
+                      --arch all --shape all``); (b) the 1-unit variants of
+                      ``DRYRUN_REAL`` (a train, a prefill and a decode
+                      cell, flash in the first two) run for real with
+                      random weights: the peak allocated above the
+                      phase's baseline within ``DRYRUN_MEM_TOL`` (10 %) of
+                      the trace's resident bytes, the CUDA-event wall at
+                      least the trace's ``compute_s``, and the kernels
+                      launched as often as the trace called them.
+
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, ``matmul_update``'s by phase, ``dfpa``,
 ``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``, and
 ``flash_attention``'s and ``rglru_scan``'s, ``serve``, ``dispatch``,
-``decoders``, ``train`` and ``families``; flash's row also carries
+``decoders``, ``train``, ``families`` and ``dryrun``; flash's row also carries
 ``decoders_timing``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
 It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
@@ -371,7 +387,8 @@ from repro_torch.launch.train import train_hetero, train_single  # noqa: E402
 from repro_torch.nn import tree_leaves  # noqa: E402
 from repro_torch.optim import warmup_cosine  # noqa: E402
 from repro_torch.runtime import init_train_state, make_train_step  # noqa: E402
-from repro_torch.launch import paper_tables  # noqa: E402
+from repro_torch.launch import dryrun, paper_tables  # noqa: E402
+from repro_torch.launch.mesh import HW  # noqa: E402
 from repro_torch.launch.matmul_grid import GRID_EPS, GRID_UNITS, MatmulGrid  # noqa: E402
 from repro_torch.launch.serve import demo_replica_run, kernels_for  # noqa: E402
 from repro_torch.obs import FlightRecorder, Telemetry, export_chrome_trace, use  # noqa: E402
@@ -401,9 +418,9 @@ from repro_torch.models.transformer import (  # noqa: E402
 )
 from repro_torch.runtime import ReplicaDispatcher, ServeEngine, StragglerAction  # noqa: E402
 
-# the H100 SXM's published dense peaks and memory rate
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+# the H100 SXM's published dense peaks and memory rate (launch.mesh.HW)
+PEAK_FLOPS = {torch.bfloat16: HW.PEAK_FLOPS_BF16, torch.float32: HW.PEAK_FLOPS_FP32}
+PEAK_BYTES = HW.HBM_BW
 
 MATMUL_CASES = [  # (M, N, K, bm, bn, bk): the reference's cases, then ragged ones
     (128, 128, 128, 128, 128, 128),
@@ -561,6 +578,14 @@ FAMILY_RANDOM_CROSS = [(2, 16, 16, 1000, 130, 64), (2, 16, 16, 130, 1000, 64)]  
 FAMILY_PIXTRAL = dict(arch="pixtral-12b", layers=4, batch=2, text=1024, new=8)
 FAMILY_TRAIN = (dict(arch="xlstm-350m", batch=4, seq=512, steps=2, lr=3e-3),
                 dict(arch="seamless-m4t-medium", batch=4, seq=512, steps=2, lr=3e-3))
+# the dryrun phase: (a) every architecture at DRYRUN_SHAPE traced; (b) the
+# 1-unit variants of these cells, the ones that fit the card at one unit
+# (a train cell, a prefill and a decode; flash in the first two), run for
+# real and held to the trace's resident bytes and compute bound
+DRYRUN_SHAPE = "decode_32k"
+DRYRUN_REAL = [("seamless-m4t-medium", "train_4k"), ("seamless-m4t-medium", "prefill_32k"),
+               ("recurrentgemma-2b", "decode_32k")]
+DRYRUN_MEM_TOL = 0.10
 
 
 def emit(obj) -> None:
@@ -3749,6 +3774,129 @@ def phase_families() -> dict:
     return launches
 
 
+def _random_args(spec_args, cfg, shape, seed: int):
+    """The step's arguments on the card (``dryrun.materialize``), filled
+    with random values from ``seed``: floats normal(0, 0.02), AdamW's
+    second moment its absolute value; positions (decode's ``pos`` and the
+    caches' ``pos``) uniform below the cell's sequence length, the other
+    integers (token ids, labels) below the vocabulary."""
+    args = dryrun.materialize(spec_args, "cuda")
+    positions = {id(args[2])} if shape.kind == "decode" else set()
+    nu = {id(t) for _, t in tree_leaves(args[0].opt.nu)} if shape.kind == "train" else set()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for path, t in tree_leaves(args):
+            if t.device.type != "cuda":
+                continue
+            if t.is_floating_point():
+                t.normal_(0.0, 0.02, generator=gen)
+                if id(t) in nu:
+                    t.abs_()
+            elif id(t) in positions or path[-1] == "pos":
+                t.random_(0, shape.seq_len, generator=gen)
+            else:
+                t.random_(0, cfg.vocab_size, generator=gen)
+    return args
+
+
+def _dryrun_real(arch: str, shape_name: str, rec: dict) -> dict:
+    """The 1-unit variant of one cell run for real: arguments made from
+    random weights after a baseline of allocated bytes, the peak reset,
+    one step timed with CUDA events; the peak above the baseline against
+    the trace's resident bytes, the wall against its ``compute_s``, the
+    launches against its kernel calls."""
+    shape = next(s for s in dryrun.SHAPES if s.name == shape_name)
+    cfg = dryrun.reduced_units(get_config(arch), 1).replace(scan_layers=False, unroll_scans=True)
+    fn, spec_args = dryrun.build_step(cfg, shape, dryrun.make_production_mesh())
+    u1 = rec["cost_model"]["u1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = _random_args(spec_args, cfg, shape, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (dict(flash_attention_cuda.launches_by_route), rglru_scan_cuda.launches)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = dryrun.run_step(fn, args, shape)
+    stop.record()
+    torch.cuda.synchronize()
+    wall_s = start.elapsed_time(stop) * 1e-3
+    peak = torch.cuda.max_memory_allocated() - base
+    flash = {r: n - before[0][r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    scan = rglru_scan_cuda.launches - before[1]
+    result = out[1]["loss"] if shape.kind == "train" else out[0]  # the loss, or the logits
+    finite = bool(torch.isfinite(result.float()).all())
+    if shape.kind == "train":  # and the updated parameters
+        finite = finite and all(bool(torch.isfinite(t).all()) for _, t in tree_leaves(out[0].params))
+    del out, result, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    compute_s = dryrun.compute_seconds(u1["flops"])
+    memory_s = u1["bytes"] / HW.HBM_BW
+    row = {
+        "arch": arch, "shape": shape_name, "units": 1, "predicted_resident_bytes": u1["resident_bytes"],
+        "measured_peak_bytes": int(peak), "memory_rel": peak / u1["resident_bytes"] - 1.0,
+        "wall_s": wall_s, "compute_s": compute_s, "memory_s": memory_s, "memory_s_over_wall": memory_s / wall_s,
+        "compute_s_over_wall": compute_s / wall_s, "trace_kernel_calls": u1["kernel_calls"],
+        "launches": {"flash_attention_by_route": flash, "rglru_scan": scan}, "outputs_finite": finite,
+    }
+    calls = u1["kernel_calls"]
+    checks = {
+        "memory": abs(row["memory_rel"]) <= DRYRUN_MEM_TOL,
+        "bound": wall_s >= compute_s,
+        "launches": sum(flash.values()) == calls.get("flash_attention", 0) and scan == calls.get("rglru_scan", 0),
+        "finite": finite,
+    }
+    row["checks"] = checks
+    if not all(checks.values()):
+        emit({"phase": "dryrun", "part": "b", **row})
+        raise SystemExit(f"chip_smoke: the dry run's {arch} {shape_name} (1 unit) disagrees with the card: {checks}")
+    return row
+
+
+def phase_dryrun() -> dict:
+    """(a) ``HW.HBM_BYTES`` against the card, every architecture at
+    ``DRYRUN_SHAPE`` and the cells of ``DRYRUN_REAL`` traced; (b) those
+    cells' 1-unit variants run for real (``_dryrun_real``).  Returns the
+    launches of (b): flash by route, and the scan."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "dryrun", "part": "a", "total_memory": total, "HW.HBM_BYTES": HW.HBM_BYTES})
+    if total != HW.HBM_BYTES:
+        raise SystemExit(f"chip_smoke: the card has {total} bytes, launch.mesh.HW.HBM_BYTES pins {HW.HBM_BYTES}")
+    cells = [(a, DRYRUN_SHAPE) for a in dryrun.ARCH_IDS] + [c for c in DRYRUN_REAL if c[1] != DRYRUN_SHAPE]
+    recs = {}
+    t0 = time.perf_counter()
+    for arch, shape in cells:
+        rec = dryrun.run_cell(arch, shape)
+        recs[(arch, shape)] = rec
+        row = {"phase": "dryrun", "part": "a", "arch": arch, "shape": shape, "status": rec["status"]}
+        if rec["status"] == "ok":
+            row.update(resident_gib=rec["mem"]["resident_bytes"] / 2**30, fits_hbm=rec["fits_hbm"],
+                       compute_s=rec["terms"]["compute_s"], memory_s=rec["terms"]["memory_s"],
+                       dominant=rec["dominant"], trace_s=rec["trace_s"], kernel_calls=rec["kernel_calls"],
+                       u1_resident_gib=rec["cost_model"]["u1"]["resident_bytes"] / 2**30)
+        else:
+            row["detail"] = rec.get("reason") or rec.get("error")
+        emit(row)
+        if rec["status"] not in ("ok", "skipped"):
+            raise SystemExit(f"chip_smoke: dry-run cell {arch} {shape} ended {rec['status']}: {rec.get('traceback')}")
+    emit({"phase": "dryrun", "part": "a", "cells": len(cells), "seconds": time.perf_counter() - t0})
+    launches = {"flash_attention": dict.fromkeys(flash_attention_cuda.launches_by_route, 0), "rglru_scan": 0}
+    for arch, shape in DRYRUN_REAL:
+        rec = recs[(arch, shape)]
+        if rec["status"] != "ok" or rec["cost_model"]["u1"]["resident_bytes"] > HW.HBM_BYTES:
+            raise SystemExit(f"chip_smoke: {arch} {shape} does not fit the card at one unit in the dry run")
+        t1 = time.perf_counter()
+        row = _dryrun_real(arch, shape, rec)
+        emit({"phase": "dryrun", "part": "b", **row, "seconds": time.perf_counter() - t1})
+        for r, n in row["launches"]["flash_attention_by_route"].items():
+            launches["flash_attention"][r] += n
+        launches["rglru_scan"] += row["launches"]["rglru_scan"]
+    return launches
+
+
 def main() -> int:
     seconds = {}
 
@@ -3777,15 +3925,18 @@ def main() -> int:
     decoders, decoder_timing = run("decoders", phase_decoders)
     train = run("train", phase_train)
     families = run("families", phase_families)
+    dryrun_launches = run("dryrun", phase_dryrun)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
                 "straggler": straggler_launches, "fleet": fleet_launches}
     by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
     serve_by_phase = {k: {"serve": serve["launches"][k], "dispatch": dispatch[k]} for k in SERVE_LAUNCHES}
-    for name, counted in (("decoders", decoders), ("train", train), ("families", families)):
+    for name, counted in (("decoders", decoders), ("train", train), ("families", families),
+                          ("dryrun", dryrun_launches)):
         serve_by_phase["flash_attention"][name] = sum(counted["flash_attention"].values())
         serve_by_phase["rglru_scan"][name] = counted["rglru_scan"]
     launches = {"matmul_update": sum(by_phase.values()), **{k: sum(v.values()) for k, v in serve_by_phase.items()}}
-    flash_routes = {r: v + dispatch["flash_attention_by_route"][r] + sum(c["flash_attention"][r] for c in (decoders, train, families))
+    flash_routes = {r: v + dispatch["flash_attention_by_route"][r]
+                    + sum(c["flash_attention"][r] for c in (decoders, train, families, dryrun_launches))
                     for r, v in serve["launches_by_route"]["flash_attention"].items()}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},

@@ -16,6 +16,10 @@ layout and names and imports nothing of it.  It carries, so far:
   block, the decoder), ``runtime.ServeEngine`` and ``launch.serve``;
 * ``kernels``: ``matmul_update``, ``flash_attention`` and ``rglru_scan`` as
   CUDA kernels for Hopper beside their plain PyTorch versions.
+* the mesh code for one card: ``sharding`` (the logical-axis rules and
+  the activation context), ``launch.mesh`` (the card's constants, the
+  one-card mesh) and ``launch.dryrun`` (every arch x shape cell traced on
+  ``meta`` tensors against the card's memory and peaks).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.

@@ -18,8 +18,13 @@ The port's copy of the reference's ``checkpoint/store.py``:
     reference's stacked tree (the training state holds them so; a serving
     ``LanguageModel`` reaches it through ``nn.convert.stack_tree``).
 
-Restoring onto another device layout (the reference's ``shardings=``)
-belongs to the mesh code, ROADMAP queue 1, item 10f: it raises here.
+  * RESHARD  — ``load_checkpoint(..., shardings=tree)`` places each leaf
+    by its ``sharding.NamedSharding`` (a tree of ``like``'s structure, None
+    leaves keeping the default placement), as the reference re-shards a
+    restore onto the current mesh.  The port's mesh is one card
+    (``launch.mesh``): a leaf goes whole onto its mesh's device, and a spec
+    that splits a dim over a mesh axis larger than 1 is refused before
+    anything is read.
 """
 
 from __future__ import annotations
@@ -104,19 +109,27 @@ def _write(directory: str, step: int, flat: Dict[str, np.ndarray], extra) -> str
     return final
 
 
-def _restore(like, data, prefix: Tuple, device):
+def _restore(like, data, prefix: Tuple, device, shd=None):
     """``like``'s structure with each leaf read from ``data`` under its path,
     cast to the leaf's dtype, on the leaf's device (``device`` for ``meta``
-    leaves and numpy leaves when given)."""
+    leaves and numpy leaves when given), or on its sharding's mesh device
+    when ``shd`` (walked alongside) gives one."""
     if like is None:
         return None
+    sub = lambda key: shd[key] if shd is not None else None
     if isinstance(like, dict):
-        return {k: _restore(v, data, prefix + (str(k),), device) for k, v in like.items()}
+        return {k: _restore(v, data, prefix + (str(k),), device, sub(k)) for k, v in like.items()}
     if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_restore(v, data, prefix + (f,), device) for f, v in zip(like._fields, like)))
+        return type(like)(*(_restore(v, data, prefix + (f,), device, sub(i))
+                            for i, (f, v) in enumerate(zip(like._fields, like))))
     if isinstance(like, (tuple, list)):
-        return type(like)(_restore(v, data, prefix + (str(i),), device) for i, v in enumerate(like))
+        return type(like)(_restore(v, data, prefix + (str(i),), device, sub(i)) for i, v in enumerate(like))
     arr = data[_SEP.join(prefix)]
+    if shd is not None:
+        t = tree_from_reference(arr).to(device=shd.mesh.device, dtype=_torch_dtype(getattr(like, "dtype", None)))
+        if isinstance(like, torch.Tensor) and t.is_floating_point():
+            t.requires_grad_(like.requires_grad)
+        return t
     if isinstance(like, torch.Tensor):
         dev = like.device
         if dev.type == "meta":
@@ -125,6 +138,31 @@ def _restore(like, data, prefix: Tuple, device):
         return t.requires_grad_(like.requires_grad) if t.is_floating_point() else t
     want = getattr(like, "dtype", arr.dtype)
     return arr.astype(want)
+
+
+def _torch_dtype(dtype):
+    """A torch dtype for ``dtype`` (torch's or numpy's; None keeps the
+    stored one)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+
+
+def _check_shardings(shardings) -> None:
+    """Refuse a sharding that splits a dim over a mesh axis larger than 1."""
+    if shardings is None:
+        return
+    kids = _children(shardings)
+    if kids is not None:
+        for _, v in kids:
+            _check_shardings(v)
+        return
+    split = shardings.split_axes()
+    if split:
+        raise NotImplementedError(
+            f"sharding {shardings.spec} splits a dim over mesh axes {split}: the port restores onto one "
+            "card, whole tensors on its mesh's device"
+        )
 
 
 def _paths(like, prefix: Tuple = ()) -> list:
@@ -148,9 +186,9 @@ def load_checkpoint(
     tensors such as ``nn.spec_tree_shapes`` gives, or numpy arrays), each
     leaf in its dtype and on its device (``meta`` leaves on ``device``, the
     host by default); a tensor leaf keeps ``like``'s ``requires_grad``.
-    Returns (tree, manifest)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto shardings is the mesh code's (ROADMAP queue 1, item 10f)")
+    ``shardings`` (``like``'s structure, ``NamedSharding`` or None leaves)
+    places each leaf on its mesh's device.  Returns (tree, manifest)."""
+    _check_shardings(shardings)
     if step is None:
         path = os.path.join(directory, "latest")
         if not os.path.exists(path):
@@ -164,7 +202,7 @@ def load_checkpoint(
     missing = [k for k in _paths(like) if k not in data]
     if missing:
         raise KeyError(f"checkpoint missing keys: {missing[:5]}... ({len(missing)})")
-    return _restore(like, data, (), device), manifest
+    return _restore(like, data, (), device, shardings), manifest
 
 
 class CheckpointManager:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 from ..models.config import ModelConfig
 
@@ -23,6 +23,8 @@ __all__ = [
     "ShapeSpec",
     "get_config",
     "get_smoke_config",
+    "list_configs",
+    "shape_applicable",
 ]
 
 ARCH_IDS = [
@@ -66,3 +68,15 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
+
+
+def list_configs() -> List[str]:
+    return list(ARCH_IDS)
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Optional[str]:
+    """None if (arch, shape) is runnable; else the reference's skip reason:
+    long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return "long_500k skipped: full/global attention is quadratic and the KV cache is unbounded"
+    return None

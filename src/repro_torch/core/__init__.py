@@ -14,8 +14,11 @@ The entry point is the ``Scheduler`` facade (``scheduler.py``) over a
 ``SpeedStore`` (``speedstore.py``), backend and device resolved once; it
 also carries the nested 2-D grid partitioner (``partition2d.py`` holds its
 helpers), the two-level partitioner (``hierarchy.py``) and the time/energy
-front (``energy.py``).  ``convert.py`` carries the reference package's
-banks and checkpoints over.  The fleet's measurement primitives
+front (``energy.py``).  The reference's deprecated free functions
+(``partition_units``, ``dfpa``, ``dfpa_partition_2d`` and the other 2-D
+partitioners, with their ``DFPAResult`` / ``Grid2DResult``) stay as shims
+that warn and delegate to the facade.  ``convert.py`` carries the
+reference package's banks and checkpoints over.  The fleet's measurement primitives
 (``FleetExecutor``, ``BatchedSimulatedExecutor2D``, ``FleetRoundLog``,
 ``DelayedBatchedExecutor``, the serving harness's ``TraceExecutor2D``)
 live in ``executor.py``; the fleet itself is
@@ -23,6 +26,7 @@ live in ``executor.py``; the fleet itself is
 """
 
 from .convert import bank_from_arrays
+from .dfpa import DFPAResult, dfpa
 from .executor import (
     BatchedSimulatedExecutor,
     BatchedSimulatedExecutor2D,
@@ -40,7 +44,14 @@ from .hierarchy import Hierarchy
 from .modelbank import ModelBank, aggregate_groups, group_members
 from .modelbank_torch import DeferredPartition, TorchModelBank, fetch_partition
 from .partition import cpm_partition, partition_continuous, partition_units
-from .partition2d import app_time_2d
+from .partition2d import (
+    Grid2DResult,
+    app_time_2d,
+    bank_repartition_2d,
+    cpm_partition_2d,
+    dfpa_partition_2d,
+    ffmpa_partition_2d,
+)
 from .scheduler import Partition, Policy, Scheduler
 from .simulator import (
     HCL_SPECS,
@@ -67,11 +78,13 @@ __all__ = [
     "BatchedSimulatedExecutor2D",
     "CallableExecutor",
     "ConstantModel",
+    "DFPAResult",
     "DeferredPartition",
     "DelayedBatchedExecutor",
     "Executor",
     "FleetExecutor",
     "FleetRoundLog",
+    "Grid2DResult",
     "HCL_SPECS",
     "Hierarchy",
     "ModelBank",
@@ -89,8 +102,13 @@ __all__ = [
     "aggregate_groups",
     "app_time_2d",
     "bank_from_arrays",
+    "bank_repartition_2d",
     "cpm_partition",
+    "cpm_partition_2d",
+    "dfpa",
+    "dfpa_partition_2d",
     "fetch_partition",
+    "ffmpa_partition_2d",
     "full_model_build_cost",
     "group_members",
     "imbalance",

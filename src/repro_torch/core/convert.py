@@ -68,8 +68,9 @@ def _refuse_sharding(sharding) -> None:
     if sharding is not None:
         raise NotImplementedError(
             f"sharding={sharding!r} spreads the hierarchy's group blocks "
-            "over several devices; the port runs on a single card and has no "
-            "counterpart (ROADMAP queue 1, item 4: the two-level hierarchy)"
+            "over several devices; the port runs on a single card, whose mesh "
+            "(ROADMAP queue 1, item 10f: launch.mesh) has no second device to "
+            "split them over"
         )
 
 

@@ -23,9 +23,9 @@ follows that structure:
    the same allocations); the port takes the batched form only.
 
 The reference's ``sharding="shard_map"`` (group blocks spread over several
-devices) has no counterpart on one card: this hierarchy takes no
-``sharding=``, and :meth:`Hierarchy.max_shard_elems` counts all ``g``
-blocks.
+devices) has no counterpart on the port's one-card mesh (``launch.mesh``,
+ROADMAP item 10f): this hierarchy takes no ``sharding=``, and
+:meth:`Hierarchy.max_shard_elems` counts all ``g`` blocks.
 
 Telemetry (``repro_torch.obs``) is the reference's: a ``hier.outer`` span
 around the outer solve, a ``hier.inner`` span around the inner solves and a

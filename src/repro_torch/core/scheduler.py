@@ -347,7 +347,8 @@ class Scheduler:
         """Compute one optimal distribution from the current models and make
         it the scheduler's current distribution ``d``.  Per-call ``caps``
         apply to this call only unless ``persist_caps=True``.  A grid
-        scheduler partitions through :meth:`partition_grid`.
+        scheduler takes ``n=(M, N)`` and partitions through
+        :meth:`partition_grid`.
 
         ``objective``/``energy_cap`` route the bi-objective dispatch (see
         ``core/energy.py``; call :meth:`attach_energy` first): ``"energy"``
@@ -358,7 +359,9 @@ class Scheduler:
         if self.grid is not None:
             if objective != "time" or energy_cap is not None:
                 raise ValueError("grid scheduler: objective='time' only")
-            raise ValueError("grid scheduler: call partition_grid(M, N)")
+            if isinstance(n, (tuple, list)) and len(n) == 2:
+                return self.partition_grid(int(n[0]), int(n[1]), eps=eps)
+            raise ValueError("grid scheduler: pass n=(M, N) or call partition_grid()")
         if n is None:
             n = self.n_units
         if n is None:

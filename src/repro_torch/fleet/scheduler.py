@@ -349,9 +349,9 @@ class FleetScheduler:
         if sharding is not None:
             raise NotImplementedError(
                 'sharding="shard_map" spreads the hierarchy\'s group blocks '
-                "over several devices; the port runs on a single card and "
-                "has no counterpart (ROADMAP queue 1, item 4: the two-level "
-                "hierarchy)"
+                "over several devices; the port runs on a single card, whose "
+                "mesh (ROADMAP queue 1, item 10f: launch.mesh) has no second "
+                "device to split them over"
             )
         if compilation_cache_dir is not None:
             raise NotImplementedError(

@@ -36,6 +36,14 @@ run time.
 ``flash_attention_cuda.launches_by_route`` the same launches by route; the
 wrapper increments both where it launches the kernel and nowhere else.
 
+The launch is the custom operator ``repro_torch::flash_attention``, so
+that a trace on fake tensors (``launch.dryrun``) sees it: its fake
+implementation returns an empty tensor of ``q``'s shape, dtype and layout,
+and its FLOP formula counts ``4 D`` operations for every visible (query,
+key) pair of every head (:func:`visible_pairs`).  The route is chosen, the
+library loaded and the counts bumped inside the real implementation only,
+which alone has data pointers.
+
 Gradients: :class:`FlashAttention` is the ``autograd.Function`` that
 ``ops.flash_attention`` applies to CUDA tensors.  Its forward is the kernel
 (no log-sum-exp is kept); its backward recomputes the attention weights in
@@ -53,13 +61,15 @@ import ctypes
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 
 __all__ = [
     "ROUTES", "FlashAttention", "attention_backward", "attention_rows", "check_blocks", "check_causal",
-    "flash_attention_cuda", "flash_attention_route", "wgmma_smem_bytes",
+    "flash_attention_cuda", "flash_attention_route", "visible_pairs", "wgmma_smem_bytes",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -156,8 +166,8 @@ def flash_attention_cuda(
     refused by ``ops.flash_attention``, which calls this after
     :func:`check_causal`."""
     tensors = (q, k, v)
-    if any(t.device.type != "cuda" for t in tensors):
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+    if any(t.device.type not in ("cuda", "meta") for t in tensors):
+        raise ValueError("flash_attention_cuda needs CUDA tensors (or meta tensors, which trace it without running it)")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("q, k and v must lie on one device")
     if len({t.dtype for t in tensors}) != 1 or q.dtype not in _DTYPES:
@@ -174,6 +184,20 @@ def flash_attention_cuda(
         raise ValueError("Sq and Sk must fit in int32, and B * H in 65535 (the grid's y)")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    with torch.no_grad():
+        return _flash_attention_op(q, k, v, float(scale), float(softcap), bool(causal), int(window))
+
+
+flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, softcap: float, causal: bool, window: int
+) -> torch.Tensor:
+    B, H, Sq, D = q.shape
+    Kv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)  # q's layout: dense views keep their strides, others become contiguous
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
@@ -182,7 +206,7 @@ def flash_attention_cuda(
     with torch.cuda.device(q.device):
         err = fn(
             *ptrs, *strides,
-            B, H, Kv, Sq, Sk, D, float(scale), float(softcap), int(bool(causal)), int(window),
+            B, H, Kv, Sq, Sk, D, scale, softcap, int(causal), window,
             _DTYPES[q.dtype], ROUTES.index(route), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -192,8 +216,26 @@ def flash_attention_cuda(
     return out
 
 
-flash_attention_cuda.launches = 0
-flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+@_flash_attention_op.register_fake
+def _(q, k, v, scale, softcap, causal, window):
+    return torch.empty_like(q)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs one head of attention computes, query rows
+    right-aligned to the keys: key ``j`` is visible to the query at
+    position ``p`` when ``j <= p`` (causal) and ``j > p - window``
+    (``window > 0``)."""
+    qpos = np.arange(Sk - Sq, Sk, dtype=np.int64)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1, dtype=np.int64)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, scale, softcap, causal, window, *args, **kwargs) -> int:
+    B, H, Sq, D = q_shape
+    return 4 * D * B * H * visible_pairs(Sq, k_shape[2], causal, window)
 
 
 # ---------------------------------------------------------------------------

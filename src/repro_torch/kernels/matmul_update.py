@@ -18,6 +18,13 @@ same contract).
 ``matmul_update_cuda.launches_by_route`` the same launches by route; the
 wrapper increments both where it launches the kernel and nowhere else, and
 a caller may reset them to count one stretch of work.
+
+The launch is the custom operator ``repro_torch::matmul_update`` (it
+mutates ``c``), so that a trace on fake tensors (``launch.dryrun``) sees
+it: its fake implementation does nothing, and its FLOP formula counts
+``2 M N K``.  The route is chosen, the library loaded and the counts
+bumped inside the real implementation only, which alone has data
+pointers.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import ctypes
 from typing import Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 
@@ -65,8 +73,8 @@ def wgmma_smem_bytes() -> int:
 
 def _check_operands(c, a, b) -> Tuple[int, int, int]:
     tensors = (c, a, b)
-    if any(t.device.type != "cuda" for t in tensors):
-        raise ValueError("matmul_update_cuda needs CUDA tensors")
+    if any(t.device.type not in ("cuda", "meta") for t in tensors):
+        raise ValueError("matmul_update_cuda needs CUDA tensors (or meta tensors, which trace it without running it)")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("c, a and b must lie on one device")
     if len({t.dtype for t in tensors}) != 1 or c.dtype not in _DTYPES:
@@ -107,6 +115,19 @@ def matmul_update_cuda(c, a, b, *, bm: int = 256, bn: int = 256, bk: int = 512):
     does not take, and when the launch is refused."""
     M, N, K = _check_operands(c, a, b)
     check_blocks(M, N, K, bm, bn, bk)
+    with torch.no_grad():
+        _matmul_update_op(c, a, b)
+    return c
+
+
+matmul_update_cuda.launches = 0
+matmul_update_cuda.launches_by_route = dict.fromkeys(_ROUTES, 0)
+
+
+@torch.library.custom_op("repro_torch::matmul_update", mutates_args=("c",))
+def _matmul_update_op(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    M, K = a.shape
+    N = b.shape[1]
     route = matmul_update_route(M, N, K, c.dtype, (c.data_ptr(), a.data_ptr(), b.data_ptr()))
     fn = _lib().matmul_update
     with torch.cuda.device(c.device):
@@ -118,8 +139,13 @@ def matmul_update_cuda(c, a, b, *, bm: int = 256, bn: int = 256, bk: int = 512):
         raise RuntimeError(f"matmul_update launch ({route} route) failed with CUDA error {err}")
     matmul_update_cuda.launches += 1
     matmul_update_cuda.launches_by_route[route] += 1
-    return c
 
 
-matmul_update_cuda.launches = 0
-matmul_update_cuda.launches_by_route = dict.fromkeys(_ROUTES, 0)
+@_matmul_update_op.register_fake
+def _(c, a, b) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul_update)
+def _matmul_update_flops(c_shape, a_shape, b_shape, *args, **kwargs) -> int:
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]

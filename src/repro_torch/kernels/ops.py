@@ -3,7 +3,10 @@ plain version for CPU tensors.
 
 ``impl="auto"`` chooses by the tensor's device: a CPU tensor runs the plain
 PyTorch version, a CUDA tensor runs the kernel or raises — nothing falls
-back from the card to the plain version.  ``impl="cuda"`` insists on the
+back from the card to the plain version.  A ``meta`` tensor (the dry run's
+trace, ``launch.dryrun``) takes the kernel's path too: the kernel's custom
+operator has a meta implementation, so a trace sees the kernel the card
+would launch, and nothing runs.  ``impl="cuda"`` insists on the
 kernel, ``impl="ref"`` on the plain version, which takes CPU tensors only.
 The reference's block rule applies on every path where blocks are given.
 
@@ -31,7 +34,7 @@ __all__ = ["matmul_update", "flash_attention", "rglru_scan"]
 def _use_kernel(name: str, impl: str, t) -> bool:
     if impl not in ("auto", "cuda", "ref"):
         raise ValueError(f"unknown impl {impl!r}")
-    if impl == "cuda" or (impl == "auto" and t.device.type == "cuda"):
+    if impl == "cuda" or (impl == "auto" and t.device.type in ("cuda", "meta")):
         return True
     if t.device.type != "cpu":
         raise ValueError(f"{name} impl={impl!r} takes CPU tensors, not {t.device}")

@@ -18,6 +18,13 @@ the wrapper allocates.
 ``rglru_scan_cuda.launches`` counts the kernel's launches; the wrapper
 increments it where it launches the kernel and nowhere else.
 
+The launch is the custom operator ``repro_torch::rglru_scan``, so that a
+trace on fake tensors (``launch.dryrun``) sees it: its fake implementation
+returns an empty ``(B, S, D)`` float32 tensor (not the few kilobytes of
+scratch), and it has no FLOP formula, being bound by its bytes.  The
+library is loaded and the count bumped inside the real implementation
+only.
+
 Gradients: :class:`RGLRUScan` is the ``autograd.Function`` that
 ``ops.rglru_scan`` applies to CUDA tensors.  Its forward is the kernel.
 Its backward is the same linear recurrence run in reverse,
@@ -99,8 +106,8 @@ def rglru_scan_cuda(
     synchronising; returns a new ``(B, S, D)`` float32 tensor.  Raises on
     anything the kernel does not take, and when the launch is refused."""
     tensors = (log_a, b) + ((h0,) if h0 is not None else ())
-    if any(t.device.type != "cuda" for t in tensors):
-        raise ValueError("rglru_scan_cuda needs CUDA tensors")
+    if any(t.device.type not in ("cuda", "meta") for t in tensors):
+        raise ValueError("rglru_scan_cuda needs CUDA tensors (or meta tensors, which trace it without running it)")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("log_a, b and h0 must lie on one device")
     if any(t.dtype != torch.float32 for t in tensors):
@@ -113,6 +120,16 @@ def rglru_scan_cuda(
         raise ValueError("log_a, b and h0 must be contiguous")
     if B * S * D >= 2**62 or max(B * D, S) >= 2**31:
         raise ValueError("dimensions too large")
+    with torch.no_grad():
+        return _rglru_scan_op(log_a, b, h0)
+
+
+rglru_scan_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _rglru_scan_op(log_a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]) -> torch.Tensor:
+    B, S, D = log_a.shape
     lib = _lib()
     out = torch.empty_like(log_a)
     blocks = B * -(-D // lib.rglru_scan_tile_channels()) * -(-S // lib.rglru_scan_chunk_steps())
@@ -130,7 +147,9 @@ def rglru_scan_cuda(
     return out
 
 
-rglru_scan_cuda.launches = 0
+@_rglru_scan_op.register_fake
+def _(log_a, b, h0):
+    return torch.empty_like(log_a)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,10 @@ from ..nn.params import ParamSpec
 from .config import ModelConfig
 from .layers import rope, softcap
 
-__all__ = ["attn_spec", "mla_spec", "apply_attn", "apply_mla", "init_attn_cache", "init_mla_cache"]
+__all__ = [
+    "attn_spec", "mla_spec", "apply_attn", "apply_mla", "init_attn_cache", "init_mla_cache", "attn_cache_axes",
+    "mla_cache_axes",
+]
 
 NEG_INF = -2.0e38
 
@@ -97,7 +100,7 @@ def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, seq_budget: int, dt
     return {
         "k": torch.zeros((batch, S, Kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, S, Kv, hd), dtype=dtype, device=device),
-        "pos": torch.full((S,), -1, dtype=torch.int64, device=device),
+        "pos": torch.full((S,), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -105,7 +108,28 @@ def init_mla_cache(cfg: ModelConfig, batch: int, seq_budget: int, dtype, device)
     return {
         "ckv": torch.zeros((batch, seq_budget, cfg.kv_lora_rank), dtype=dtype, device=device),
         "kr": torch.zeros((batch, seq_budget, cfg.rope_head_dim), dtype=dtype, device=device),
-        "pos": torch.full((seq_budget,), -1, dtype=torch.int64, device=device),
+        "pos": torch.full((seq_budget,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attn_cache_axes(cfg: ModelConfig, kind: str) -> Dict:
+    """Logical sharding axes of a GQA cache (the reference's): global
+    caches shard the sequence over the model axis (``seq_kv``), sliding
+    window caches are batch-sharded only."""
+    seq_ax = "seq_kv" if kind != "local" else "seq"
+    return {
+        "k": ("batch", seq_ax, "kv_heads", "head_dim"),
+        "v": ("batch", seq_ax, "kv_heads", "head_dim"),
+        "pos": ("seq",),
+    }
+
+
+def mla_cache_axes(cfg: ModelConfig) -> Dict:
+    """MLA caches are shared across heads: the sequence is sharded."""
+    return {
+        "ckv": ("batch", "seq_kv", "lora"),
+        "kr": ("batch", "seq_kv", "head_dim"),
+        "pos": ("seq",),
     }
 
 

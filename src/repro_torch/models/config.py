@@ -2,15 +2,16 @@
 
 The port's copy of the reference's ``models/config.py``: the same fields,
 defaults and checks, with torch dtypes for ``dtype`` and ``logit_dtype``.
-Every family the reference assigns runs in this package.  Only the dry
-run's ``unroll_scans`` is kept unread, so that a config reads the same on
-both sides: a value other than the default raises ``NotImplementedError``
-(the dry run is the mesh code's, ROADMAP queue 1, item 10f).
+Every family the reference assigns runs in this package, and every field
+is read.  ``unroll_scans`` (the reference's dry run unrolls its inner
+``lax.scan`` loops for XLA's cost analysis) chooses nothing here: the
+port's loops are eager Python, unrolled either way, and the dry run
+(``launch.dryrun``) sets it as the reference's does.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, replace
 from typing import Any, Tuple
 
 import torch
@@ -99,20 +100,15 @@ class ModelConfig:
 
     # Training and distribution knobs: ``remat="full"`` recomputes each
     # layer in the backward (``torch.utils.checkpoint``); ``train_accum``,
-    # the configured gradient-accumulation length, is carried as the
-    # reference carries it (only its dry run reads it); the dry run's
-    # ``unroll_scans`` is refused.
+    # the configured gradient-accumulation length, is read by the dry run
+    # (``launch.dryrun``), as in the reference; ``unroll_scans`` chooses
+    # nothing (the port's loops are unrolled either way).
     remat: str = "full"
     scan_layers: bool = True
     train_accum: int = 1
     unroll_scans: bool = False
 
     def __post_init__(self):
-        set_unread = [f for f in _NOT_READ if getattr(self, f) != _DEFAULTS[f]]
-        if set_unread:
-            raise NotImplementedError(
-                f"{self.name}: {', '.join(set_unread)} not read by the port yet (the dry run: ROADMAP queue 1, item 10f)"
-            )
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_heads % max(self.num_kv_heads, 1) != 0:
@@ -154,8 +150,3 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
-
-
-# Fields whose reader (the dry run, item 10f) is not ported yet.
-_NOT_READ = ("unroll_scans",)
-_DEFAULTS = {f.name: f.default for f in fields(ModelConfig)}

@@ -50,6 +50,7 @@ __all__ = [
     "encdec_spec",
     "encode",
     "init_encdec",
+    "encdec_cache_axes",
     "init_encdec_cache",
 ]
 
@@ -245,6 +246,17 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, seq_budget: int, enc_len: in
     return {
         "layers": [init_attn_cache(cfg, kind, batch, seq_budget, dtype, device) for kind in _dec_kinds(cfg)],
         "cross_kv": [(zeros(), zeros()) for _ in _dec_kinds(cfg)],
+    }
+
+
+def encdec_cache_axes(cfg: ModelConfig) -> Dict:
+    """The logical-axes tree of :func:`init_encdec_cache` (the reference
+    writes it as a literal in its dry run): the decoder's self-attention
+    caches and the cross K/V, sequence replicated."""
+    kv = ("batch", "seq", "kv_heads", "head_dim")
+    return {
+        "layers": [{"k": kv, "v": kv, "pos": ("seq",)} for _ in _dec_kinds(cfg)],
+        "cross_kv": [(kv, kv) for _ in _dec_kinds(cfg)],
     }
 
 

@@ -54,7 +54,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..nn.convert import unstack_tree
 from ..nn.params import ParamSpec, ParamTree, init_tree, tree_leaves
-from .attention import apply_attn, apply_mla, attn_spec, init_attn_cache, init_mla_cache, mla_spec
+from .attention import (
+    apply_attn,
+    apply_mla,
+    attn_cache_axes,
+    attn_spec,
+    init_attn_cache,
+    init_mla_cache,
+    mla_cache_axes,
+    mla_spec,
+)
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, embedding_spec, mlp_spec, norm_spec, softcap, stacked
 from .moe import apply_moe, moe_spec
@@ -65,8 +74,11 @@ from .recurrent import (
     init_mlstm_cache,
     init_rglru_cache,
     init_slstm_cache,
+    mlstm_cache_axes,
     mlstm_spec,
+    rglru_cache_axes,
     rglru_spec,
+    slstm_cache_axes,
     slstm_spec,
 )
 
@@ -76,6 +88,7 @@ __all__ = [
     "apply_block",
     "apply_lm",
     "block_spec",
+    "cache_axes",
     "chunked_xent",
     "decode_step",
     "init_cache",
@@ -313,6 +326,25 @@ def _kind_cache(cfg: ModelConfig, kind: str, batch: int, seq_budget: int, dtype,
     raise ValueError(kind)
 
 
+def _kind_cache_axes(cfg: ModelConfig, kind: str) -> Dict:
+    if kind in ("attn", "local"):
+        return mla_cache_axes(cfg) if cfg.mla else attn_cache_axes(cfg, kind)
+    if kind == "rec":
+        return rglru_cache_axes(cfg)
+    if kind == "mlstm":
+        return mlstm_cache_axes(cfg)
+    if kind == "slstm":
+        return slstm_cache_axes(cfg)
+    raise ValueError(kind)
+
+
+def cache_axes(cfg: ModelConfig) -> List[Dict]:
+    """The logical-axes tree of :func:`init_cache`: one dict per layer, in
+    depth order (the reference stacks the units' caches, and their axes,
+    along a leading ``layers`` axis)."""
+    return [_kind_cache_axes(cfg, kind) for kind in cfg.layer_kinds()]
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -402,11 +434,22 @@ def lm_logits(params: LanguageModel, cfg: ModelConfig, hidden: torch.Tensor) -> 
 # ---------------------------------------------------------------------------
 
 
+def _exp_shifted_(s: torch.Tensor):
+    """``(exp(s - m), m)`` with ``m`` the last dim's max (0 where it is
+    infinite), the exponentials written over ``s``: ``torch.logsumexp``'s
+    arithmetic without its temporary of ``s``'s size."""
+    m = torch.amax(s, dim=-1, keepdim=True)
+    m.masked_fill_(m.abs() == float("inf"), 0.0)
+    return s.sub_(m).exp_(), m
+
+
 def _xent_chunk(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor, cap: float):
-    """One chunk's summed nll, label count and summed ``lse**2``."""
+    """One chunk's summed nll, label count and summed ``lse**2``; the
+    float32 logits are the only buffer of their size."""
     logits = softcap((h @ w).to(torch.float32), cap)
-    lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y.clamp_min(0)[..., None])[..., 0]
+    e, m = _exp_shifted_(logits)
+    lse = e.sum(-1).log_().add_(m[..., 0])
     mask = (y >= 0).to(torch.float32)
     return ((lse - gold) * mask).sum(), mask.sum(), (lse.square() * mask).sum()
 
@@ -434,9 +477,11 @@ class _XentChunk(torch.autograd.Function):
         z = (h @ w).to(torch.float32)
         t = z.div_(cap).tanh_() if cap > 0 else None  # tanh(z / cap), in z's buffer
         s = t * cap if t is not None else z
-        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        p, m = _exp_shifted_(s)  # the softmax, in s's buffer
+        total = p.sum(-1, keepdim=True)
+        p.div_(total)
+        lse = total.log_().add_(m)
         mask = (y >= 0).to(torch.float32)[..., None]
-        p = s.sub_(lse).exp_()  # softmax, in s's buffer
         # d(nll_sum)/ds = mask (p - onehot); d(zl_sum)/ds = mask 2 lse p
         p.mul_(mask * (g_nll + 2.0 * g_zl * lse))
         p.scatter_add_(-1, y.clamp_min(0)[..., None], -(g_nll * mask))

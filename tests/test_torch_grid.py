@@ -196,10 +196,14 @@ def test_app_time_2d_matches_reference(policy):
 
 
 def test_grid_partition_through_partition_and_its_refusals():
+    """A grid scheduler's ``partition(n=(M, N))`` delegates to
+    ``partition_grid`` (as the reference's does); a unit count is refused."""
     sched = _port(_grid(2, 2), Policy.CPM, "numpy")
-    for n in (64, (64, 64)):
-        with pytest.raises(ValueError, match="partition_grid"):
-            sched.partition(n)
+    with pytest.raises(ValueError, match="partition_grid"):
+        sched.partition(64)
+    got = sched.partition((64, 64))
+    want = _port(_grid(2, 2), Policy.CPM, "numpy").partition_grid(64, 64)
+    assert (got.col_widths, got.row_heights) == (want.col_widths, want.row_heights)
     with pytest.raises(ValueError, match="grid"):
         Scheduler(num_groups=2, backend="numpy").partition_grid(8, 8)
     # Policy.DFPA on a grid is the nested DFPA algorithm, as GRID2D

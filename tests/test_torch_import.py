@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` (every module, the model stack
 and its serving path, xLSTM, the encoder-decoder and the frontend stubs,
-the fleet and the serving dispatch included) and ``chip_smoke.py`` import
+the fleet and the serving dispatch, the mesh code, the dry run and the
+deprecated shims included) and ``chip_smoke.py`` import
 no JAX and nothing of the reference package, and the smoke script refuses
 to run without a CUDA device."""
 
@@ -45,6 +46,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.data, repro_torch.optim, repro_torch.optim.compress, repro_torch.checkpoint.store\n"
         "import repro_torch.models.encdec, repro_torch.models.frontends, repro_torch.models.recurrent\n"
         "import repro_torch.configs.xlstm_350m, repro_torch.configs.seamless_m4t_medium, repro_torch.configs.pixtral_12b\n"
+        "import repro_torch.sharding, repro_torch.sharding.rules, repro_torch.sharding.context\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.core.dfpa\n"
+        "from repro_torch.core import dfpa, DFPAResult, Grid2DResult, dfpa_partition_2d, bank_repartition_2d\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -119,13 +119,17 @@ def test_cpu_tensors_never_reach_the_kernel():
 
 @pytest.mark.parametrize("impl", ["auto", "ref"])
 def test_plain_version_takes_cpu_tensors_only(impl):
-    # A tensor off the CPU never reaches the plain version: "meta" stands in
-    # here for any device without a kernel; the card's case is in
-    # test_torch_kernels_cuda.py.
+    # A tensor off the CPU never reaches the plain version.  A "meta" tensor
+    # (the dry run's trace) takes the kernel's path under "auto": its custom
+    # operator's meta implementation, no launch; "ref" refuses it.  The
+    # card's case is in test_torch_kernels_cuda.py.
     c = torch.zeros(64, 64, device="meta")
     before = matmul_update_cuda.launches
-    with pytest.raises(ValueError, match="takes CPU tensors"):
-        matmul_update(c, c, c, impl=impl)
+    if impl == "auto":
+        assert matmul_update(c, c, c, impl=impl) is c
+    else:
+        with pytest.raises(ValueError, match="takes CPU tensors"):
+            matmul_update(c, c, c, impl=impl)
     assert matmul_update_cuda.launches == before
 
 
@@ -306,8 +310,10 @@ def test_model_kernels_dispatch_cpu_tensors_to_plain_versions():
     with pytest.raises(ValueError, match="unknown impl"):
         rglru_scan(la, la, impl="pallas")
     meta = torch.zeros(1, 2, 8, 4, device="meta")
+    traced = flash_attention(meta, meta, meta)  # the kernel's meta implementation: no plain version, no launch
+    assert traced.device.type == "meta" and traced.shape == meta.shape
     with pytest.raises(ValueError, match="takes CPU tensors"):
-        flash_attention(meta, meta, meta)
+        flash_attention(meta, meta, meta, impl="ref")
     with pytest.raises(ValueError, match="takes CPU tensors"):
         rglru_scan(meta[0], meta[0], impl="ref")
     assert (flash_attention_cuda.launches, rglru_scan_cuda.launches) == before

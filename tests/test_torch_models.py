@@ -192,13 +192,26 @@ def test_registry_refuses_unported_archs():
     [("frontend", "vision_stub"), ("encoder_layers", 2), ("num_prefix_embeddings", 4)],
 )
 def test_config_refuses_fields_the_port_does_not_read(field, value):
-    """The frontend and encoder-decoder fields are read now (a config
-    takes them); only the dry run's ``unroll_scans`` is still refused,
-    naming item 10f."""
+    """No field is refused any more: the frontend and encoder-decoder
+    fields are read, and so is the dry run's ``unroll_scans``, which
+    chooses nothing in the port (its loops are eager Python): the logits
+    are the same bit for bit either way, and the reference's within 1e-4."""
     cfg = get_smoke_config(ARCH).replace(**{field: value})
     assert getattr(cfg, field) == value
-    with pytest.raises(NotImplementedError, match="unroll_scans not read by the port yet .*item 10f"):
-        cfg.replace(unroll_scans=True)
+    assert cfg.replace(unroll_scans=True).unroll_scans
+    jcfg, cfg = _cfgs()
+    params, model = _model(jcfg, cfg)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 12))
+    pos = torch.arange(12)
+    logits = {}
+    for unroll in (False, True):
+        c = cfg.replace(unroll_scans=unroll)
+        h, _, _ = tt.apply_lm(model, c, torch.from_numpy(toks), pos)
+        logits[unroll] = tt.lm_logits(model, c, h)
+    assert torch.equal(logits[False], logits[True])
+    jc = jcfg.replace(unroll_scans=True)
+    jh, _, _ = _j_apply_lm(params, cfg=jc, tokens=jnp.asarray(toks), positions=jnp.asarray(np.arange(12)))
+    assert _rel(jt.lm_logits(params, jc, jh), logits[True]) < 1e-4
 
 
 @pytest.mark.parametrize("field,value", [("zloss", 1e-4), ("xent_chunk", 0), ("remat", "none")])

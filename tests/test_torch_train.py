@@ -640,10 +640,37 @@ def test_checkpoint_dtype_cast_on_restore():
 
 
 def test_checkpoint_refuses_shardings():
+    """``shardings=`` restores onto the one-card mesh (every leaf whole on
+    the mesh's device, in ``like``'s dtype, values equal to the
+    reference's restore onto its own 1x1 mesh); a spec that splits a dim
+    over a mesh axis larger than 1 is refused."""
+    from jax.sharding import NamedSharding as JNamedSharding
+
+    from repro.sharding import shardings_for_axes as ref_shardings_for_axes
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+    from repro_torch.sharding import shardings_for_axes
+
+    axes = {"params": {"w": ("embed", "mlp")}, "step": ()}
+    mesh = make_production_mesh(device="cpu")
+    shd = shardings_for_axes(axes, mesh, _tree())
+    assert shd["params"]["w"].spec == ("data", "model") and shd["step"].spec == ()
     with tempfile.TemporaryDirectory() as d:
         save_checkpoint(d, 1, _tree())
-        with pytest.raises(NotImplementedError, match="10f"):
-            load_checkpoint(d, _tree(), shardings=_tree())
+        like = {"params": {"w": torch.empty(3, 4, dtype=torch.bfloat16, device="meta")},
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+        back, _ = load_checkpoint(d, like, shardings=shd)
+        assert back["params"]["w"].device.type == "cpu" and back["params"]["w"].dtype == torch.bfloat16
+        assert torch.equal(back["params"]["w"].float(), _tree()["params"]["w"]) and int(back["step"]) == 7
+        jmesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+        jlike = {"params": {"w": jax.ShapeDtypeStruct((3, 4), jnp.bfloat16)}, "step": jax.ShapeDtypeStruct((), jnp.int32)}
+        jshd = ref_shardings_for_axes(axes, jmesh, jlike)
+        assert isinstance(jshd["params"]["w"], JNamedSharding)
+        assert tuple(jshd["params"]["w"].spec) == tuple(shd["params"]["w"].spec)
+        jback, _ = ref_load_checkpoint(d, jlike, shardings=jshd)
+        assert np.array_equal(np.asarray(jback["params"]["w"], np.float32), back["params"]["w"].float().numpy())
+        wide = Mesh(("data", "model"), np.arange(2).reshape(1, 2), torch.device("cpu"))
+        with pytest.raises(NotImplementedError, match="one card"):
+            load_checkpoint(d, _tree(), shardings=shardings_for_axes(axes, wide, _tree()))
 
 
 def _ref_state(arch):

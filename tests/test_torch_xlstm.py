@@ -43,8 +43,9 @@ from repro.models import recurrent as jrec
 from repro.nn import params as jparams
 from repro.runtime.serve_loop import ServeEngine as RefServeEngine
 
+import repro_torch.models.encdec as ted
 import repro_torch.models.transformer as tt
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
 from repro_torch.models import recurrent as trec
@@ -122,9 +123,32 @@ def test_config_spec_and_cache_axes_match_the_reference():
     n = param_count(tt.lm_spec(cfg))
     assert n == jparams.param_count(jt.lm_spec(jcfg)) and 0.2e9 < n < 0.6e9
     assert sum(p.numel() for p in tt.LanguageModel(cfg).parameters()) == n  # the meta-device model
-    # the cache axes are the mesh code's (10f): the reference's, not yet the port's
+    # the cache axes, for all ten configs: the port's per-layer list (its
+    # caches' structure) is the reference's stacked tree, units' leaves
+    # behind a leading "layers" axis; the encoder-decoder's are the literal
+    # of the reference's dry run (src/repro/launch/dryrun.py:84-93)
     for name in ("rglru_cache_axes", "mlstm_cache_axes", "slstm_cache_axes"):
-        assert callable(getattr(jrec, name)) and not hasattr(trec, name), name
+        assert getattr(trec, name)(cfg) == getattr(jrec, name)(jcfg), name
+    for arch in ARCH_IDS:
+        jc, tc = ref_get_config(arch), get_config(arch)
+        if tc.is_encdec:
+            kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+            want = {"units": tuple({"k": kv, "v": kv, "pos": ("layers", "seq")} for _ in jc.pattern),
+                    "cross_kv": tuple((kv, kv) for _ in jc.pattern)}
+            got = ted.encdec_cache_axes(tc)
+            assert len(got["layers"]) == len(got["cross_kv"]) == tc.num_layers
+            for i in range(tc.num_layers):
+                s_ = i % len(tc.pattern)
+                assert {k: ("layers",) + v for k, v in got["layers"][i].items()} == want["units"][s_], (arch, i)
+                assert tuple(("layers",) + a for a in got["cross_kv"][i]) == want["cross_kv"][s_], (arch, i)
+            continue
+        want, got = jt.cache_axes(jc), tt.cache_axes(tc)
+        n_pre = len(tc.prefix)
+        assert len(got) == tc.num_layers, arch
+        assert tuple(got[:n_pre]) == want["prefix"], arch
+        for i in range(n_pre, tc.num_layers):
+            s_ = (i - n_pre) % len(tc.pattern)
+            assert {k: ("layers",) + v for k, v in got[i].items()} == want["units"][s_], (arch, i)
 
 
 # ---------------------------------------------------------------------------
