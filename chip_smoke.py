@@ -28,8 +28,10 @@ the first fault:
                       bfloat16 (2e-2) plus
                       a window whose first key tile is fully masked for some
                       rows, ragged lengths and head_dim 256 cases (an odd
-                      group count, softcap, GQA), each launched twice
-                      (bit-identical) on the route the wrapper picks;
+                      group count, softcap, GQA), and head_dim 160 and 192
+                      cases (the decoders' ``"wgmma"`` head dims), each
+                      launched twice (bit-identical) on the route the
+                      wrapper picks;
                       ``rglru_scan`` on ``RGLRU_CASES`` at 1e-5 plus
                       ``h0``, ragged, shorter-than-a-chunk and long cases,
                       and the serve shape with decays near 1 (log_a scaled
@@ -43,6 +45,10 @@ the first fault:
                       1e-5, and a plain version that loses the carry at the
                       chunk boundary in mid-sequence must fail it; causal
                       attention with Sq > Sk must raise ``ValueError``;
+                      flash is also timed at stablelm-12b's and
+                      deepseek-v2's prefill shapes (head_dim 160 and 192,
+                      2 x 1,024, causal), where a plain version that drops
+                      the first 64-key tile must fail the same check;
   4. ``bank``       — the device bank (float64) against the host numpy bank
                       at p=10^5 (threshold completion) and p=10^4 (greedy),
                       contract: bit-identical allocations and t*;
@@ -218,14 +224,15 @@ the first fault:
                       and 2 layers (its dense prefix layer and one MoE
                       layer of 160 experts), batch 2, 1,024 tokens, 8 new.
                       Each: one ``generate`` must launch ``flash_attention``
-                      once per attention layer, all on the model's route
-                      (``"wgmma"``; ``"rows"`` at stablelm's head_dim 160
-                      and MLA's 192), three give identical tokens,
+                      once per attention layer, all on ``"wgmma"`` (at
+                      stablelm's head_dim 160 and MLA's 192 too), three
+                      give identical tokens,
                       prefill + one decode step agree with the full
                       forward (rel 0.05; MoE at capacity factor 8), and
                       the kernel agrees with its plain version on the
                       prefill's own inputs of the last local and global
-                      layer (as at the serve shape), timed beside it; then
+                      layer (as at the serve shape), timed beside it and,
+                      without softcap or window, beside SDPA; then
                       the kernel at gemma2-2b's prefill shape timed beside
                       the plain version, SDPA (no softcap) and its bound;
                       (d) the six smoke models in float32 give the CPU's
@@ -373,6 +380,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     flash_attention_route,
 )
+from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS as FLASH_WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.flash_attention import wgmma_smem_bytes as flash_wgmma_smem_bytes  # noqa: E402
 from repro_torch.kernels.matmul_update import (  # noqa: E402
     matmul_update_cuda,
@@ -465,7 +473,17 @@ FLASH_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs, blocks)
     (2, 3, 1, 200, 200, 256, dict(causal=True), None),
     (1, 2, 1, 190, 190, 256, dict(causal=True, softcap=30.0), None),
     (1, 4, 2, 97, 161, 256, dict(causal=True, window=50), None),
+    # the decoders' head dims on the "wgmma" route: stablelm-12b's 160 and
+    # deepseek-v2's MLA scores at 192, lengths no tile divides
+    (2, 8, 2, 300, 300, 160, dict(causal=True), None),
+    (1, 4, 1, 190, 190, 160, dict(causal=True, softcap=30.0, window=70), None),
+    (2, 4, 4, 300, 300, 192, dict(causal=True, scale=192 ** -0.5), None),
+    (1, 4, 2, 97, 161, 192, dict(causal=True, window=50), None),
 ]
+# stablelm-12b's and deepseek-v2's prefill shapes at the decoders phase's
+# batch and prompt: (arch, B, S); H, Kv and D from the config (MLA's scores
+# at nope + rope)
+FLASH_WIDE_TIMING = [("stablelm-12b", 2, 1024), ("deepseek-v2-236b", 2, 1024)]
 RGLRU_CASES = [  # (B, S, D, bs, bd, with_h0)
     (1, 128, 128, 64, 128, False),
     (2, 256, 512, 128, 256, False),
@@ -544,8 +562,8 @@ DECODERS = [
     ("granite-moe-1b-a400m", None, 4, 2048, 16, "wgmma"),
     ("gemma2-27b", 4, 2, 1024, 8, "wgmma"),
     ("granite-20b", 4, 2, 1024, 8, "wgmma"),
-    ("stablelm-12b", 4, 2, 1024, 8, "rows"),
-    ("deepseek-v2-236b", 2, 2, 1024, 8, "rows"),
+    ("stablelm-12b", 4, 2, 1024, 8, "wgmma"),
+    ("deepseek-v2-236b", 2, 2, 1024, 8, "wgmma"),
 ]
 # the MoE capacity factor of the prefill + decode vs full forward check
 # (capacity drops depend on the sequence length; tests/test_models.py:87-91)
@@ -656,7 +674,7 @@ def phase_build() -> None:
         })
     emit({
         "phase": "build", "matmul_update_wgmma_dynamic_smem_bytes": wgmma_smem_bytes(),
-        "flash_attention_wgmma_dynamic_smem_bytes": {D: flash_wgmma_smem_bytes(D) for D in (64, 128, 256)},
+        "flash_attention_wgmma_dynamic_smem_bytes": {D: flash_wgmma_smem_bytes(D) for D in FLASH_WGMMA_HEAD_DIMS},
         "rglru_scan_chunk_steps": chunk_steps(),
     })
 
@@ -762,6 +780,7 @@ def phase_kernels() -> dict:
         _rglru_parity(*case)
     _rglru_parity(SERVE_BATCH, SERVE_PROMPT, get_config(SERVE_ARCH).d_rnn, None, None, True, decay=RGLRU_NEAR_ONE)
     flash_row = _flash_timing()
+    flash_row["head_dims_160_192"] = [_flash_wide_timing(*shape) for shape in FLASH_WIDE_TIMING]
     rglru_row = _rglru_timing()
     return {"matmul_update": main, "flash_attention": flash_row, "rglru_scan": rglru_row}
 
@@ -971,6 +990,20 @@ def _flash_timing() -> dict:
     kw = dict(causal=True, window=cfg.window, softcap=0.0, scale=cfg.query_scale)
     row = _flash_timing_at(SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT, cfg.head_dim, kw,
                            "wgmma", "at the serve shape", seed=7)
+    emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
+    return row
+
+
+def _flash_wide_timing(arch: str, B: int, S: int) -> dict:
+    """flash_attention at one decoder's prefill shape with head_dim 160 or
+    192 (random operands, causal, the config's scale), on the ``"wgmma"``
+    route, as ``_flash_timing_at``."""
+    cfg = get_config(arch)
+    D = cfg.nope_head_dim + cfg.rope_head_dim if cfg.mla else cfg.head_dim
+    H, Kv = cfg.num_heads, cfg.num_heads if cfg.mla else cfg.num_kv_heads  # MLA: K/V decompressed per head
+    kw = dict(causal=True, window=0, softcap=0.0, scale=cfg.query_scale or D ** -0.5)
+    row = _flash_timing_at(B, H, Kv, S, D, kw, "wgmma", f"at {arch}'s prefill shape", seed=S + D)
+    row["arch"] = arch
     emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
     return row
 
@@ -2953,7 +2986,10 @@ def phase_dispatch() -> dict:
 def _captured_flash(q, k, v, kw, route, what) -> dict:
     """The kernel on one prefill layer's own attention inputs: against its
     plain version (``_check_serve_flash``), on ``route``, timed beside the
-    plain version, with its bound."""
+    plain version, with its bound; and, where the library call computes
+    the same function (no softcap, no window, and no causal mask over
+    ``Sq != Sk``, which it aligns to the first key), beside
+    ``scaled_dot_product_attention`` on the same operands."""
     before = dict(flash_attention_cuda.launches_by_route)
     check = _check_serve_flash(flash_attention(q, k, v, impl="cuda", **kw), q, k, v, kw, what)
     routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
@@ -2964,10 +3000,17 @@ def _captured_flash(q, k, v, kw, route, what) -> dict:
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **plain_kw), 3)
     B, H, S, D = q.shape
     Sk = k.shape[2]
+    library_ms = None
+    if not kw["softcap"] and not kw["window"] and (S == Sk or not kw["causal"]):
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=kw["causal"], scale=kw["scale"], enable_gqa=True),
+                             10)  # yardstick only
     bound_ms, bound_by, pairs = _flash_bound(B, H, k.shape[1], S, D, kw["window"], Sk, kw["causal"])
     return {"shape": [B, H, k.shape[1], S, Sk, D], "causal": kw["causal"], "window": kw["window"],
             "softcap": kw["softcap"], "route": route, **check, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "visible_pairs_per_head": pairs}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(is_causal, enable_gqa=True)" if library_ms is not None else None,
+            "visible_pairs_per_head": pairs}
 
 
 def _routes_of(fn) -> tuple:
@@ -3955,7 +3998,8 @@ def main() -> int:
         "shape": row["shape"], "dtype": row["dtype"],
         **({"launches_by_route": routes[name], "kernel_route": row["route"]} if name in routes else {}),
         "launches_by_phase": by_phase if name == "matmul_update" else serve_by_phase[name],
-        **({"decoders_timing": decoder_timing} if name == "flash_attention" else {}),
+        **({"decoders_timing": decoder_timing, "head_dims_160_192": row["head_dims_160_192"]}
+           if name == "flash_attention" else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

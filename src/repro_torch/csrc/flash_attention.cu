@@ -16,13 +16,13 @@
 // bound by the tensor cores.  MQA makes the ten query heads read one K/V
 // head: K and V are re-read once per query tile and head, from L2.
 //
-// What the design does about it (route "wgmma": bf16, D of 64, 128 or 256,
-// every pointer 16-byte aligned and every stride a positive multiple of 8
-// elements).  The TPU kernel walks the KV blocks of one query block in
-// order on one core, carrying m, l and acc in VMEM scratch; here one block
-// owns 128 query rows of one (b, h) and walks its visible 64-key tiles in
-// order, carrying m, l and the 64 x D accumulator of each consumer
-// warpgroup in registers (D/2 fp32 a thread).
+// What the design does about it (route "wgmma": bf16, D of 64, 128, 160,
+// 192 or 256, every pointer 16-byte aligned and every stride a positive
+// multiple of 8 elements).  The TPU kernel walks the KV blocks of one
+// query block in order on one core, carrying m, l and acc in VMEM scratch;
+// here one block owns 128 query rows of one (b, h) and walks its visible
+// 64-key tiles in order, carrying m, l and the 64 x D accumulator of each
+// consumer warpgroup in registers (D/2 fp32 a thread).
 //  * Warp roles: 384 threads.  Warpgroups 0 and 1 consume, 64 rows each,
 //    and share every K/V tile, which halves the L2 traffic of 64-row
 //    blocks; warpgroup 2 produces, one thread issuing TMA loads (128-byte
@@ -45,11 +45,15 @@
 //    last tiles mask, and a runtime test for either in the tile loop halved
 //    the kernel's speed on the card.
 //  * At D = 256 shared memory holds Q (64 KB) and two stages of K and V
-//    (128 KB): one block per SM.  Blocks run the heaviest query tiles
-//    first, the heads of one (b, query tile) side by side so they read the
-//    same K/V tiles from L2.  Tiles wholly outside a block's visible key
-//    range are never loaded (the TPU kernel's block skip); ragged Sq and
-//    Sk come from TMA's zero fill and masked stores.  The tensor maps take
+//    (128 KB): one block per SM.  D = 192 (deepseek-v2's MLA scores) is
+//    three whole panels, Q (48 KB) and three stages (144 KB); D = 160
+//    (stablelm-12b) is stored as 192, TMA zero-filling the last 32 columns
+//    of every tile, while Q Kᵀ stops at column 160 and P V runs n = 160
+//    (wg::Layout).  Blocks run the heaviest query tiles first, the heads
+//    of one (b, query tile) side by side so they read the same K/V tiles
+//    from L2.  Tiles wholly outside a block's visible key range are never
+//    loaded (the TPU kernel's block skip); ragged Sq and Sk come from TMA's
+//    zero fill and masked stores.  The tensor maps take
 //    the (b, h, s) strides as given, so the model's transposed views are
 //    read without a copy; they are encoded on the host at every launch
 //    through cudaGetDriverEntryPoint (no -lcuda).
@@ -552,6 +556,56 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 160, fp32, 80 a thread) = A (64 x 16, bf16 in registers, in the
+// accumulator's layout) * B (16 x 160, MN-major in shared memory) + scale_d * D.
+__device__ __forceinline__ void wgmma_rs_m64n160k16(float (&d)[80], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 192, fp32, 96 a thread) = A (64 x 16, bf16 in registers, in the
+// accumulator's layout) * B (16 x 192, MN-major in shared memory) + scale_d * D.
+__device__ __forceinline__ void wgmma_rs_m64n192k16(float (&d)[96], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 256, fp32, 128 a thread) = A (64 x 16, bf16 in registers, in the
 // accumulator's layout) * B (16 x 256, MN-major in shared memory) + scale_d * D.
 __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
@@ -582,13 +636,18 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 256) {
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 256) {
     wgmma_rs_m64n256k16(o, a, db, 1);
-  } else if constexpr (D == 128) {
+  } else if constexpr (N == 192) {
+    wgmma_rs_m64n192k16(o, a, db, 1);
+  } else if constexpr (N == 160) {
+    wgmma_rs_m64n160k16(o, a, db, 1);
+  } else if constexpr (N == 128) {
     wgmma_rs_m64n128k16(o, a, db, 1);
   } else {
+    static_assert(N == 64, "P V runs n = 64, 128, 160, 192 or 256");
     wgmma_rs_m64n64k16(o, a, db, 1);
   }
 }
@@ -597,18 +656,27 @@ namespace wg {
 
 constexpr int BM = 128;          // query rows of a block: two consumer warpgroups of 64
 constexpr int BN = 64;           // keys of one K/V tile
-constexpr int STAGES = 2;        // K/V tiles in flight
 constexpr int THREADS = 384;     // two consumer warpgroups, then the producer warpgroup
 constexpr int PANEL = 64 * 128;  // 64 rows of one 64-column (128-byte) panel: one TMA box
 constexpr float LOG2E = 1.4426950408889634f;
+// K/V tiles in flight at head_dim 160 and 192 (stablelm-12b; deepseek-v2's
+// MLA scores): 3 fill 197 KB, as D = 256's two do, and ran 7 % faster
+// than 2 at MLA's prefill shape (tools/flash_headdim_probe.py).
+constexpr int WIDE_STAGES = 3;
 
 // Shared memory from a 1024-byte aligned base: Q of both warpgroups, then
 // STAGES x (K tile, V tile), then the mbarriers q_full, k_full[STAGES],
 // v_full[STAGES], k_empty[STAGES], v_empty[STAGES].  A tile of 64 rows x D
-// is stored as D/64 panels of 64 rows x 128 bytes in TMA's 128-byte swizzle.
+// is stored as DP/64 panels of 64 rows x 128 bytes in TMA's 128-byte
+// swizzle, DP being D rounded up to whole panels: at D = 160 the third
+// panel's columns 160-191 are TMA's zero fill (the tensor maps' inner dim
+// is D), which neither Q Kᵀ nor P V (n = D; n = 192 ran 0-5 % slower)
+// reads.
 template <int D>
 struct Layout {
-  static constexpr int TILE = D / 64 * PANEL;
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int STAGES = (D == 160 || D == 192) ? WIDE_STAGES : 2;
+  static constexpr int TILE = DP / 64 * PANEL;
   static constexpr int Q = 0;
   static constexpr int KV = 2 * TILE;
   static constexpr int BARS = KV + STAGES * 2 * TILE;
@@ -616,8 +684,9 @@ struct Layout {
 };
 
 // S = Q Kᵀ for one warpgroup: 64 rows x 64 keys, D/16 k16 steps, Q and K
-// K-major (a k16 step is 32 bytes along a panel's swizzled rows).  Issued,
-// committed, not waited for.
+// K-major (a k16 step is 32 bytes along a panel's swizzled rows; at D = 160
+// the steps stop at column 160, short of the zero-filled rest of the
+// third panel).  Issued, committed, not waited for.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qs, uint32_t ks) {
 #pragma unroll
@@ -631,13 +700,14 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qs, uint32_t 
   wgmma_commit();
 }
 
-// O += P V: P from registers, V MN-major (16 keys = 2048 bytes down a step;
-// LBO one 64-column panel).  Issued, committed, not waited for.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[4][4], uint32_t vs) {
+// O += P V over n = N columns: P from registers, V MN-major (16 keys =
+// 2048 bytes down a step; LBO one 64-column panel).  Issued, committed, not
+// waited for.
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N / 2], const uint32_t (&pa)[4][4], uint32_t vs) {
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_pv<D>(o, pa[kc], smem_desc(vs + kc * 2048, PANEL, 1024));
+  for (int kc = 0; kc < 4; ++kc) wgmma_pv<N>(o, pa[kc], smem_desc(vs + kc * 2048, PANEL, 1024));
   wgmma_commit();
 }
 
@@ -715,8 +785,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::BARS;
-  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * STAGES;  // stage s is 8 s on
-  const uint32_t k_empty = v_full + 8 * STAGES, v_empty = k_empty + 8 * STAGES;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * L::STAGES;  // stage s is 8 s on
+  const uint32_t k_empty = v_full + 8 * L::STAGES, v_empty = k_empty + 8 * L::STAGES;
 
   // Heaviest query tiles first (under a causal mask the last tiles see the
   // most keys); the heads of one (b, query tile) run side by side, so they
@@ -733,7 +803,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(k_full + 8 * s, 1);  // the producer's expect_tx
       mbar_init(v_full + 8 * s, 1);
       mbar_init(k_empty + 8 * s, 8);  // lane 0 of every consumer warp
@@ -750,17 +820,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       // Out-of-range rows (past Sq or Sk) are zero-filled and count in full.
       mbar_expect_tx(q_full, 2 * L::TILE);
       for (int w = 0; w < 2; ++w) {
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < L::DP / 64; ++c) {
           tma_load_4d(base + L::Q + w * L::TILE + c * PANEL, &tmQ, q_full, 64 * c, q0 + 64 * w, head, b);
         }
       }
       auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t full, int k0) {
         mbar_expect_tx(full, L::TILE);
-        for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * PANEL, map, full, 64 * c, k0, kvh, b);
+        for (int c = 0; c < L::DP / 64; ++c) tma_load_4d(dst + c * PANEL, map, full, 64 * c, k0, kvh, b);
       };
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES;
-        const uint32_t free_parity = ((i / STAGES) & 1) ^ 1;  // the first pass finds every stage free
+        const int s = i % L::STAGES;
+        const uint32_t free_parity = ((i / L::STAGES) & 1) ^ 1;  // the first pass finds every stage free
         const uint32_t ks = base + L::KV + 2 * s * L::TILE;
         mbar_wait(k_empty + 8 * s, free_parity);
         load(ks, &tmK, k_full + 8 * s, (t_lo + i) * BN);
@@ -778,11 +848,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wlo = q0 + 64 * wg + q_off;                      // the warpgroup's first query position
     const int whi = min(q0 + 64 * wg + 64, p.Sq) - 1 + q_off;  // and its last
     const uint32_t qs = base + L::Q + wg * L::TILE;
-    auto k_tile = [&](int i) { return base + L::KV + 2 * (i % STAGES) * L::TILE; };
-    auto parity = [](int i) { return static_cast<uint32_t>((i / STAGES) & 1); };
+    auto k_tile = [&](int i) { return base + L::KV + 2 * (i % L::STAGES) * L::TILE; };
+    auto parity = [](int i) { return static_cast<uint32_t>((i / L::STAGES) & 1); };
     auto release = [&](uint32_t empty, int i) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * (i % STAGES));
+      if (lane == 0) mbar_arrive(empty + 8 * (i % L::STAGES));
     };
 
     float o[D / 2];
@@ -812,9 +882,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       pack_p(sc, pa);
     }
     for (int i = 1; i < n_tiles; ++i) {
-      mbar_wait(k_full + 8 * (i % STAGES), parity(i));
+      mbar_wait(k_full + 8 * (i % L::STAGES), parity(i));
       issue_qk<D>(sc, qs, k_tile(i));
-      mbar_wait(v_full + 8 * ((i - 1) % STAGES), parity(i - 1));
+      mbar_wait(v_full + 8 * ((i - 1) % L::STAGES), parity(i - 1));
       issue_pv<D>(o, pa, k_tile(i - 1) + L::TILE);
       wgmma_wait<1>();  // S of tile i is done; P V of tile i - 1 may run on
       fence_acc(sc);
@@ -828,7 +898,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       pack_p(sc, pa);
     }
     if (n_tiles > 0) {
-      mbar_wait(v_full + 8 * ((n_tiles - 1) % STAGES), parity(n_tiles - 1));
+      mbar_wait(v_full + 8 * ((n_tiles - 1) % L::STAGES), parity(n_tiles - 1));
       issue_pv<D>(o, pa, k_tile(n_tiles - 1) + L::TILE);
       wgmma_wait<0>();
       fence_acc(o);
@@ -948,6 +1018,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     switch (D) {
       case 64: return launch_wgmma<64>(q, k, v, out, p, B, Kv, s);
       case 128: return launch_wgmma<128>(q, k, v, out, p, B, Kv, s);
+      case 160: return launch_wgmma<160>(q, k, v, out, p, B, Kv, s);
+      case 192: return launch_wgmma<192>(q, k, v, out, p, B, Kv, s);
       case 256: return launch_wgmma<256>(q, k, v, out, p, B, Kv, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -975,6 +1047,8 @@ extern "C" int flash_attention_wgmma_smem(int D) {
   switch (D) {
     case 64: return wg::Layout<64>::BYTES;
     case 128: return wg::Layout<128>::BYTES;
+    case 160: return wg::Layout<160>::BYTES;
+    case 192: return wg::Layout<192>::BYTES;
     case 256: return wg::Layout<256>::BYTES;
     default: return 0;
   }

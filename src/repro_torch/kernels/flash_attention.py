@@ -24,10 +24,11 @@ Blocks: ``bq``/``bk`` keep the reference's rule for callers that pass them
 masks ragged edges, so any length runs (the model's call).
 
 Routes, chosen from the operands by :func:`flash_attention_route` before
-the launch: ``"wgmma"`` (bf16, head_dim 64, 128 or 256, every pointer
-16-byte aligned and every ``(b, h, s)`` stride a positive multiple of 8
-elements: TMA loads into an mbarrier ring feeding ``wgmma``, 128 query
-rows a block), ``"mma"`` (other aligned bf16 head dims of 16 or 32:
+the launch: ``"wgmma"`` (bf16, head_dim 64, 128, 160, 192 or 256, every
+pointer 16-byte aligned and every ``(b, h, s)`` stride a positive multiple
+of 8 elements: TMA loads into an mbarrier ring feeding ``wgmma``, 128
+query rows a block; 160 is stablelm-12b's head_dim, 192 deepseek-v2's MLA
+scores), ``"mma"`` (other aligned bf16 head dims of 16 or 32:
 ``mma.sync``, 64 rows a block) and ``"rows"`` (everything else, float32
 among it: one warp per query row).  No route falls back to another at
 run time.
@@ -68,14 +69,15 @@ from torch.utils.flop_counter import register_flop_formula
 from .. import _build
 
 __all__ = [
-    "ROUTES", "FlashAttention", "attention_backward", "attention_rows", "check_blocks", "check_causal",
-    "flash_attention_cuda", "flash_attention_route", "visible_pairs", "wgmma_smem_bytes",
+    "ROUTES", "WGMMA_HEAD_DIMS", "FlashAttention", "attention_backward", "attention_rows", "check_blocks",
+    "check_causal", "flash_attention_cuda", "flash_attention_route", "visible_pairs", "wgmma_smem_bytes",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -2.0e38
 BACKWARD_LOGITS = 2**27  # logits a block of query rows may hold in the backward
 ROUTES = ("rows", "mma", "wgmma")  # in the C entry's numbering
+WGMMA_HEAD_DIMS = (64, 128, 160, 192, 256)  # the "wgmma" kernel's instantiations
 
 
 def check_blocks(Sq: int, Sk: int, bq: Optional[int] = 256, bk: Optional[int] = 256) -> None:
@@ -117,7 +119,7 @@ def flash_attention_route(D: int, dtype, ptrs: Sequence[int], strides: Sequence[
     that they allow.  TMA needs 16-byte aligned addresses and strides, and
     a positive stride for q, k and v."""
     aligned = dtype == torch.bfloat16 and all(p % 16 == 0 for p in ptrs) and all(s % 8 == 0 for s in strides)
-    if aligned and D in (64, 128, 256) and all(s > 0 for s in strides[:9]):
+    if aligned and D in WGMMA_HEAD_DIMS and all(s > 0 for s in strides[:9]):
         return "wgmma"
     if aligned and D in (16, 32, 64, 128, 256):
         return "mma"

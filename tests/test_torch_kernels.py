@@ -24,10 +24,13 @@ and so does every panel the DFPA loop can give a processor; float32, N or
 K not a multiple of 8 and a misaligned operand go ``"tile"``.
 ``ops.flash_attention`` refuses causal attention with ``Sq > Sk`` (rows
 that see no key) before any dispatch.  The route ``flash_attention`` takes
-is decided the same way: aligned bf16 at head_dim 64, 128 or 256 goes
-``"wgmma"`` — the model's transposed views at the serving shape among it —
-other aligned bf16 head dims ``"mma"``, and float32, a misaligned operand
-or another head_dim ``"rows"``.  The chunked scan's arithmetic (the carry
+is decided the same way: aligned bf16 at head_dim 64, 128, 160, 192 or 256
+goes ``"wgmma"`` — the model's transposed views at the serving shape among
+it — other aligned bf16 head dims of 16 or 32 ``"mma"``, and float32, a
+misaligned operand or another head_dim (48, 96) ``"rows"``.  At the
+decoders' head dims, stablelm-12b's 160 and deepseek-v2's MLA scores at
+192 (``v`` zero-padded from 128), ``flash_attention_ref`` meets
+``flash_attention_pallas`` in both dtypes too.  The chunked scan's arithmetic (the carry
 into each 64-step chunk from the chunk's product and local end state, every
 step inside a chunk sequential) is written out here and meets the
 reference at its tolerance over a 4096-step sequence; a carry reset at one
@@ -230,6 +233,30 @@ def test_plain_flash_attention_matches_reference_kernel(B, H, Kv, Sq, Sk, D, kwa
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol)
 
 
+# the decoders' head dims on the "wgmma" route: stablelm-12b's 160 (four
+# query heads a KV head) and deepseek-v2's MLA scores at 192 (H = Kv, v
+# zero-padded from 128 to 192, scale 1/sqrt(192))
+DECODER_HEAD_DIM_CASES = [
+    (8, 2, 160, 160, dict(causal=True)),
+    (4, 4, 192, 128, dict(causal=True, scale=192 ** -0.5)),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
+@pytest.mark.parametrize("H,Kv,D,v_dim,kwargs", DECODER_HEAD_DIM_CASES)
+def test_plain_flash_attention_matches_reference_kernel_at_decoder_head_dims(H, Kv, D, v_dim, kwargs, dtype, tol):
+    q, k, v = _flash_inputs(1, H, Kv, 128, 128, D, seed=D)
+    v[..., v_dim:] = 0.0
+    want = flash_attention_pallas(
+        *(jnp.asarray(x, _JNP[dtype]) for x in (q, k, v)), bq=64, bk=64, interpret=True, **kwargs
+    )
+    qt, kt, vt = (torch.from_numpy(x).to(_TORCH[dtype]) for x in (q, k, v))
+    got = flash_attention(qt, kt, vt, bq=64, bk=64, **kwargs)  # CPU tensors: the plain version
+    assert got.dtype == _TORCH[dtype] and torch.equal(got, flash_attention_ref(qt, kt, vt, **kwargs))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol)
+    assert not got[..., v_dim:].any()  # zero value columns give zero output columns
+
+
 @pytest.mark.parametrize("B,S,D,bs,bd", RGLRU_CASES)
 def test_plain_rglru_scan_matches_reference_kernel(B, S, D, bs, bd):
     log_a, b, _ = _rglru_inputs(B, S, D)
@@ -342,11 +369,16 @@ def test_serving_shape_takes_the_wgmma_route():
     (64, torch.bfloat16, 0, "wgmma"),
     (128, torch.bfloat16, 0, "wgmma"),
     (256, torch.bfloat16, 0, "wgmma"),
+    (160, torch.bfloat16, 0, "wgmma"),  # stablelm-12b
+    (192, torch.bfloat16, 0, "wgmma"),  # deepseek-v2's MLA scores
     (32, torch.bfloat16, 0, "mma"),
     (16, torch.bfloat16, 0, "mma"),
     (48, torch.bfloat16, 0, "rows"),
+    (96, torch.bfloat16, 0, "rows"),
     (256, torch.float32, 0, "rows"),
+    (160, torch.float32, 0, "rows"),
     (256, torch.bfloat16, 1, "rows"),  # q one element off its allocation's 16-byte alignment
+    (192, torch.bfloat16, 1, "rows"),
 ])
 def test_flash_attention_route_by_operands(D, dtype, offset, route):
     base = torch.zeros(2 * 8 * D + offset, dtype=dtype)

@@ -24,13 +24,16 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
   tile divides, a window no tile divides, softcap, the model's transposed
   views; each launched twice (bit-identical) and counted by route; the
   ``"mma"`` route (bf16 head_dim 32, and head_dim 256 over broadcast K/V
-  with a zero head stride) and the ``"rows"`` route (float32, bf16
-  head_dim 96), each reached through operands that select it;
-* ``flash_attention`` at the decoders' head dims that reach ``"rows"``:
+  with a zero head stride) and the ``"rows"`` route (float32 at head_dim
+  256 and 160, bf16 head_dim 96), each reached through operands that
+  select it;
+* ``flash_attention`` at the decoders' head dims on the ``"wgmma"`` route:
   160 (stablelm-12b, four query heads a KV head) and 192 (deepseek-v2's
   MLA scores, H = Kv, ``v`` zero-padded from 128 to 192 and the output's
   first 128 features kept, as the model calls it), from the model's
-  ``(B, S, H, D)`` views;
+  ``(B, S, H, D)`` views at a length no tile divides, with and without a
+  window and softcap, two launches bit-identical and the padded output
+  columns zero; the same head dims in float32 on ``"rows"``;
 * ``rglru_scan``: ``RGLRU_CASES`` at 1e-5, plus an ``h0`` case and a
   ragged one; S not a multiple of the 64-step chunk and S below it, B·D
   not a multiple of the 128-channel tile, and S = 4096 at a narrow D with
@@ -248,6 +251,7 @@ def test_flash_attention_wgmma_route_at_head_dim_256(card, B, H, Kv, Sq, Sk, kwa
     (256, torch.bfloat16, True, "mma"),  # K/V broadcast over heads: a zero stride TMA cannot walk
     (96, torch.bfloat16, False, "rows"),  # a head_dim neither tensor-core route takes
     (256, torch.float32, False, "rows"),
+    (160, torch.float32, False, "rows"),
 ])
 def test_flash_attention_named_routes_on_card(card, D, dtype, broadcast, route):
     # the routes "wgmma" does not take, each reached through operands that select it
@@ -269,26 +273,56 @@ def test_flash_attention_named_routes_on_card(card, D, dtype, broadcast, route):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("H,Kv,D,v_dim,kwargs", [
+DECODER_HEAD_DIM_CASES = [  # (H, Kv, D, v_dim, kwargs)
     (8, 2, 160, 160, dict(causal=True)),  # stablelm-12b: GQA 4, partial rotary's head_dim
+    (8, 2, 160, 160, dict(causal=True, window=100, softcap=30.0)),
     (4, 4, 192, 128, dict(causal=True, scale=192 ** -0.5)),  # deepseek-v2 MLA: v padded to 192
-])
-def test_flash_attention_rows_route_at_decoder_head_dims(card, H, Kv, D, v_dim, kwargs):
-    rng = np.random.default_rng(D)
+    (4, 4, 192, 192, dict(causal=True, window=70, softcap=20.0)),
+]
+
+
+def _decoder_head_dim_operands(card, dtype, H, Kv, D, v_dim):
+    """q, k, v as the model passes them: transposed views of ``(B, S, H, D)``
+    tensors, S = 300 (no 128-row or 64-key tile divides it), ``v`` zero
+    past ``v_dim``."""
+    rng = np.random.default_rng(D + v_dim)
     B, S = 2, 300
-    q = _randn(rng, (B, S, H, D), 0.3).to(card, torch.bfloat16)
-    k = _randn(rng, (B, S, Kv, D), 0.3).to(card, torch.bfloat16)
-    v = torch.nn.functional.pad(_randn(rng, (B, S, Kv, v_dim)), (0, D - v_dim)).to(card, torch.bfloat16)
-    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
+    q = _randn(rng, (B, S, H, D), 0.3).to(card, dtype)
+    k = _randn(rng, (B, S, Kv, D), 0.3).to(card, dtype)
+    v = torch.nn.functional.pad(_randn(rng, (B, S, Kv, v_dim)), (0, D - v_dim)).to(card, dtype)
+    return tuple(x.transpose(1, 2) for x in (q, k, v))
+
+
+def _run_twice_by_route(q, k, v, kwargs):
     before = dict(flash_attention_cuda.launches_by_route)
     got = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
     again = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
     torch.cuda.synchronize()
-    assert {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()} == {"rows": 2, "mma": 0, "wgmma": 0}
+    return got, again, {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+
+
+@pytest.mark.parametrize("H,Kv,D,v_dim,kwargs", DECODER_HEAD_DIM_CASES)
+def test_flash_attention_wgmma_route_at_decoder_head_dims(card, H, Kv, D, v_dim, kwargs):
+    q, k, v = _decoder_head_dim_operands(card, torch.bfloat16, H, Kv, D, v_dim)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
+    got, again, routes = _run_twice_by_route(q, k, v, kwargs)
+    assert routes == {"rows": 0, "mma": 0, "wgmma": 2}
     assert torch.equal(got, again)
+    assert got.stride() == q.stride()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     assert not got[..., v_dim:].any()  # zero value columns give zero output columns
+
+
+@pytest.mark.parametrize("H,Kv,D,v_dim,kwargs", DECODER_HEAD_DIM_CASES[::2])
+def test_flash_attention_rows_route_at_decoder_head_dims(card, H, Kv, D, v_dim, kwargs):
+    # float32 at the decoders' head dims stays on the catch-all route
+    q, k, v = _decoder_head_dim_operands(card, torch.float32, H, Kv, D, v_dim)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
+    got, again, routes = _run_twice_by_route(q, k, v, kwargs)
+    assert routes == {"rows": 2, "mma": 0, "wgmma": 0}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert not got[..., v_dim:].any()
 
 
 @pytest.mark.parametrize("B,S,D", [

@@ -130,9 +130,9 @@ EDITS = [
     ),
     (
         "        mbar_expect_tx(full, L::TILE);\n"
-        "        for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * PANEL, map, full, 64 * c, k0, kvh, b);\n",
+        "        for (int c = 0; c < L::DP / 64; ++c) tma_load_4d(dst + c * PANEL, map, full, 64 * c, k0, kvh, b);\n",
         "        mbar_expect_tx(full, L::TILE);  // the whole tile lands here, whichever block loaded a panel\n"
-        "        for (int c = rank; c < D / 64; c += CLUSTER) {\n"
+        "        for (int c = rank; c < L::DP / 64; c += CLUSTER) {\n"
         "          if constexpr (CLUSTER > 1) {\n"
         "            tma_load_4d_multicast(dst + c * PANEL, map, full, 64 * c, k0, kvh, b, (1u << CLUSTER) - 1);\n"
         "          } else {\n"
@@ -146,21 +146,21 @@ EDITS = [
         "      if constexpr (CLUSTER > 1) {\n"
         "        // Stay until every consumer of the cluster has released every\n"
         "        // stage: they arrive on this block's barriers to the last tile.\n"
-        "        for (int i = n_tiles; i < n_tiles + STAGES; ++i) {\n"
-        "          const uint32_t free_parity = ((i / STAGES) & 1) ^ 1;\n"
-        "          mbar_wait(k_empty + 8 * (i % STAGES), free_parity);\n"
-        "          mbar_wait(v_empty + 8 * (i % STAGES), free_parity);\n"
+        "        for (int i = n_tiles; i < n_tiles + L::STAGES; ++i) {\n"
+        "          const uint32_t free_parity = ((i / L::STAGES) & 1) ^ 1;\n"
+        "          mbar_wait(k_empty + 8 * (i % L::STAGES), free_parity);\n"
+        "          mbar_wait(v_empty + 8 * (i % L::STAGES), free_parity);\n"
         "        }\n"
         "      }\n",
     ),
     (
-        "      if (lane == 0) mbar_arrive(empty + 8 * (i % STAGES));\n",
+        "      if (lane == 0) mbar_arrive(empty + 8 * (i % L::STAGES));\n",
         "      if (lane == 0) {\n"
         "        if constexpr (CLUSTER > 1) {\n"
         "#pragma unroll\n"
-        "          for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(empty + 8 * (i % STAGES), r);\n"
+        "          for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(empty + 8 * (i % L::STAGES), r);\n"
         "        } else {\n"
-        "          mbar_arrive(empty + 8 * (i % STAGES));\n"
+        "          mbar_arrive(empty + 8 * (i % L::STAGES));\n"
         "        }\n"
         "      }\n",
     ),
@@ -196,7 +196,7 @@ EDITS = [
     ),
     ("  if (route == 2) {\n", "  if (route == 2 || route == 3) {  // route 3: K/V shared in clusters of two\n"),
 ]
-for _d in (64, 128, 256):
+for _d in (64, 128, 160, 192, 256):
     EDITS.append((
         f"      case {_d}: return launch_wgmma<{_d}>(q, k, v, out, p, B, Kv, s);\n",
         f"      case {_d}: return route == 2 ? launch_wgmma<{_d}, 1>(q, k, v, out, p, B, Kv, s)\n"
