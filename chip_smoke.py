@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds ``src/repro_torch/csrc`` with
-``nvcc`` into ``build/repro_torch/``, then runs nineteen phases, each printing
+``nvcc`` into ``build/repro_torch/``, then runs twenty phases, each printing
 JSON lines and its seconds, and fails (non-zero exit, no result line) at
 the first fault:
 
@@ -322,21 +322,44 @@ the first fault:
                       the trace's resident bytes, the CUDA-event wall at
                       least the trace's ``compute_s``, and the kernels
                       launched as often as the trace called them.
+ 20. ``examples``   — the ten twins in ``examples_torch/``, each through its
+                      ``main(device="cuda")`` (the printed lines go to
+                      ``build/examples/<name>.txt``): (a) each twin's own
+                      claims (quickstart converged within eps, DFPA's 2-D
+                      time below CPM's, one group = flat and torch = numpy
+                      in the hierarchy, the energy budgets met, the warm
+                      fleet session faster than the cold one, Part 1's
+                      pipeline counters the reference's, replica 2
+                      quarantined in obs and serve_trace, 16 tokens per
+                      request, the slowest training group ending with the
+                      fewest units); (b) the flash launches of the two
+                      model twins (the smoke stablelm-12b served, the smoke
+                      granite-20b trained: bf16 at head_dim 16) by route,
+                      some on ``"mma"``, none in the other eight, and the
+                      kernel on each one's first captured flash call held
+                      against its plain version at bf16's 2e-2, timed
+                      beside it, SDPA and its bound; (c) each twin's
+                      seconds and fleet_pipeline's sync and pipelined ms
+                      per epoch.
 
 Then it prints the ``kernels`` summary line (with the launches by route of
 the kernels that have routes, ``matmul_update``'s by phase, ``dfpa``,
 ``grid``, ``hier``, ``obs``, ``straggler`` and ``fleet``, and
 ``flash_attention``'s and ``rglru_scan``'s, ``serve``, ``dispatch``,
-``decoders``, ``train``, ``families`` and ``dryrun``; flash's row also carries
+``decoders``, ``train``, ``families``, ``dryrun`` and (flash only)
+``examples``; flash's row also carries
 ``decoders_timing``), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last, ``{"ok": true, "device": ...}``.
-It imports only ``repro_torch``, ``torch`` and ``numpy`` and reads the golden
+It imports only ``repro_torch``, ``torch``, ``numpy`` and, by path, the
+twins in ``examples_torch/`` (which import the same), and reads the golden
 trace as data.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib.util
 import json
 import pathlib
 import platform
@@ -604,6 +627,17 @@ DRYRUN_SHAPE = "decode_32k"
 DRYRUN_REAL = [("seamless-m4t-medium", "train_4k"), ("seamless-m4t-medium", "prefill_32k"),
                ("recurrentgemma-2b", "decode_32k")]
 DRYRUN_MEM_TOL = 0.10
+# the ``examples`` phase: the ten twins in ``examples_torch/``, the two that
+# run a model (flash at head_dim 16, the ``"mma"`` route) among them
+EXAMPLES = ["quickstart", "matmul_2d_dfpa", "hierarchy_walkthrough", "energy_pareto_walkthrough",
+            "fleet_serve", "fleet_pipeline_walkthrough", "obs_walkthrough", "serve_trace_walkthrough",
+            "elastic_serve", "hetero_train"]
+EXAMPLE_MODELS = ("elastic_serve", "hetero_train")
+# beside each twin's own claims: what the reference's script prints for these
+# deterministic counters (Part 1's stale reads, misses and pre-dispatches; the
+# obs session's device programs, as the reference's jax fleet counts them)
+EXAMPLE_COUNTERS = {"fleet_pipeline_walkthrough": {"stale_reads": 10, "speculative_misses": 4, "predispatches": 16},
+                    "obs_walkthrough": {"device_dispatches": 8}}
 
 
 def emit(obj) -> None:
@@ -3940,6 +3974,98 @@ def phase_dryrun() -> dict:
     return launches
 
 
+def _load_example(name: str):
+    """``examples_torch/<name>.py`` as a module, loaded by path (the
+    directory is no package); its ``main`` is not run."""
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_flash(q, k, v, kw, what: str) -> dict:
+    """The kernel on one flash call captured from a model twin: against its
+    plain version at the ``kernels`` phase's bf16 tolerance, on the
+    ``"mma"`` route, timed beside the plain version and, where it computes
+    the same function, ``scaled_dot_product_attention``, with its bound."""
+    kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale", "bq", "bk")}
+    plain_kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
+    B, H, S, D = q.shape
+    Kv, Sk = k.shape[1], k.shape[2]
+    before = dict(flash_attention_cuda.launches_by_route)
+    got = flash_attention(q, k, v, impl="cuda", **kw)
+    routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    if routes != {r: int(r == "mma") for r in routes}:
+        raise SystemExit(f"chip_smoke: flash_attention {what} went {routes}, not 'mma'")
+    tol = FLASH_TOL[q.dtype]
+    ok, err = _close(got, flash_attention_ref(q, k, v, **plain_kw), tol)
+    if not ok:
+        raise SystemExit(f"chip_smoke: flash_attention {what} disagrees with its plain version: {err}")
+    ms = _routes_timed(flash_attention_cuda, "mma", lambda: flash_attention_cuda(q, k, v, **kw), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **plain_kw), 10)
+    library_ms = None
+    if not kw["softcap"] and not kw["window"] and (S == Sk or not kw["causal"]):
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=kw["causal"], scale=kw["scale"], enable_gqa=True),
+                             20)  # yardstick only
+    bound_ms, bound_by, pairs = _flash_bound(B, H, Kv, S, D, kw["window"], Sk, kw["causal"])
+    return {"shape": [B, H, Kv, S, Sk, D], "dtype": _dtype_name(q.dtype), "causal": kw["causal"],
+            "window": kw["window"], "k_strides": list(k.stride()), "route": "mma", "max_abs_err": err,
+            "tol": f"atol = rtol = {tol}", "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(is_causal, enable_gqa=True)" if library_ms is not None else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "visible_pairs_per_head": pairs}
+
+
+def phase_examples() -> dict:
+    """The ten ``examples_torch`` twins on the card, each through its
+    ``main(device="cuda")`` (stdout to ``build/examples/<name>.txt``):
+    (a) each twin's claims; (b) the flash launches of the two model twins
+    by route, at least one on ``"mma"`` each, and the kernel held against
+    its plain version on each one's first captured flash call; (c) each
+    twin's seconds and ``fleet_pipeline``'s Part 2 ms per epoch.  Returns
+    the twins' flash launches by route."""
+    out_dir = ARTIFACTS / "examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches = dict.fromkeys(flash_attention_cuda.launches_by_route, 0)
+    for name in EXAMPLES:
+        mod = _load_example(name)
+        before = dict(flash_attention_cuda.launches_by_route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Capture(keep=(0,)) as cap, open(out_dir / f"{name}.txt", "w") as f, \
+                contextlib.redirect_stdout(f):
+            got = mod.main(device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+        if not all(got["claims"].values()):
+            raise SystemExit(f"chip_smoke: the {name} twin's claims fail on the card: {got['claims']}")
+        counters = {k: got[k] for k in EXAMPLE_COUNTERS.get(name, {})}
+        if counters != EXAMPLE_COUNTERS.get(name, {}):
+            raise SystemExit(f"chip_smoke: the {name} twin counts {counters} on the card, "
+                             f"the reference's script {EXAMPLE_COUNTERS[name]}")
+        row = {"phase": "examples", "example": name, "seconds": seconds, "claims": got["claims"],
+               "counters": counters, "flash_launches_by_route": routes}
+        if name == "fleet_pipeline_walkthrough":
+            row.update(sync_ms_per_epoch=got["sync_ms"], pipelined_ms_per_epoch=got["pipelined_ms"],
+                       pipelined_speedup=got["sync_ms"] / got["pipelined_ms"])
+        if name in EXAMPLE_MODELS:
+            if not routes["mma"]:
+                raise SystemExit(f"chip_smoke: the {name} twin launched flash {routes}, none on 'mma'")
+            q, k, v, kw = cap.flash_calls[0]
+            row["flash_first_call"] = _example_flash(q, k, v, kw, f"on the {name} twin's first call")
+            del cap, q, k, v
+        elif any(routes.values()):
+            raise SystemExit(f"chip_smoke: the {name} twin launched flash {routes}; it runs no model")
+        for r, n in routes.items():
+            launches[r] += n
+        emit(row)
+        del got, mod
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"flash_attention": launches}
+
+
 def main() -> int:
     seconds = {}
 
@@ -3969,17 +4095,19 @@ def main() -> int:
     train = run("train", phase_train)
     families = run("families", phase_families)
     dryrun_launches = run("dryrun", phase_dryrun)
+    examples = run("examples", phase_examples)
     by_phase = {"dfpa": dfpa_launches, "grid": grid_launches, "hier": hier_launches, "obs": obs_launches,
                 "straggler": straggler_launches, "fleet": fleet_launches}
     by_phase_routes = [dfpa_routes, grid_routes, hier_routes, obs_routes, straggler_routes, fleet_routes]
     serve_by_phase = {k: {"serve": serve["launches"][k], "dispatch": dispatch[k]} for k in SERVE_LAUNCHES}
-    for name, counted in (("decoders", decoders), ("train", train), ("families", families),
-                          ("dryrun", dryrun_launches)):
+    model_phases = {"decoders": decoders, "train": train, "families": families, "dryrun": dryrun_launches}
+    for name, counted in {**model_phases, "examples": examples}.items():
         serve_by_phase["flash_attention"][name] = sum(counted["flash_attention"].values())
+    for name, counted in model_phases.items():  # the twins run no scan
         serve_by_phase["rglru_scan"][name] = counted["rglru_scan"]
     launches = {"matmul_update": sum(by_phase.values()), **{k: sum(v.values()) for k, v in serve_by_phase.items()}}
     flash_routes = {r: v + dispatch["flash_attention_by_route"][r]
-                    + sum(c["flash_attention"][r] for c in (decoders, train, families, dryrun_launches))
+                    + sum(c["flash_attention"][r] for c in (decoders, train, families, dryrun_launches, examples))
                     for r, v in serve["launches_by_route"]["flash_attention"].items()}
     routes = {
         "matmul_update": {r: sum(rs[r] for rs in by_phase_routes) for r in dfpa_routes},

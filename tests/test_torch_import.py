@@ -1,9 +1,9 @@
 """The port stands alone: ``repro_torch`` (every module, the model stack
 and its serving path, xLSTM, the encoder-decoder and the frontend stubs,
 the fleet and the serving dispatch, the mesh code, the dry run and the
-deprecated shims included) and ``chip_smoke.py`` import
-no JAX and nothing of the reference package, and the smoke script refuses
-to run without a CUDA device."""
+deprecated shims included), the example twins in ``examples_torch/`` and
+``chip_smoke.py`` import no JAX and nothing of the reference package, and
+the smoke script refuses to run without a CUDA device."""
 
 import os
 import pathlib
@@ -14,7 +14,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLE_TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + EXAMPLE_TWINS + [ROOT / "chip_smoke.py"]
 _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro(\.| ))", re.M)
 
 
@@ -49,6 +50,25 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.sharding, repro_torch.sharding.rules, repro_torch.sharding.context\n"
         "import repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.core.dfpa\n"
         "from repro_torch.core import dfpa, DFPAResult, Grid2DResult, dfpa_partition_2d, bank_repartition_2d\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", probe], env=_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_example_twins_leave_jax_and_reference_unloaded():
+    """Loading every twin (its module body, not its ``main``) in a fresh
+    process imports no JAX and nothing of the reference."""
+    assert len(EXAMPLE_TWINS) == 10
+    probe = (
+        "import importlib.util, sys\n"
+        f"for path in {[str(p) for p in EXAMPLE_TWINS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
