@@ -31,7 +31,11 @@ the first fault:
                       group count, softcap, GQA), and head_dim 160 and 192
                       cases (the decoders' ``"wgmma"`` head dims), each
                       launched twice (bit-identical) on the route the
-                      wrapper picks;
+                      wrapper picks; at bf16's 2e-2 on ``"wgmma"``, head
+                      dims 16 and 32 (the model twins' captured shapes,
+                      GQA with a window and softcap, ragged lengths) and
+                      K/V broadcast over heads (a zero head stride, passed
+                      as the one-head view) at 16, 32, 64, 128 and 256;
                       ``rglru_scan`` on ``RGLRU_CASES`` at 1e-5 plus
                       ``h0``, ragged, shorter-than-a-chunk and long cases,
                       and the serve shape with decays near 1 (log_a scaled
@@ -47,8 +51,10 @@ the first fault:
                       attention with Sq > Sk must raise ``ValueError``;
                       flash is also timed at stablelm-12b's and
                       deepseek-v2's prefill shapes (head_dim 160 and 192,
-                      2 x 1,024, causal), where a plain version that drops
-                      the first 64-key tile must fail the same check;
+                      2 x 1,024, causal) and at head_dim 16 and 32 where
+                      the card sets the time (B 4, H 32, Kv 8, S 4,096,
+                      causal), where a plain version that drops the first
+                      64-key tile must fail the same check;
   4. ``bank``       — the device bank (float64) against the host numpy bank
                       at p=10^5 (threshold completion) and p=10^4 (greedy),
                       contract: bit-identical allocations and t*;
@@ -99,14 +105,16 @@ the first fault:
                       (i, j) running ``matmul_update`` on its (r*128) x
                       (w*128) x 4096 bf16 block r_ij times (r = [[1, 2, 3,
                       4], [4, 3, 2, 1]]), each evaluation of a speed
-                      function the median of three CUDA-event timings,
+                      function one untimed run of the block and then the
+                      median of three CUDA-event timings enqueued back to
+                      back,
                       balanced by ``partition_grid`` (GRID2D, eps 0.1,
                       M = N = 128 units of 128), whose columns' inner loops
                       run as jobs of one ``FleetScheduler`` per outer round
                       (the fleet rounds are counted from a telemetry sink's
                       ``fleet.round`` spans and printed).  It must converge, launch
                       the kernel exactly as often as the speed functions'
-                      evaluations times their repeats times three, every
+                      evaluations times their repeats times four, every
                       launch on ``"wgmma"``, and the
                       final partition, measured again five times, must have
                       median imbalance <= 2*eps; the CPM partition's
@@ -335,7 +343,7 @@ the first fault:
                       fewest units); (b) the flash launches of the two
                       model twins (the smoke stablelm-12b served, the smoke
                       granite-20b trained: bf16 at head_dim 16) by route,
-                      some on ``"mma"``, none in the other eight, and the
+                      all on ``"wgmma"``, none in the other eight, and the
                       kernel on each one's first captured flash call held
                       against its plain version at bf16's 2e-2, timed
                       beside it, SDPA and its bound; (c) each twin's
@@ -402,8 +410,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_backward,
     flash_attention_cuda,
     flash_attention_route,
+    launch_operands,
 )
 from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS as FLASH_WGMMA_HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention import wgmma_registers as flash_wgmma_registers  # noqa: E402
 from repro_torch.kernels.flash_attention import wgmma_smem_bytes as flash_wgmma_smem_bytes  # noqa: E402
 from repro_torch.kernels.matmul_update import (  # noqa: E402
     matmul_update_cuda,
@@ -507,6 +517,23 @@ FLASH_CASES = [  # (B, H, Kv, Sq, Sk, D, kwargs, blocks)
 # batch and prompt: (arch, B, S); H, Kv and D from the config (MLA's scores
 # at nope + rope)
 FLASH_WIDE_TIMING = [("stablelm-12b", 2, 1024), ("deepseek-v2-236b", 2, 1024)]
+# head_dim 16 and 32 on "wgmma" at bf16 (FLASH_TOL), each launched twice:
+# (B, H, Kv, Sq, Sk, D, kwargs, K/V broadcast over heads, the model's views)
+FLASH_SMALL_CASES = [
+    (2, 4, 2, 16, 16, 16, dict(causal=True), False, True),  # the smoke stablelm-12b served
+    (2, 4, 1, 32, 32, 16, dict(causal=True), False, True),  # the smoke granite-20b trained, MQA
+    (1, 8, 2, 300, 300, 16, dict(causal=True, window=70, softcap=30.0), False, False),
+    (2, 6, 3, 97, 161, 32, dict(causal=True, window=50), False, True),
+    (2, 4, 4, 200, 130, 32, dict(causal=False), False, False),
+    # K/V broadcast over heads (a zero head stride): the one-head view
+    (2, 8, 4, 150, 150, 16, dict(causal=True), True, False),
+    (2, 8, 4, 150, 150, 32, dict(causal=True, window=70), True, False),
+    (2, 8, 4, 150, 150, 64, dict(causal=True), True, False),
+    (1, 10, 2, 150, 150, 128, dict(causal=True, softcap=30.0), True, False),
+    (1, 10, 2, 150, 150, 256, dict(causal=True, window=70), True, False),
+]
+# where the card sets the time at head_dim 16 and 32: (B, H, Kv, S), causal
+FLASH_SMALL_TIMING = (4, 32, 8, 4096)
 RGLRU_CASES = [  # (B, S, D, bs, bd, with_h0)
     (1, 128, 128, 64, 128, False),
     (2, 256, 512, 128, 256, False),
@@ -628,7 +655,7 @@ DRYRUN_REAL = [("seamless-m4t-medium", "train_4k"), ("seamless-m4t-medium", "pre
                ("recurrentgemma-2b", "decode_32k")]
 DRYRUN_MEM_TOL = 0.10
 # the ``examples`` phase: the ten twins in ``examples_torch/``, the two that
-# run a model (flash at head_dim 16, the ``"mma"`` route) among them
+# run a model (flash at head_dim 16, the ``"wgmma"`` route) among them
 EXAMPLES = ["quickstart", "matmul_2d_dfpa", "hierarchy_walkthrough", "energy_pareto_walkthrough",
             "fleet_serve", "fleet_pipeline_walkthrough", "obs_walkthrough", "serve_trace_walkthrough",
             "elastic_serve", "hetero_train"]
@@ -709,6 +736,8 @@ def phase_build() -> None:
     emit({
         "phase": "build", "matmul_update_wgmma_dynamic_smem_bytes": wgmma_smem_bytes(),
         "flash_attention_wgmma_dynamic_smem_bytes": {D: flash_wgmma_smem_bytes(D) for D in FLASH_WGMMA_HEAD_DIMS},
+        # [given by ptxas, needed by the setmaxnreg split]: the library loads only if every pair holds
+        "flash_attention_wgmma_registers": {D: list(flash_wgmma_registers(D)) for D in FLASH_WGMMA_HEAD_DIMS},
         "rglru_scan_chunk_steps": chunk_steps(),
     })
 
@@ -813,8 +842,11 @@ def phase_kernels() -> dict:
     for case in RGLRU_CASES:
         _rglru_parity(*case)
     _rglru_parity(SERVE_BATCH, SERVE_PROMPT, get_config(SERVE_ARCH).d_rnn, None, None, True, decay=RGLRU_NEAR_ONE)
+    for B, H, Kv, Sq, Sk, D, kw, broadcast, views in FLASH_SMALL_CASES:
+        _flash_parity(B, H, Kv, Sq, Sk, D, kw, None, torch.bfloat16, broadcast, views, want_route="wgmma")
     flash_row = _flash_timing()
     flash_row["head_dims_160_192"] = [_flash_wide_timing(*shape) for shape in FLASH_WIDE_TIMING]
+    flash_row["head_dims_16_32"] = [_flash_small_timing(D) for D in (16, 32)]
     rglru_row = _rglru_timing()
     return {"matmul_update": main, "flash_attention": flash_row, "rglru_scan": rglru_row}
 
@@ -924,22 +956,29 @@ def _flash_operands(B, H, Kv, Sq, Sk, D, dtype, seed):
     return rand((B, H, Sq, D), 0.3), rand((B, Kv, Sk, D), 0.3), rand((B, Kv, Sk, D), 1.0)
 
 
-def _flash_parity(B, H, Kv, Sq, Sk, D, kwargs, blocks, dtype) -> float:
+def _flash_parity(B, H, Kv, Sq, Sk, D, kwargs, blocks, dtype, broadcast=False, views=False, want_route=None) -> float:
     """The kernel against its plain version, launched twice on the same
-    inputs (bit-identical results), on the route the wrapper picks."""
-    q, k, v = _flash_operands(B, H, Kv, Sq, Sk, D, dtype, seed=Sq + D)
+    inputs (bit-identical results), on the route the wrapper picks, which
+    must be ``want_route`` when one is given.  ``broadcast`` expands one KV
+    head to ``Kv`` with a zero head stride; ``views`` passes the model's
+    transposed ``(B, S, H, D)`` views."""
+    q, k, v = _flash_operands(B, H, 1 if broadcast else Kv, Sq, Sk, D, dtype, seed=Sq + D)
+    if broadcast:
+        k, v = k.expand(B, Kv, Sk, D), v.expand(B, Kv, Sk, D)
+    if views:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     want = flash_attention_ref(q, k, v, **kwargs)
     before = dict(flash_attention_cuda.launches_by_route)
     got = flash_attention(q, k, v, impl="cuda", bq=blocks, bk=blocks, **kwargs)
     again = flash_attention(q, k, v, impl="cuda", bq=blocks, bk=blocks, **kwargs)
     torch.cuda.synchronize()
     routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
-    ts = (q, k, v, got)
-    route = flash_attention_route(D, dtype, [t.data_ptr() for t in ts], [s for t in ts for s in t.stride()[:3]])
+    route = flash_attention_route(D, dtype, *launch_operands(q, k, v, got)[2:])
     ok, max_err = _close(got, want, FLASH_TOL[dtype])
     emit({
         "phase": "kernels", "kernel": "flash_attention", "case": [B, H, Kv, Sq, Sk, D], "kwargs": kwargs,
-        "blocks": blocks, "dtype": _dtype_name(dtype), "route": route, "launches_by_route": routes,
+        "blocks": blocks, "dtype": _dtype_name(dtype), "kv_broadcast_over_heads": broadcast,
+        "k_strides": list(k.stride()), "route": route, "launches_by_route": routes,
         "max_abs_err": max_err, "tol": f"atol = rtol = {FLASH_TOL[dtype]}", "ok": ok,
         "repeat_bit_identical": torch.equal(got, again),
     })
@@ -947,9 +986,22 @@ def _flash_parity(B, H, Kv, Sq, Sk, D, kwargs, blocks, dtype) -> float:
         raise SystemExit(f"chip_smoke: flash_attention disagrees with its plain version at {(B, H, Kv, Sq, Sk, D, kwargs)}")
     if not torch.equal(got, again):
         raise SystemExit(f"chip_smoke: two flash_attention launches on the same inputs differ at {(B, H, Kv, Sq, Sk, D)}")
-    if routes != {r: 2 * (r == route) for r in routes}:
-        raise SystemExit(f"chip_smoke: flash_attention at {(B, H, Kv, Sq, Sk, D)} launched {routes}, not twice on {route!r}")
+    expected = want_route or route
+    if routes != {r: 2 * (r == expected) for r in routes} or route != expected:
+        raise SystemExit(f"chip_smoke: flash_attention at {(B, H, Kv, Sq, Sk, D)} launched {routes}, not twice on {expected!r}")
     return max_err
+
+
+def _flash_small_timing(D: int) -> dict:
+    """flash_attention at head_dim ``D`` (16 or 32) at FLASH_SMALL_TIMING's
+    shape, causal, the default scale, on the ``"wgmma"`` route, as
+    ``_flash_timing_at``."""
+    B, H, Kv, S = FLASH_SMALL_TIMING
+    kw = dict(causal=True, window=0, softcap=0.0, scale=D ** -0.5)
+    row = _flash_timing_at(B, H, Kv, S, D, kw, "wgmma", f"at head_dim {D} where the card sets the time",
+                           seed=S + D)
+    emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
+    return row
 
 
 def _rglru_operands(B, S, D, with_h0, seed, decay=1.0):
@@ -1673,10 +1725,10 @@ def _grid_repartition(smi: str) -> None:
 
 def _grid_application() -> tuple:
     """(c) partition_grid (GRID2D) balancing matmul_update blocks on the
-    card, each speed-function evaluation the median of ``app.samples``
-    timings.  After the counts are read, the kernel is held against its plain
-    version at the blocks' shapes: the even first round's, and the final
-    partition's largest and smallest."""
+    card, each speed-function evaluation ``app.warmup`` untimed runs and
+    then the median of ``app.samples`` timings.  After the counts are read,
+    the kernel is held against its plain version at the blocks' shapes: the
+    even first round's, and the final partition's largest and smallest."""
     app = MatmulGrid()
     app.run(0, 0, 1, 1)  # first use of the kernel, before the counts
     torch.cuda.synchronize()
@@ -1722,7 +1774,8 @@ def _grid_application() -> tuple:
         "fleet_round_jobs_measured": [e.attrs["measured"] for e in tel.spans("fleet.round")],
         "col_widths": part.col_widths,
         "row_heights": part.row_heights, "wall_s": wall_s,
-        "speed_fn_evaluations": evals, "samples_per_evaluation": app.samples, "speed_fn_s": eval_s,
+        "speed_fn_evaluations": evals, "samples_per_evaluation": app.samples,
+        "untimed_runs_per_evaluation": app.warmup, "speed_fn_s": eval_s,
         "scheduling_s": wall_s - eval_s,
         "launches": launches, "launches_by_route": routes, "expected_launches": expected,
         "c_finite": c_finite, "block_parity_max_abs_err": parity,
@@ -3986,7 +4039,7 @@ def _load_example(name: str):
 def _example_flash(q, k, v, kw, what: str) -> dict:
     """The kernel on one flash call captured from a model twin: against its
     plain version at the ``kernels`` phase's bf16 tolerance, on the
-    ``"mma"`` route, timed beside the plain version and, where it computes
+    ``"wgmma"`` route, timed beside the plain version and, where it computes
     the same function, ``scaled_dot_product_attention``, with its bound."""
     kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale", "bq", "bk")}
     plain_kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
@@ -3995,13 +4048,13 @@ def _example_flash(q, k, v, kw, what: str) -> dict:
     before = dict(flash_attention_cuda.launches_by_route)
     got = flash_attention(q, k, v, impl="cuda", **kw)
     routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
-    if routes != {r: int(r == "mma") for r in routes}:
-        raise SystemExit(f"chip_smoke: flash_attention {what} went {routes}, not 'mma'")
+    if routes != {r: int(r == "wgmma") for r in routes}:
+        raise SystemExit(f"chip_smoke: flash_attention {what} went {routes}, not 'wgmma'")
     tol = FLASH_TOL[q.dtype]
     ok, err = _close(got, flash_attention_ref(q, k, v, **plain_kw), tol)
     if not ok:
         raise SystemExit(f"chip_smoke: flash_attention {what} disagrees with its plain version: {err}")
-    ms = _routes_timed(flash_attention_cuda, "mma", lambda: flash_attention_cuda(q, k, v, **kw), 20)
+    ms = _routes_timed(flash_attention_cuda, "wgmma", lambda: flash_attention_cuda(q, k, v, **kw), 20)
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **plain_kw), 10)
     library_ms = None
     if not kw["softcap"] and not kw["window"] and (S == Sk or not kw["causal"]):
@@ -4010,7 +4063,7 @@ def _example_flash(q, k, v, kw, what: str) -> dict:
                              20)  # yardstick only
     bound_ms, bound_by, pairs = _flash_bound(B, H, Kv, S, D, kw["window"], Sk, kw["causal"])
     return {"shape": [B, H, Kv, S, Sk, D], "dtype": _dtype_name(q.dtype), "causal": kw["causal"],
-            "window": kw["window"], "k_strides": list(k.stride()), "route": "mma", "max_abs_err": err,
+            "window": kw["window"], "k_strides": list(k.stride()), "route": "wgmma", "max_abs_err": err,
             "tol": f"atol = rtol = {tol}", "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention(is_causal, enable_gqa=True)" if library_ms is not None else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "visible_pairs_per_head": pairs}
@@ -4020,7 +4073,7 @@ def phase_examples() -> dict:
     """The ten ``examples_torch`` twins on the card, each through its
     ``main(device="cuda")`` (stdout to ``build/examples/<name>.txt``):
     (a) each twin's claims; (b) the flash launches of the two model twins
-    by route, at least one on ``"mma"`` each, and the kernel held against
+    by route, all on ``"wgmma"``, and the kernel held against
     its plain version on each one's first captured flash call; (c) each
     twin's seconds and ``fleet_pipeline``'s Part 2 ms per epoch.  Returns
     the twins' flash launches by route."""
@@ -4050,8 +4103,8 @@ def phase_examples() -> dict:
             row.update(sync_ms_per_epoch=got["sync_ms"], pipelined_ms_per_epoch=got["pipelined_ms"],
                        pipelined_speedup=got["sync_ms"] / got["pipelined_ms"])
         if name in EXAMPLE_MODELS:
-            if not routes["mma"]:
-                raise SystemExit(f"chip_smoke: the {name} twin launched flash {routes}, none on 'mma'")
+            if not routes["wgmma"] or any(n for r, n in routes.items() if r != "wgmma"):
+                raise SystemExit(f"chip_smoke: the {name} twin launched flash {routes}, not all on 'wgmma'")
             q, k, v, kw = cap.flash_calls[0]
             row["flash_first_call"] = _example_flash(q, k, v, kw, f"on the {name} twin's first call")
             del cap, q, k, v
@@ -4126,8 +4179,8 @@ def main() -> int:
         "shape": row["shape"], "dtype": row["dtype"],
         **({"launches_by_route": routes[name], "kernel_route": row["route"]} if name in routes else {}),
         "launches_by_phase": by_phase if name == "matmul_update" else serve_by_phase[name],
-        **({"decoders_timing": decoder_timing, "head_dims_160_192": row["head_dims_160_192"]}
-           if name == "flash_attention" else {}),
+        **({"decoders_timing": decoder_timing, "head_dims_160_192": row["head_dims_160_192"],
+            "head_dims_16_32": row["head_dims_16_32"]} if name == "flash_attention" else {}),
     } for name, row in timings.items()], "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -21,9 +21,9 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
-__all__ = ["Built", "build", "load", "nvcc_path", "BUILD_DIR", "CSRC"]
+__all__ = ["Built", "build", "load", "nvcc_path", "set_signatures", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
@@ -104,10 +104,27 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, Built]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+def set_signatures(lib: ctypes.CDLL, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """Give every function that ``signatures`` names its ``(argtypes,
+    restype)``; returns ``lib``."""
+    for fn, (argtypes, restype) in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def load(
+    name: str, signatures: Optional[Dict[str, tuple]] = None, check: Optional[Callable[[ctypes.CDLL], None]] = None
+) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use.  At
+    that first load every function that ``signatures`` names gets its
+    ``(argtypes, restype)``, and ``check(lib)`` may refuse the library by
+    raising (it is then loaded and checked anew at the next call); a later
+    call returns the library as it is."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name].path))
+        lib = set_signatures(ctypes.CDLL(str(build([name])[name].path)), signatures or {})
+        if check is not None:
+            check(lib)
         _libs[name] = lib
     return lib

@@ -16,9 +16,9 @@
 // bound by the tensor cores.  MQA makes the ten query heads read one K/V
 // head: K and V are re-read once per query tile and head, from L2.
 //
-// What the design does about it (route "wgmma": bf16, D of 64, 128, 160,
-// 192 or 256, every pointer 16-byte aligned and every stride a positive
-// multiple of 8 elements).  The TPU kernel walks the KV blocks of one
+// What the design does about it (route "wgmma": bf16, D of 16, 32, 64,
+// 128, 160, 192 or 256, every pointer 16-byte aligned and every stride a
+// positive multiple of 8 elements).  The TPU kernel walks the KV blocks of one
 // query block in order on one core, carrying m, l and acc in VMEM scratch;
 // here one block owns 128 query rows of one (b, h) and walks its visible
 // 64-key tiles in order, carrying m, l and the 64 x D accumulator of each
@@ -31,7 +31,10 @@
 //    before V lands and a K slot is refilled while its V is still read.
 //    setmaxnreg gives the consumers 240 registers and the producer 24:
 //    ptxas counts a 288-thread block as 384 and capped the accumulator's
-//    threads at 168 registers, which spilled.
+//    threads at 168 registers, which spilled.  A split needs every
+//    register it hands out to have been given at launch, or the consumers
+//    wait forever: the wrapper refuses a library whose ptxas gave fewer
+//    (flash_attention_wgmma_registers).
 //  * Both products are wgmma: S = Q Kᵀ as m64n64k16 with Q and K K-major
 //    in shared memory; O += P V as m64nDk16 with P from registers (the
 //    accumulator's layout is the A operand's, so P is packed to bf16 in
@@ -49,7 +52,14 @@
 //    three whole panels, Q (48 KB) and three stages (144 KB); D = 160
 //    (stablelm-12b) is stored as 192, TMA zero-filling the last 32 columns
 //    of every tile, while Q Kᵀ stops at column 160 and P V runs n = 160
-//    (wg::Layout).  Blocks run the heaviest query tiles first, the heads
+//    (wg::Layout).  D = 16 and 32 (the smoke models; the reference's MQA
+//    case) are one 64-column panel, TMA zero-filling columns D .. 63,
+//    P V at n = D, two blocks an SM (setmaxnreg 104 / 24 of 80 at
+//    launch): with 4·D = 64 or 128 tensor-core operations a (query, key)
+//    pair against one exponential, the softmax, not the tensor cores,
+//    sets the time, and a second block's warps hide its latency (25 %
+//    faster at B 4, H 32, S 4,096).
+//    Blocks run the heaviest query tiles first, the heads
 //    of one (b, query tile) side by side so they read the same K/V tiles
 //    from L2.  Tiles wholly outside a block's visible key range are never
 //    loaded (the TPU kernel's block skip); ragged Sq and Sk come from TMA's
@@ -68,14 +78,11 @@
 // visited in.  A row that sees no key at all (causal with Sq > Sk) would
 // get 0, but ops.flash_attention refuses that shape before dispatch.
 //
-// Route "mma" (bf16, D of 16, 32, 64, 128 or 256, 16-byte aligned): the
-// first port's kernel, one block of 4 warps over 64 query rows, mma.sync
-// m16n8k16 fed by ldmatrix from padded rows, cp.async K/V tiles, two blocks
-// per SM at D = 256.  Route "rows" (float32, and bf16 that neither tensor
-// core route takes): one warp per query row, each lane holding D/32 of the
-// row's features, walking the visible keys one at a time (float32 stays
-// full fp32, never TF32).  The wrapper picks the route from the operands
-// (flash_attention_route); this entry refuses a route they do not allow.
+// Route "rows" (float32, and bf16 that "wgmma" does not take): one warp
+// per query row, each lane holding D/32 of the row's features, walking the
+// visible keys one at a time (float32 stays full fp32, never TF32).  The
+// wrapper picks the route from the operands (flash_attention_route); this
+// entry refuses a route they do not allow.
 //
 // The kernels launch on the caller's stream, do not synchronise and
 // allocate nothing.  The entry returns the launch's cudaError_t.
@@ -116,229 +123,6 @@ __device__ __forceinline__ float cap_logit(const Problem& p, float s) {
   s *= p.scale;
   if (p.softcap > 0.0f) s = p.softcap * tanhf(s / p.softcap);
   return s;
-}
-
-// ---------------------------------------------------------------- tensor cores
-
-constexpr int BM = 64, BN = 64, MMA_THREADS = 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; zero-fills when !valid (nothing is read).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// D (16x8 fp32) += A (16x16 bf16, row) · B (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
-constexpr int smem_bytes() {
-  return (BM + 2 * BN) * (D + 8) * 2;
-}
-
-// Copy `rows` rows of D bf16 starting at row r0 of a (.., S, D) slab into
-// shared rows of stride D + 8; rows at or past `limit` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int r0, int rows, int limit) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CH; c += MMA_THREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + r * (D + 8) + col, ok ? src + (long long)(r0 + r) * row_stride + col : src, ok);
-  }
-}
-
-// Each warp owns 16 query rows of the block's 64: thread (g = lane/4,
-// t = lane%4) holds rows g and g + 8 of the warp's slab, columns 2t, 2t+1 of
-// every 8-wide tile (the mma accumulator layout).
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
-                       const __nv_bfloat16* __restrict__ V, __nv_bfloat16* __restrict__ O,
-                       Problem p) {
-  constexpr int STR = D + 8;
-  constexpr int DT = D / 8;  // 8-wide output tiles per row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BM * STR;
-  __nv_bfloat16* Vs = Ks + BN * STR;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kvh = h / p.G;
-  const int q0 = blockIdx.x * BM;
-  const int q_off = p.Sk - p.Sq;
-  const __nv_bfloat16* Qb = Q + b * p.q.b + h * p.q.h;
-  const __nv_bfloat16* Kb = K + b * p.k.b + kvh * p.k.h;
-  const __nv_bfloat16* Vb = V + b * p.v.b + kvh * p.v.h;
-
-  int lo, hi;
-  key_range(p, q0 + q_off, min(q0 + BM, p.Sq) - 1 + q_off, lo, hi);
-  const int t_lo = lo / BN, t_hi = (hi >= lo) ? hi / BN : t_lo - 1;
-
-  // Q and the first K tile in one group, the first V tile in the next.
-  load_rows<D>(Qs, Qb, p.q.s, q0, BM, p.Sq);
-  if (t_lo <= t_hi) load_rows<D>(Ks, Kb, p.k.s, t_lo * BN, BN, p.Sk);
-  cp_async_commit();
-  if (t_lo <= t_hi) load_rows<D>(Vs, Vb, p.v.s, t_lo * BN, BN, p.Sk);
-  cp_async_commit();
-
-  const int qpos[2] = {q0 + warp * 16 + g + q_off, q0 + warp * 16 + g + 8 + q_off};
-  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
-
-  for (int tile = t_lo; tile <= t_hi; ++tile) {
-    const int k0 = tile * BN;
-    cp_async_wait<1>();  // Q and this K tile have landed (V may be in flight)
-    __syncthreads();
-
-    // S = Q Kᵀ for this warp's 16 rows x 64 keys: 8 key tiles of 8.
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, Qs + (warp * 16 + (lane & 15)) * STR + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, Ks + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * STR + kk +
-                            (((lane >> 3) & 1) << 3));
-        mma_bf16(s[2 * np], a, bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with Ks: the next K tile may land there
-    if (tile < t_hi) load_rows<D>(Ks, Kb, p.k.s, k0 + BN, BN, p.Sk);
-    cp_async_commit();
-
-    // Scale, softcap, mask; the online softmax update of rows g and g + 8.
-    uint32_t keep = 0;
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, key = k0 + nt * 8 + 2 * t + (e & 1);
-        const float x = cap_logit(p, s[nt][e]);
-        const bool ok = visible(p, qpos[r], key);
-        s[nt][e] = ok ? x : NEG;
-        keep |= (ok ? 1u : 0u) << (nt * 4 + e);
-        mx[r] = fmaxf(mx[r], s[nt][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pe = ((keep >> (nt * 4 + e)) & 1u) ? expf(s[nt][e] - m[r]) : 0.0f;
-        s[nt][e] = pe;
-        l[r] += pe;  // this thread's columns; the quad's partial sums meet at the end
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    cp_async_wait<1>();  // this V tile has landed (the next K may be in flight)
-    __syncthreads();
-    // acc += P V: P from registers (the accumulator layout is the A layout),
-    // V through ldmatrix.trans.
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, Vs + (kc * 16 + (lane & 15)) * STR + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
-        mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with Vs
-    if (tile < t_hi) load_rows<D>(Vs, Vb, p.v.s, k0 + BN, BN, p.Sk);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  // Normalise and store rows g and g + 8.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
-  __nv_bfloat16* Ob = O + b * p.o.b + h * p.o.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= p.Sq) continue;
-    __nv_bfloat16* dst = Ob + (long long)row * p.o.s + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
-          __floats2bfloat162_rn(acc[dt][2 * r] * inv[r], acc[dt][2 * r + 1] * inv[r]);
-    }
-  }
 }
 
 // ----------------------------------------------------------- plain warp rows
@@ -410,20 +194,6 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, const Problem& p, int B,
-               cudaStream_t s) {
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_mma<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Sq + BM - 1) / BM, B * p.H);
-  flash_fwd_bf16_mma<D><<<grid, MMA_THREADS, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int launch_rows(const void* q, const void* k, const void* v, void* o, const Problem& p, int B,
                  cudaStream_t s) {
@@ -435,6 +205,15 @@ int launch_rows(const void* q, const void* k, const void* v, void* o, const Prob
 }
 
 // --------------------------------------- wgmma + TMA, warp-specialised (route "wgmma")
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -514,6 +293,37 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, 
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, fp32, 8 a thread) = A (64 x 16, bf16 in registers, in the
+// accumulator's layout) * B (16 x 16, MN-major in shared memory) + scale_d * D.
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, fp32, 16 a thread) = A (64 x 16, bf16 in registers, in the
+// accumulator's layout) * B (16 x 32, MN-major in shared memory) + scale_d * D.
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 64, fp32, 32 a thread) = A (64 x 16, bf16 in registers, in the
@@ -646,9 +456,13 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&a)[
     wgmma_rs_m64n160k16(o, a, db, 1);
   } else if constexpr (N == 128) {
     wgmma_rs_m64n128k16(o, a, db, 1);
-  } else {
-    static_assert(N == 64, "P V runs n = 64, 128, 160, 192 or 256");
+  } else if constexpr (N == 64) {
     wgmma_rs_m64n64k16(o, a, db, 1);
+  } else if constexpr (N == 32) {
+    wgmma_rs_m64n32k16(o, a, db, 1);
+  } else {
+    static_assert(N == 16, "P V runs n = 16, 32, 64, 128, 160, 192 or 256");
+    wgmma_rs_m64n16k16(o, a, db, 1);
   }
 }
 
@@ -663,6 +477,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 // MLA scores): 3 fill 197 KB, as D = 256's two do, and ran 7 % faster
 // than 2 at MLA's prefill shape (tools/flash_headdim_probe.py).
 constexpr int WIDE_STAGES = 3;
+// Head dims 16 and 32 (the smoke models' D 16; the reference's MQA case at
+// D 32) are one panel, TMA zero-filling columns D .. 63 of every tile: Q Kᵀ
+// runs D/16 k16 steps and P V n = D (m64n16k16, m64n32k16).  A block's 49
+// KB of shared memory (2 stages) would let four share an SM; SMALL_BLOCKS
+// an SM are what the registers allow (setmaxnreg's split shrinks with it).
+// At B 4, H 32, Kv 8, S 4,096 two blocks ran 25 % faster than one
+// (tools/flash_headdim_probe.py --small).
+constexpr int SMALL_BLOCKS = 2;
 
 // Shared memory from a 1024-byte aligned base: Q of both warpgroups, then
 // STAGES x (K tile, V tile), then the mbarriers q_full, k_full[STAGES],
@@ -670,12 +492,18 @@ constexpr int WIDE_STAGES = 3;
 // is stored as DP/64 panels of 64 rows x 128 bytes in TMA's 128-byte
 // swizzle, DP being D rounded up to whole panels: at D = 160 the third
 // panel's columns 160-191 are TMA's zero fill (the tensor maps' inner dim
-// is D), which neither Q Kᵀ nor P V (n = D; n = 192 ran 0-5 % slower)
-// reads.
+// is D), which neither Q Kᵀ nor P V (n = D) reads; at D = 16 and 32 the
+// one panel's columns D .. 63 are.  The consumers' and the producer's
+// registers (setmaxnreg) split what 384 threads get at launch with
+// MIN_BLOCKS blocks an SM; flash_attention_wgmma_registers says whether
+// ptxas gave them enough.
 template <int D>
 struct Layout {
   static constexpr int DP = (D + 63) / 64 * 64;
   static constexpr int STAGES = (D == 160 || D == 192) ? WIDE_STAGES : 2;
+  static constexpr int MIN_BLOCKS = D <= 32 ? SMALL_BLOCKS : 1;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = MIN_BLOCKS == 1 ? 240 : 104;  // 256 x 104 + 128 x 24 <= 384 x 80
   static constexpr int TILE = DP / 64 * PANEL;
   static constexpr int Q = 0;
   static constexpr int KV = 2 * TILE;
@@ -777,7 +605,7 @@ __device__ __forceinline__ void pack_p(const float (&sc)[32], uint32_t (&pa)[4][
 // S = Q K_iᵀ and then P V of tile i - 1 before it runs the softmax of tile
 // i, so its own P V runs while it computes exponentials.
 template <int D, bool CAP>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, Layout<D>::MIN_BLOCKS)
     flash_fwd_wgmma(__nv_bfloat16* __restrict__ O, const __grid_constant__ CUtensorMap tmQ,
                     const __grid_constant__ CUtensorMap tmK, const __grid_constant__ CUtensorMap tmV,
                     Problem p, int BH) {
@@ -815,7 +643,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (threadIdx.x >= 256) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS) : "memory");
     if (threadIdx.x == 256) {
       // Out-of-range rows (past Sq or Sk) are zero-filled and count in full.
       mbar_expect_tx(q_full, 2 * L::TILE);
@@ -840,7 +668,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // -------------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS) : "memory");
     const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int tq = lane % 4;
     const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // and row0 + 8
@@ -990,11 +818,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const Pro
   return static_cast<int>(cudaGetLastError());
 }
 
+// The registers ptxas gave a thread of the "wgmma" kernel at head_dim D
+// (the fewer of its two instantiations), and in *need the fewest its
+// setmaxnreg split holds with.
+template <int D>
+int wgmma_registers(int* need) {
+  using L = wg::Layout<D>;
+  *need = (256 * L::CONSUMER_REGS + 128 * L::PRODUCER_REGS + wg::THREADS - 1) / wg::THREADS;
+  const void* kernels[2] = {(const void*)wg::flash_fwd_wgmma<D, false>, (const void*)wg::flash_fwd_wgmma<D, true>};
+  int regs = 1 << 30;
+  for (const void* kernel : kernels) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    if (a.numRegs < regs) regs = a.numRegs;
+  }
+  return regs;
+}
+
 }  // namespace
 
 // q (B,H,Sq,D), k/v (B,Kv,Sk,D), out like q, each with element strides
 // (b, h, s) and a contiguous last dim, on the current device; dtype 0 =
-// float32, 1 = bfloat16; route 0 = "rows", 1 = "mma", 2 = "wgmma"; stream
+// float32, 1 = bfloat16; route 0 = "rows", 1 = "wgmma"; stream
 // is a cudaStream_t.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                long long qsb, long long qsh, long long qss, long long ksb,
@@ -1013,25 +859,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   const bool aligned = dtype == 1 && (ptrs & 15) == 0 && (strides & 7) == 0;
   const bool positive = qsb > 0 && qsh > 0 && qss > 0 && ksb > 0 && ksh > 0 && kss > 0 && vsb > 0 &&
                         vsh > 0 && vss > 0;
-  if (route == 2) {
+  if (route == 1) {
     if (!aligned || !positive) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
+      case 16: return launch_wgmma<16>(q, k, v, out, p, B, Kv, s);
+      case 32: return launch_wgmma<32>(q, k, v, out, p, B, Kv, s);
       case 64: return launch_wgmma<64>(q, k, v, out, p, B, Kv, s);
       case 128: return launch_wgmma<128>(q, k, v, out, p, B, Kv, s);
       case 160: return launch_wgmma<160>(q, k, v, out, p, B, Kv, s);
       case 192: return launch_wgmma<192>(q, k, v, out, p, B, Kv, s);
       case 256: return launch_wgmma<256>(q, k, v, out, p, B, Kv, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (route == 1) {
-    if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
-    switch (D) {
-      case 16: return launch_mma<16>(q, k, v, out, p, B, s);
-      case 32: return launch_mma<32>(q, k, v, out, p, B, s);
-      case 64: return launch_mma<64>(q, k, v, out, p, B, s);
-      case 128: return launch_mma<128>(q, k, v, out, p, B, s);
-      case 256: return launch_mma<256>(q, k, v, out, p, B, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -1045,11 +882,33 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
 // bytes (0 for another D); ptxas -v does not report it.
 extern "C" int flash_attention_wgmma_smem(int D) {
   switch (D) {
+    case 16: return wg::Layout<16>::BYTES;
+    case 32: return wg::Layout<32>::BYTES;
     case 64: return wg::Layout<64>::BYTES;
     case 128: return wg::Layout<128>::BYTES;
     case 160: return wg::Layout<160>::BYTES;
     case 192: return wg::Layout<192>::BYTES;
     case 256: return wg::Layout<256>::BYTES;
+    default: return 0;
+  }
+}
+
+// The registers a thread of the "wgmma" kernel at head_dim D got from
+// ptxas, and in *need the fewest that its setmaxnreg split holds with: a
+// block is given 384 x that many at launch, and the consumers'
+// setmaxnreg.inc waits until 256 x CONSUMER_REGS of them are free, forever
+// if they never are.  Returns 0 for another D, -cudaError when the runtime
+// cannot say.
+extern "C" int flash_attention_wgmma_registers(int D, int* need) {
+  *need = 0;
+  switch (D) {
+    case 16: return wgmma_registers<16>(need);
+    case 32: return wgmma_registers<32>(need);
+    case 64: return wgmma_registers<64>(need);
+    case 128: return wgmma_registers<128>(need);
+    case 160: return wgmma_registers<160>(need);
+    case 192: return wgmma_registers<192>(need);
+    case 256: return wgmma_registers<256>(need);
     default: return 0;
   }
 }

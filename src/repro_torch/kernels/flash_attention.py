@@ -24,13 +24,16 @@ Blocks: ``bq``/``bk`` keep the reference's rule for callers that pass them
 masks ragged edges, so any length runs (the model's call).
 
 Routes, chosen from the operands by :func:`flash_attention_route` before
-the launch: ``"wgmma"`` (bf16, head_dim 64, 128, 160, 192 or 256, every
-pointer 16-byte aligned and every ``(b, h, s)`` stride a positive multiple
-of 8 elements: TMA loads into an mbarrier ring feeding ``wgmma``, 128
-query rows a block; 160 is stablelm-12b's head_dim, 192 deepseek-v2's MLA
-scores), ``"mma"`` (other aligned bf16 head dims of 16 or 32:
-``mma.sync``, 64 rows a block) and ``"rows"`` (everything else, float32
-among it: one warp per query row).  No route falls back to another at
+the launch: ``"wgmma"`` (bf16, head_dim 16, 32, 64, 128, 160, 192 or 256,
+every pointer 16-byte aligned and every ``(b, h, s)`` stride a positive
+multiple of 8 elements: TMA loads into an mbarrier ring feeding ``wgmma``,
+128 query rows a block; 160 is stablelm-12b's head_dim, 192 deepseek-v2's
+MLA scores, 16 and 32 the smoke models' and the reference's MQA case) and
+``"rows"`` (everything else, float32 among it: one warp per query row).
+K and V broadcast over heads (a zero head stride) are passed as their
+one-head view (:func:`launch_operands`); K/V broadcast over the batch or
+the sequence, or only one of them over heads, keep a zero stride, which
+TMA cannot walk, and take ``"rows"``.  No route falls back to another at
 run time.
 
 ``flash_attention_cuda.launches`` counts the kernel's launches and
@@ -70,14 +73,15 @@ from .. import _build
 
 __all__ = [
     "ROUTES", "WGMMA_HEAD_DIMS", "FlashAttention", "attention_backward", "attention_rows", "check_blocks",
-    "check_causal", "flash_attention_cuda", "flash_attention_route", "visible_pairs", "wgmma_smem_bytes",
+    "check_causal", "check_register_split", "flash_attention_cuda", "flash_attention_route", "launch_operands",
+    "visible_pairs", "wgmma_registers", "wgmma_smem_bytes",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -2.0e38
 BACKWARD_LOGITS = 2**27  # logits a block of query rows may hold in the backward
-ROUTES = ("rows", "mma", "wgmma")  # in the C entry's numbering
-WGMMA_HEAD_DIMS = (64, 128, 160, 192, 256)  # the "wgmma" kernel's instantiations
+ROUTES = ("rows", "wgmma")  # in the C entry's numbering
+WGMMA_HEAD_DIMS = (16, 32, 64, 128, 160, 192, 256)  # the "wgmma" kernel's instantiations
 
 
 def check_blocks(Sq: int, Sk: int, bq: Optional[int] = 256, bk: Optional[int] = 256) -> None:
@@ -115,15 +119,37 @@ def check_operands(q, k, v):
 def flash_attention_route(D: int, dtype, ptrs: Sequence[int], strides: Sequence[int]) -> str:
     """The route for head_dim ``D``, ``dtype``, the pointers of q, k, v and
     the output, and their ``(b, h, s)`` element strides (q's, k's, v's,
-    then the output's): the first of ``"wgmma"``, ``"mma"``, ``"rows"``
-    that they allow.  TMA needs 16-byte aligned addresses and strides, and
-    a positive stride for q, k and v."""
+    then the output's, as :func:`launch_operands` gives them): ``"wgmma"``
+    where they allow it, else ``"rows"``.  TMA needs 16-byte aligned
+    addresses and strides, and a positive stride for q, k and v."""
     aligned = dtype == torch.bfloat16 and all(p % 16 == 0 for p in ptrs) and all(s % 8 == 0 for s in strides)
     if aligned and D in WGMMA_HEAD_DIMS and all(s > 0 for s in strides[:9]):
         return "wgmma"
-    if aligned and D in (16, 32, 64, 128, 256):
-        return "mma"
     return "rows"
+
+
+def launch_operands(q, k, v, out) -> tuple:
+    """What the C entry is given for these operands: ``(k, v, ptrs,
+    strides)``.  K and V whose head stride is 0 (one KV head broadcast
+    over ``Kv``) become their ``[:, :1]`` views, with ``Kv`` then 1: the
+    same function, since every query head reads the same K/V.  ``ptrs``
+    are the data pointers of q, k, v and ``out``; ``strides`` their
+    ``(b, h, s)`` element strides, where a dim of size 1 (never indexed
+    past 0) is given the stride it would have if contiguous over the dims
+    after it.  A zero stride left after that (K/V broadcast over the batch
+    or the sequence, or only one of K and V over heads) is one TMA cannot
+    walk, and :func:`flash_attention_route` sends it to ``"rows"``."""
+    if k.shape[1] > 1 and k.stride(1) == 0 and v.stride(1) == 0:
+        k, v = k[:, :1], v[:, :1]
+    strides = []
+    for t in (q, k, v, out):
+        st = [0, 0, 0]
+        inner = t.stride(3) * t.shape[3]
+        for d in (2, 1, 0):
+            st[d] = t.stride(d) if t.shape[d] > 1 else inner
+            inner = st[d] * t.shape[d]
+        strides += st
+    return k, v, [t.data_ptr() for t in (q, k, v, out)], strides
 
 
 def wgmma_smem_bytes(D: int) -> int:
@@ -132,21 +158,48 @@ def wgmma_smem_bytes(D: int) -> int:
     return _lib().flash_attention_wgmma_smem(D)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention
-    fn.argtypes = (
+_SIGNATURES = {  # the C entries' (argtypes, restype), set once when the library loads
+    "flash_attention": (
         [ctypes.c_void_p] * 4  # q, k, v, out
         + [ctypes.c_longlong] * 12  # (b, h, s) strides of q, k, v, out
         + [ctypes.c_int] * 6  # B, H, Kv, Sq, Sk, D
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int]  # scale, softcap, causal, window
         + [ctypes.c_int, ctypes.c_int]  # dtype, route
-        + [ctypes.c_void_p]  # stream
-    )
-    fn.restype = ctypes.c_int
-    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
-    lib.flash_attention_wgmma_smem.restype = ctypes.c_int
-    return lib
+        + [ctypes.c_void_p],  # stream
+        ctypes.c_int,
+    ),
+    "flash_attention_wgmma_smem": ([ctypes.c_int], ctypes.c_int),
+    "flash_attention_wgmma_registers": ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+}
+
+
+def wgmma_registers(D: int, lib: Optional[ctypes.CDLL] = None) -> tuple:
+    """``(given, needed)`` for the ``"wgmma"`` kernel at head_dim ``D`` in
+    ``lib`` (default the package's): the registers a thread got from
+    ``ptxas`` (the fewer of its softcap and plain instantiations) and the
+    fewest its ``setmaxnreg`` split holds with (the card's machine only)."""
+    need = ctypes.c_int()
+    given = (lib or _lib()).flash_attention_wgmma_registers(D, ctypes.byref(need))
+    if given < 0:
+        raise RuntimeError(f"flash_attention: cudaFuncGetAttributes failed with CUDA error {-given}")
+    return given, need.value
+
+
+def check_register_split(lib: ctypes.CDLL) -> None:
+    """Refuse a library in which a ``"wgmma"`` kernel got fewer registers
+    than its ``setmaxnreg`` split hands out: its consumer warpgroups would
+    wait for them forever, and every launch would hang."""
+    for D in WGMMA_HEAD_DIMS:
+        given, need = wgmma_registers(D, lib)
+        if given < need:
+            raise RuntimeError(
+                f"flash_attention: the \"wgmma\" kernel at head_dim {D} got {given} registers a thread, and its "
+                f"setmaxnreg split needs {need}: refusing the library"
+            )
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("flash_attention", _SIGNATURES, check=check_register_split)
 
 
 def flash_attention_cuda(
@@ -199,10 +252,9 @@ def _flash_attention_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, softcap: float, causal: bool, window: int
 ) -> torch.Tensor:
     B, H, Sq, D = q.shape
-    Kv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)  # q's layout: dense views keep their strides, others become contiguous
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    k, v, ptrs, strides = launch_operands(q, k, v, out)
+    Kv, Sk = k.shape[1], k.shape[2]
     route = flash_attention_route(D, q.dtype, ptrs, strides)
     fn = _lib().flash_attention
     with torch.cuda.device(q.device):

@@ -95,18 +95,19 @@ def _check_operands(c, a, b) -> Tuple[int, int, int]:
     return M, N, K
 
 
+_SIGNATURES = {  # the C entries' (argtypes, restype), set once when the library loads
+    "matmul_update": (
+        [ctypes.c_void_p] * 3  # c, a, b
+        + [ctypes.c_int] * 5  # M, N, K, dtype, route
+        + [ctypes.c_void_p],  # stream
+        ctypes.c_int,
+    ),
+    "matmul_update_wgmma_smem": ([], ctypes.c_int),
+}
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("matmul_update")
-    fn = lib.matmul_update
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    lib.matmul_update_wgmma_smem.argtypes = []
-    lib.matmul_update_wgmma_smem.restype = ctypes.c_int
-    return lib
+    return _build.load("matmul_update", _SIGNATURES)
 
 
 def matmul_update_cuda(c, a, b, *, bm: int = 256, bn: int = 256, bk: int = 512):

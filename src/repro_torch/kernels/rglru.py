@@ -78,20 +78,21 @@ def chunk_steps() -> int:
     return _lib().rglru_scan_chunk_steps()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("rglru_scan")
-    fn = lib.rglru_scan
-    fn.argtypes = (
+_SIGNATURES = {  # the C entries' (argtypes, restype), set once when the library loads
+    "rglru_scan": (
         [ctypes.c_void_p] * 6  # log_a, b, h0, out, flags, state
         + [ctypes.c_longlong] * 2  # flags and state lengths
         + [ctypes.c_int] * 3  # B, S, D
-        + [ctypes.c_void_p]  # stream
-    )
-    fn.restype = ctypes.c_int
-    for name in ("rglru_scan_chunk_steps", "rglru_scan_tile_channels"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+        + [ctypes.c_void_p],  # stream
+        ctypes.c_int,
+    ),
+    "rglru_scan_chunk_steps": ([], ctypes.c_int),
+    "rglru_scan_tile_channels": ([], ctypes.c_int),
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("rglru_scan", _SIGNATURES)
 
 
 def rglru_scan_cuda(

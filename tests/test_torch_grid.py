@@ -327,9 +327,10 @@ class _HostEvent:
     work launched so far (the multiply-adds of every block, ``WORK[0]``),
     and a timing is the work between two events times a seeded jitter, so
     repeated timings of one block differ and their median is not the first
-    of them.  Every timing is kept in ``TIMINGS``."""
+    of them.  Every timing is kept in ``TIMINGS``, every ``synchronize``
+    counted in ``SYNCS``."""
 
-    WORK, TIMINGS, RNG = [0.0], [], np.random.default_rng(0)
+    WORK, TIMINGS, SYNCS, RNG = [0.0], [], [0], np.random.default_rng(0)
 
     def __init__(self, enable_timing=False):
         self.t = None
@@ -338,7 +339,7 @@ class _HostEvent:
         self.t = self.WORK[0]
 
     def synchronize(self):
-        pass
+        self.SYNCS[0] += 1
 
     def elapsed_time(self, end):
         ms = (end.t - self.t) * float(self.RNG.uniform(0.8, 1.25))
@@ -348,11 +349,12 @@ class _HostEvent:
 
 @pytest.mark.parametrize("samples", [1, 3])
 def test_matmul_grid_counts_every_sample(monkeypatch, samples):
-    """Each evaluation of a speed function runs the block ``samples`` times
-    and returns ``r*w`` over the median timing; ``expected`` counts
-    ``repeats * samples`` launches per evaluation, exactly the launches made
-    while ``partition_grid`` balances the grid; ``measure`` times each block
-    once."""
+    """Each evaluation of a speed function runs the block ``warmup`` times
+    untimed and ``samples`` times timed, and returns ``r*w`` over the
+    median timing; ``expected`` counts ``repeats * (warmup + samples)``
+    launches per evaluation, exactly the launches made while
+    ``partition_grid`` balances the grid; ``measure`` times each block once
+    after its untimed runs."""
     import torch
 
     from repro_torch.launch import matmul_grid as mg
@@ -378,7 +380,8 @@ def test_matmul_grid_counts_every_sample(monkeypatch, samples):
     before = len(_HostEvent.TIMINGS)
     speed = grid[1][0](5.0, 3.0)
     timings = _HostEvent.TIMINGS[before:]
-    assert len(timings) == samples and len(launches) == repeats[1][0] * samples
+    assert app.warmup == mg.GRID_WARMUP == 1
+    assert len(timings) == samples and len(launches) == repeats[1][0] * (app.warmup + samples)
     assert speed == 5 * 3 / (float(np.median(timings)) / 1e3)
     app.reset_counts()
     del launches[:], evals[:]
@@ -388,12 +391,59 @@ def test_matmul_grid_counts_every_sample(monkeypatch, samples):
     )
     assert sum(part.col_widths) == 12 and all(sum(r) == 12 for r in part.row_heights)
     assert app.evals == len(evals) > 0
-    assert len(launches) == app.expected == sum(repeats[i][j] * samples for i, j in evals)
+    assert len(launches) == app.expected == sum(repeats[i][j] * (app.warmup + samples) for i, j in evals)
     del launches[:]
     times = app.measure(part)
-    assert len(times) == 6 and len(launches) == sum(map(sum, repeats))
+    assert len(times) == 6 and len(launches) == sum(map(sum, repeats)) * (app.warmup + 1)
     with pytest.raises(ValueError, match="samples"):
         mg.MatmulGrid(samples=0, device="cpu")
+
+
+@pytest.mark.parametrize("warmup,samples", [(0, 1), (1, 3), (2, 3)])
+def test_matmul_grid_warmup_runs_untimed_before_back_to_back_timings(monkeypatch, warmup, samples):
+    """An evaluation enqueues ``warmup`` untimed runs of the block, then its
+    ``samples`` timed runs, and synchronises once, on the last event: no
+    timing covers an untimed run's work, and every timing covers exactly
+    one run of the block ``repeats`` times."""
+    import torch
+
+    from repro_torch.launch import matmul_grid as mg
+
+    order = []
+    plain = mg.matmul_update
+
+    def counted(c, a, b, **blocks):
+        order.append("run")
+        _HostEvent.WORK[0] += 1.0
+        return plain(c, a, b, **blocks)
+
+    class Recorded(_HostEvent):
+        def record(self, stream=None):
+            order.append("event")
+            super().record(stream)
+
+        def synchronize(self):
+            order.append("sync")
+            super().synchronize()
+
+    monkeypatch.setattr(mg, "matmul_update", counted)
+    monkeypatch.setattr(torch.cuda, "Event", Recorded)
+    repeats = [[2, 1]]
+    app = mg.MatmulGrid(repeats=repeats, unit=4, units=8, K=8, blocks=dict(bm=4, bn=4, bk=8),
+                        samples=samples, device="cpu")
+    app.warmup = warmup  # GRID_WARMUP is 1; the count of untimed runs is read at each evaluation
+    before = len(_HostEvent.TIMINGS)
+    app.speed(0, 0)(3.0, 2.0)
+    run_block = ["run"] * repeats[0][0]
+    assert order == run_block * warmup + (["event"] + run_block + ["event"]) * samples + ["sync"]
+    timings = _HostEvent.TIMINGS[before:]
+    assert len(timings) == samples
+    assert all(0.8 * repeats[0][0] <= t <= 1.25 * repeats[0][0] for t in timings)  # one block's work each
+    assert app.evals == 1 and app.expected == repeats[0][0] * (warmup + samples)
+    part = Scheduler(grid=app.grid(), policy=Policy.CPM, backend="numpy", device="cpu").partition_grid(8, 8)
+    del order[:]
+    assert len(app.measure(part)) == 2
+    assert order.count("sync") == 2 and order.count("run") == sum(map(sum, repeats)) * (warmup + 1)
 
 
 def test_matmul_grid_default_device_refuses_without_cuda():

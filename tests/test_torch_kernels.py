@@ -24,10 +24,12 @@ and so does every panel the DFPA loop can give a processor; float32, N or
 K not a multiple of 8 and a misaligned operand go ``"tile"``.
 ``ops.flash_attention`` refuses causal attention with ``Sq > Sk`` (rows
 that see no key) before any dispatch.  The route ``flash_attention`` takes
-is decided the same way: aligned bf16 at head_dim 64, 128, 160, 192 or 256
-goes ``"wgmma"`` — the model's transposed views at the serving shape among
-it — other aligned bf16 head dims of 16 or 32 ``"mma"``, and float32, a
-misaligned operand or another head_dim (48, 96) ``"rows"``.  At the
+is decided the same way: aligned bf16 at head_dim 16, 32, 64, 128, 160,
+192 or 256 goes ``"wgmma"`` — the model's transposed views at the serving
+shape and K/V broadcast over heads (passed as their one-head view, which
+the plain version holds to the broadcast operands) among it — and
+float32, a misaligned operand, another head_dim (48, 96) or K/V broadcast
+over the batch or the sequence ``"rows"``.  At the
 decoders' head dims, stablelm-12b's 160 and deepseek-v2's MLA scores at
 192 (``v`` zero-padded from 128), ``flash_attention_ref`` meets
 ``flash_attention_pallas`` in both dtypes too.  The chunked scan's arithmetic (the carry
@@ -41,6 +43,11 @@ The CUDA kernels are held against the plain versions on the card by
 the machine with the card) and by ``chip_smoke.py``.
 """
 
+import ctypes
+import ctypes.util
+import importlib
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,8 +60,11 @@ from repro.kernels.matmul_update import matmul_update_pallas
 from repro.kernels.rglru import rglru_scan_pallas
 from repro.models.recurrent import _rglru_scan as jax_model_scan
 
+from repro_torch import _build
 from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
-from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_route
+from repro_torch.kernels.flash_attention import (
+    check_register_split, flash_attention_cuda, flash_attention_route, launch_operands,
+)
 from repro_torch.kernels.matmul_update import matmul_update_cuda, matmul_update_route
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
 from repro_torch.kernels.rglru import rglru_scan_cuda
@@ -352,9 +362,11 @@ def test_model_kernels_dispatch_cpu_tensors_to_plain_versions():
 
 
 def _flash_route(q, k, v, out=None):
+    # as the custom op does: K/V broadcast over heads become their one-head
+    # view, then the route is chosen from the pointers and strides
     out = q if out is None else out
-    ts = (q, k, v, out)
-    return flash_attention_route(q.shape[-1], q.dtype, [t.data_ptr() for t in ts], [s for t in ts for s in t.stride()[:3]])
+    _, _, ptrs, strides = launch_operands(q, k, v, out)
+    return flash_attention_route(q.shape[-1], q.dtype, ptrs, strides)
 
 
 def test_serving_shape_takes_the_wgmma_route():
@@ -371,8 +383,8 @@ def test_serving_shape_takes_the_wgmma_route():
     (256, torch.bfloat16, 0, "wgmma"),
     (160, torch.bfloat16, 0, "wgmma"),  # stablelm-12b
     (192, torch.bfloat16, 0, "wgmma"),  # deepseek-v2's MLA scores
-    (32, torch.bfloat16, 0, "mma"),
-    (16, torch.bfloat16, 0, "mma"),
+    (32, torch.bfloat16, 0, "wgmma"),  # the reference's MQA case
+    (16, torch.bfloat16, 0, "wgmma"),  # the smoke models
     (48, torch.bfloat16, 0, "rows"),
     (96, torch.bfloat16, 0, "rows"),
     (256, torch.float32, 0, "rows"),
@@ -390,16 +402,142 @@ def test_flash_attention_route_by_operands(D, dtype, offset, route):
 def test_flash_attention_route_needs_tma_strides():
     q = torch.zeros(1, 2, 8, 256, dtype=torch.bfloat16)
     kv = torch.zeros(1, 1, 8, 256, dtype=torch.bfloat16)
-    broadcast = kv.expand(1, 2, 8, 256)  # a zero head stride: TMA cannot walk it
+    broadcast = kv.expand(1, 2, 8, 256)  # a zero head stride: passed as the one-head view
     assert broadcast.stride(1) == 0
-    assert _flash_route(q, broadcast, broadcast, q) == "mma"
+    assert _flash_route(q, broadcast, broadcast, q) == "wgmma"
     odd = torch.zeros(1, 8, 2, 257, dtype=torch.bfloat16)[..., :256].transpose(1, 2)  # row stride 514: not 16-byte
     assert _flash_route(odd, kv, kv, q) == "rows"
 
 
+@pytest.mark.parametrize("kwargs", [dict(causal=True), dict(causal=True, window=7, softcap=20.0), dict(causal=False)])
+def test_broadcast_kv_heads_view_computes_the_same_attention(kwargs):
+    # K and V broadcast over their heads (a zero head stride) reach the
+    # kernel as their [:, :1] views with Kv = 1: the plain version gives the
+    # same output on both, and the reference's on the broadcast operands
+    rng = np.random.default_rng(5)
+    q = torch.tensor(0.3 * rng.standard_normal((2, 8, 40, 64)), dtype=torch.float32)
+    k1 = torch.tensor(0.3 * rng.standard_normal((2, 1, 40, 64)), dtype=torch.float32)
+    v1 = torch.tensor(rng.standard_normal((2, 1, 40, 64)), dtype=torch.float32)
+    k, v = k1.expand(2, 4, 40, 64), v1.expand(2, 4, 40, 64)
+    assert k.stride(1) == v.stride(1) == 0
+    kv, vv, ptrs, strides = launch_operands(q, k, v, torch.empty_like(q))
+    assert kv.shape == vv.shape == (2, 1, 40, 64) and kv.data_ptr() == k.data_ptr()
+    assert ptrs[1:3] == [k.data_ptr(), v.data_ptr()] and all(s > 0 for s in strides)
+    got = flash_attention(q, kv, vv, impl="ref", bq=None, bk=None, **kwargs)
+    assert torch.equal(got, flash_attention(q, k, v, impl="ref", bq=None, bk=None, **kwargs))
+    want = jref.flash_attention_ref(*(jnp.asarray(t.contiguous().numpy()) for t in (q, k, v)), **kwargs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+def test_broadcast_kv_heads_take_the_wgmma_route(D):
+    q = torch.zeros(1, 8, 16, D, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 16, D, dtype=torch.bfloat16).expand(1, 4, 16, D)
+    assert _flash_route(q, kv, kv, torch.empty_like(q)) == "wgmma"
+
+
+@pytest.mark.parametrize("which", ["batch", "sequence", "k_heads_only", "v_heads_only"])
+def test_flash_attention_route_leaves_other_zero_strides_to_rows(which):
+    # zero strides the one-head view does not remove: K/V broadcast over
+    # the batch or the sequence, or only one of K and V over heads
+    q = torch.zeros(2, 4, 16, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 2, 16, 64, dtype=torch.bfloat16)
+    one_head = kv[:, :1].expand(2, 2, 16, 64)
+    k, v = {
+        "batch": (kv[:1].expand(2, 2, 16, 64),) * 2,
+        "sequence": (kv[:, :, :1].expand(2, 2, 16, 64),) * 2,
+        "k_heads_only": (one_head, kv),
+        "v_heads_only": (kv, one_head),
+    }[which]
+    assert 0 in k.stride()[:3] + v.stride()[:3]
+    _, _, _, strides = launch_operands(q, k, v, torch.empty_like(q))
+    assert 0 in strides
+    assert _flash_route(q, k, v, torch.empty_like(q)) == "rows"
+
+
+def test_launch_operands_give_size_one_dims_a_dense_stride():
+    # a dim of size 1 is never indexed past 0: its stride, whatever the
+    # tensor says (0 for a one-head view of a broadcast), is the dense one
+    q = torch.zeros(1, 4, 1, 32, dtype=torch.bfloat16)  # B 1, one query row
+    kv = torch.zeros(1, 1, 16, 32, dtype=torch.bfloat16).expand(1, 3, 16, 32)[:, :1]
+    assert kv.stride(1) == 0
+    _, _, _, strides = launch_operands(q, kv, kv, torch.empty_like(q))
+    assert strides == [4 * 32, 32, 32] + [16 * 32, 16 * 32, 32] * 2 + [4 * 32, 32, 32]
+
+
+class _RegisterReport:
+    """Stands in for the built library's ``flash_attention_wgmma_registers``:
+    ``given`` registers at head_dim ``D``, and the split's need (78 at two
+    blocks an SM, 168 at one) written through the pointer."""
+
+    def __init__(self, given):
+        self.given = given
+
+    def flash_attention_wgmma_registers(self, D, need):
+        need._obj.value = 78 if D <= 32 else 168
+        return self.given.get(D, 168 if D > 32 else 80)
+
+
+def test_register_split_check_passes_what_ptxas_gives_on_the_card():
+    # ptxas gives the kernel 80 registers at D 16 / 32 (two blocks an SM)
+    # and 168 at the others: every split holds
+    check_register_split(_RegisterReport({}))
+
+
+@pytest.mark.parametrize("D, given, match", [
+    (16, 72, "head_dim 16 got 72 registers a thread, and its setmaxnreg split needs 78"),
+    (32, 64, "head_dim 32 got 64 registers"),
+    (256, 160, "head_dim 256 got 160 registers a thread, and its setmaxnreg split needs 168"),
+    (128, -98, "cudaFuncGetAttributes failed with CUDA error 98"),
+])
+def test_register_split_check_refuses_a_library_that_would_hang(D, given, match):
+    # fewer registers than a split hands out: the consumers' setmaxnreg.inc
+    # would wait forever, so the library is refused before any launch
+    with pytest.raises(RuntimeError, match=match):
+        check_register_split(_RegisterReport({D: given}))
+
+
+def test_flash_library_loads_through_the_register_check(monkeypatch):
+    fa_module = importlib.import_module("repro_torch.kernels.flash_attention")
+    seen = {}
+
+    def load(name, signatures, check=None):
+        seen.update(name=name, entries=set(signatures), check=check)
+        return "library"
+
+    monkeypatch.setattr(_build, "load", load)
+    assert fa_module._lib() == "library"
+    assert seen == {
+        "name": "flash_attention", "check": check_register_split,
+        "entries": {"flash_attention", "flash_attention_wgmma_smem", "flash_attention_wgmma_registers"},
+    }
+
+
+def test_build_load_keeps_only_a_library_its_check_passed(monkeypatch):
+    # a refused library is not kept: the next load checks anew
+    libc = ctypes.util.find_library("c")
+    if libc is None:
+        pytest.fail("no C library to stand in for a built one")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build", lambda names: {n: _build.Built(n, Path(libc), "", 0.0) for n in names})
+    calls = []
+
+    def refuse(lib):
+        calls.append(lib)
+        raise RuntimeError("refused")
+
+    with pytest.raises(RuntimeError, match="refused"):
+        _build.load("stand_in", {"strlen": ([ctypes.c_char_p], ctypes.c_size_t)}, check=refuse)
+    assert "stand_in" not in _build._libs
+    lib = _build.load("stand_in", {"strlen": ([ctypes.c_char_p], ctypes.c_size_t)}, check=calls.append)
+    assert len(calls) == 2 and calls[1] is lib and _build._libs["stand_in"] is lib
+    assert lib.strlen(b"hopper") == 6
+    assert _build.load("stand_in", check=refuse) is lib  # a kept library is not checked again
+
+
 def test_model_kernels_cpu_launch_counts_stay_put_on_every_route():
     before = (dict(flash_attention_cuda.launches_by_route), rglru_scan_cuda.launches)
-    assert set(before[0]) == {"rows", "mma", "wgmma"}
+    assert set(before[0]) == {"rows", "wgmma"}
     assert not hasattr(rglru_scan_cuda, "launches_by_route")  # the scan has one kernel
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.full((1, 2, 8, 64), 0.1, dtype=dtype)
@@ -410,7 +548,7 @@ def test_model_kernels_cpu_launch_counts_stay_put_on_every_route():
     with pytest.raises(TypeError, match="route"):
         rglru_scan_cuda(la, la, route="chunked")
     with pytest.raises(TypeError, match="route"):
-        flash_attention_cuda(q, q, q, route="mma")
+        flash_attention_cuda(q, q, q, route="wgmma")
     assert (flash_attention_cuda.launches_by_route, rglru_scan_cuda.launches) == before
 
 

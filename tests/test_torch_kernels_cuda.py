@@ -22,11 +22,18 @@ Cases and tolerances are the reference's (``tests/test_kernels.py``):
 * ``flash_attention`` on the ``"wgmma"`` route at head_dim 256: ten query
   heads over one KV head, an odd group count, lengths no 128-row or 64-key
   tile divides, a window no tile divides, softcap, the model's transposed
-  views; each launched twice (bit-identical) and counted by route; the
-  ``"mma"`` route (bf16 head_dim 32, and head_dim 256 over broadcast K/V
-  with a zero head stride) and the ``"rows"`` route (float32 at head_dim
-  256 and 160, bf16 head_dim 96), each reached through operands that
-  select it;
+  views; each launched twice (bit-identical) and counted by route; bf16
+  head_dim 32 and head_dim 256 over broadcast K/V (a zero head stride,
+  passed as the one-head view) on ``"wgmma"``, and the ``"rows"`` route
+  (float32 at head_dim 256 and 160, bf16 head_dim 96), each reached
+  through operands that select it;
+* the ``"wgmma"`` kernel's ``setmaxnreg`` split at every head dim: the
+  registers ptxas gave it are those the split hands out;
+* ``flash_attention`` at head_dim 16 and 32 on the ``"wgmma"`` route: the
+  reference's ``FLASH_CASES`` at each of the two, and the model twins'
+  captured shapes (the smoke stablelm-12b served, the smoke granite-20b
+  trained, MQA), from the model's views, in bfloat16 at 2e-2, two launches
+  bit-identical;
 * ``flash_attention`` at the decoders' head dims on the ``"wgmma"`` route:
   160 (stablelm-12b, four query heads a KV head) and 192 (deepseek-v2's
   MLA scores, H = Kv, ``v`` zero-padded from 128 to 192 and the output's
@@ -65,7 +72,7 @@ import torch
 
 from repro_torch.kernels import flash_attention, matmul_update, rglru_scan
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS, flash_attention_cuda, wgmma_registers
 from repro_torch.kernels.matmul_update import matmul_update_cuda, matmul_update_route
 from repro_torch.kernels.ref import flash_attention_ref, matmul_update_ref, rglru_scan_ref
 from repro_torch.kernels.rglru import chunk_steps, rglru_scan_cuda
@@ -240,21 +247,57 @@ def test_flash_attention_wgmma_route_at_head_dim_256(card, B, H, Kv, Sq, Sk, kwa
     again = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
     torch.cuda.synchronize()
     routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
-    assert routes == {"rows": 0, "mma": 0, "wgmma": 2}
+    assert routes == {"rows": 0, "wgmma": 2}
     assert torch.equal(got, again)
     assert got.stride() == q.stride()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
+# head_dim 16 and 32 on "wgmma": the reference's cases at each, then the
+# model twins' captured shapes (B, H, Kv, Sq, Sk, D, kwargs, blocks)
+SMALL_HEAD_DIM_CASES = [(B, H, Kv, Sq, Sk, D, kw, blocks)
+                        for D in (16, 32) for B, H, Kv, Sq, Sk, _, kw, blocks in FLASH_CASES[:7]] + [
+    (2, 4, 2, 16, 16, 16, dict(causal=True), None),  # the smoke stablelm-12b served
+    (2, 4, 1, 32, 32, 16, dict(causal=True), None),  # the smoke granite-20b trained, MQA
+]
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,D,kwargs,blocks", SMALL_HEAD_DIM_CASES)
+def test_flash_attention_wgmma_route_at_head_dims_16_and_32(card, B, H, Kv, Sq, Sk, D, kwargs, blocks):
+    rng = np.random.default_rng(D)
+    q = _randn(rng, (B, Sq, H, D), 0.3).to(card, torch.bfloat16)
+    k = _randn(rng, (B, Sk, Kv, D), 0.3).to(card, torch.bfloat16)
+    v = _randn(rng, (B, Sk, Kv, D)).to(card, torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))  # the model's views
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
+    before = dict(flash_attention_cuda.launches_by_route)
+    got = flash_attention(q, k, v, bq=blocks, bk=blocks, **kwargs)
+    again = flash_attention(q, k, v, bq=blocks, bk=blocks, **kwargs)
+    torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
+    assert routes == {"rows": 0, "wgmma": 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("D", WGMMA_HEAD_DIMS)
+def test_flash_attention_wgmma_register_split_holds_on_card(card, D):
+    # ptxas gave each "wgmma" kernel the registers its setmaxnreg split
+    # hands out (the library would not have loaded otherwise): 78 of the
+    # 80 that two blocks an SM allow (D 16, 32), all 168 of one
+    given, need = wgmma_registers(D)
+    assert need == (78 if D <= 32 else 168) and given >= need
+
+
 @pytest.mark.parametrize("D,dtype,broadcast,route", [
-    (32, torch.bfloat16, False, "mma"),  # an aligned bf16 head_dim "wgmma" does not take
-    (256, torch.bfloat16, True, "mma"),  # K/V broadcast over heads: a zero stride TMA cannot walk
-    (96, torch.bfloat16, False, "rows"),  # a head_dim neither tensor-core route takes
+    (32, torch.bfloat16, False, "wgmma"),  # the reference's MQA head_dim
+    (256, torch.bfloat16, True, "wgmma"),  # K/V broadcast over heads: passed as the one-head view
+    (96, torch.bfloat16, False, "rows"),  # a head_dim the tensor-core route does not take
     (256, torch.float32, False, "rows"),
     (160, torch.float32, False, "rows"),
 ])
 def test_flash_attention_named_routes_on_card(card, D, dtype, broadcast, route):
-    # the routes "wgmma" does not take, each reached through operands that select it
+    # each route reached through operands that select it
     rng = np.random.default_rng(3)
     q = _randn(rng, (1, 10, 150, D), 0.3).to(card, dtype)
     kv = _randn(rng, (1, 1, 150, D), 0.3).to(card, dtype)
@@ -306,7 +349,7 @@ def test_flash_attention_wgmma_route_at_decoder_head_dims(card, H, Kv, D, v_dim,
     q, k, v = _decoder_head_dim_operands(card, torch.bfloat16, H, Kv, D, v_dim)
     want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
     got, again, routes = _run_twice_by_route(q, k, v, kwargs)
-    assert routes == {"rows": 0, "mma": 0, "wgmma": 2}
+    assert routes == {"rows": 0, "wgmma": 2}
     assert torch.equal(got, again)
     assert got.stride() == q.stride()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
@@ -319,7 +362,7 @@ def test_flash_attention_rows_route_at_decoder_head_dims(card, H, Kv, D, v_dim, 
     q, k, v = _decoder_head_dim_operands(card, torch.float32, H, Kv, D, v_dim)
     want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kwargs)
     got, again, routes = _run_twice_by_route(q, k, v, kwargs)
-    assert routes == {"rows": 2, "mma": 0, "wgmma": 0}
+    assert routes == {"rows": 2, "wgmma": 0}
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
     assert not got[..., v_dim:].any()
@@ -461,7 +504,7 @@ def test_flash_attention_at_the_encdec_and_prefix_operands_on_card(card, B, H, K
     again = flash_attention(q, k, v, bq=None, bk=None, **kwargs)
     torch.cuda.synchronize()
     routes = {r: n - before[r] for r, n in flash_attention_cuda.launches_by_route.items()}
-    assert routes == {"rows": 0, "mma": 0, "wgmma": 2}
+    assert routes == {"rows": 0, "wgmma": 2}
     assert torch.equal(got, again)
     want = flash_attention_ref(q.float(), k.float(), v.float(), **kwargs)
     torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)

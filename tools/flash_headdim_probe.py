@@ -1,23 +1,28 @@
-"""Time flash_attention's "wgmma" route at head_dim 160 and 192 in its design variants on one NVIDIA H100.
+"""Time flash_attention's "wgmma" route at head_dim 160 and 192, or 16 and 32, in its design variants on one NVIDIA H100.
 
-    python3 tools/flash_headdim_probe.py [--passes 3] [--parent DIR] [--wide-only]
+    python3 tools/flash_headdim_probe.py [--passes 3] [--parent DIR] [--wide-only] [--small]
                                          [--out chiprun_out/flash_headdim_probe.jsonl]
 
 Run on a machine with the card, from the root of a checkout.  The kernel
 serves head_dim 160 (stablelm-12b) and 192 (deepseek-v2's MLA scores, ``v``
 zero-padded from 128) with ``wg::WIDE_STAGES`` K/V tiles in flight
-(``csrc/flash_attention.cu``).  Two other settings exist only here: D =
-160's P V at n = 192 over the zero-filled third panel instead of n = 160,
-and the blocks' order with the query tiles of ``head_chunk`` (b, head)
-pairs side by side (heaviest tile first within a chunk) instead of all
-heads of one query tile, so that under MHA (MLA's H = Kv, where no two
-heads share K/V) the blocks in flight share their K/V tiles in L2.  This
-probe compiles this checkout's source once per setting in ``VARIANTS``
-(the lines rewritten, each must match as often as ``_edit`` is told) with
-the package's flags under ``build/flash_headdim_probe/``, all ``nvcc``
-processes at once, and with ``--parent DIR`` also the source of the
-checkout unpacked at ``DIR`` (its route numbering and C interface must be
-this one's).  Then it
+(``csrc/flash_attention.cu``).  Three other settings exist only here, as
+edits of the source's text: P V over the zero-filled rest of the last
+panel (``pv_padded``: n = 192 at D = 160, n = 64 at D = 16 and 32)
+instead of n = D; ``small_stages`` K/V tiles in flight at D = 16 and 32
+instead of 2; and the blocks' order with the query tiles of
+``head_chunk`` (b, head) pairs side by side (heaviest tile first within a
+chunk) instead of all heads of one query tile, so that under MHA (MLA's H
+= Kv, where no two heads share K/V) the blocks in flight share their K/V
+tiles in L2.  This probe compiles this checkout's source once per setting
+in ``VARIANTS`` (the ``wg::`` constants set, the other settings' lines
+rewritten, each as often as expected) with the package's flags under
+``build/flash_headdim_probe/``, all ``nvcc`` processes at once, and with
+``--parent DIR`` also the source of the checkout unpacked at ``DIR``.  A
+parent's ``flash_attention`` entry must take this one's arguments; its
+route numbering is read from its own ``kernels/flash_attention.py``.  Every
+variant's library must pass the package's register check
+(``check_register_split``) before it runs.  Then it
 
 1. holds every variant of this checkout against the plain version at bf16
    tolerance (2e-2) on small cases at D 160 and 192 (GQA, ragged lengths,
@@ -31,6 +36,18 @@ this one's).  Then it
    beside the parent at head_dim 256 (the serve shape and gemma2-2b's
    prefill shape), where nothing should have moved.
 
+``--small`` does the same for head_dim 16 and 32 over ``SMALL_VARIANTS``
+(``wg::SMALL_BLOCKS`` an SM, ``pv_padded``, ``small_stages``): the checks at ``SMALL_CASES``,
+then the timings at ``SMALL_SHAPES`` (the model twins' captured shapes,
+the reference's MQA case and a shape where the card sets the time) beside
+the ``"mma"`` route (``mma.sync``, the first port's kernel, which this
+head dim took until the ``"wgmma"`` kernel took it over) of ``--parent``,
+which must be a checkout that still has that route, the plain version and
+SDPA.  At the captured shapes it also splits one call: the
+wrapper's ``flash_attention_cuda`` (CUDA events around back-to-back
+calls), a bare ctypes launch, and the kernel's device time from
+``torch.profiler``.
+
 Every result is a JSON line on standard output and in ``--out``; the card's
 name and power limit come first.
 """
@@ -38,6 +55,7 @@ name and power limit come first.
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
 import importlib
 import json
@@ -61,19 +79,23 @@ fa = importlib.import_module("repro_torch.kernels.flash_attention")
 OUT_DIR = ROOT / "build" / "flash_headdim_probe"
 WGMMA = fa.ROUTES.index("wgmma")
 
-# name: (WIDE_STAGES, P V over the padded width, head_chunk; 0 keeps the shipped order)
+# name: the wg:: constants a variant sets, and the text edits of variant_source
 VARIANTS = {
-    "stages 2, pv n=D": (2, False, 0),
-    "stages 3, pv n=D": (3, False, 0),
-    "stages 3, pv n=192": (3, True, 0),
-    "stages 3, pv n=D, heads in chunks of 16": (3, False, 16),
+    "stages 2, pv n=D": dict(WIDE_STAGES=2),
+    "stages 3, pv n=D": dict(WIDE_STAGES=3),
+    "stages 3, pv n=192": dict(WIDE_STAGES=3, pv_padded=True),
+    "stages 3, pv n=D, heads in chunks of 16": dict(WIDE_STAGES=3, head_chunk=16),
 }
-_STAGES = "constexpr int WIDE_STAGES = "
-_PADDED_PV = [  # (shipped, variant, occurrences): the accumulator and P V at n = DP
-    ("float o[D / 2];", "float o[L::DP / 2];", 1),
-    ("for (int e = 0; e < D / 2; ++e)", "for (int e = 0; e < L::DP / 2; ++e)", 2),
-    ("issue_pv<D>(", "issue_pv<L::DP>(", 2),
-]
+SMALL_VARIANTS = {
+    "pv n=D, stages 2, 1 block": dict(SMALL_BLOCKS=1),
+    "pv n=64, stages 2, 1 block": dict(SMALL_BLOCKS=1, pv_padded=True),
+    "pv n=D, stages 4, 1 block": dict(SMALL_BLOCKS=1, small_stages=4),
+    "pv n=D, stages 2, 2 blocks": dict(SMALL_BLOCKS=2),
+    "pv n=D, stages 4, 2 blocks": dict(SMALL_BLOCKS=2, small_stages=4),
+}
+_KNOBS = {  # constant: the start of its one line in the source
+    "WIDE_STAGES": "constexpr int WIDE_STAGES = ", "SMALL_BLOCKS": "constexpr int SMALL_BLOCKS = ",
+}
 _ORDER = (
     "  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / BH) * BM;\n"
     "  const int bh = static_cast<int>(blockIdx.x) % BH;\n"
@@ -99,6 +121,25 @@ WIDE_SHAPES = [
     ("stablelm-12b prefill", 2, 32, 8, 1024, 160, 160, dict(causal=True)),
     ("deepseek-v2 MLA prefill", 2, 128, 128, 1024, 192, 128, dict(causal=True, scale=192 ** -0.5)),
 ]
+# head_dim 16 and 32: the model twins' captured inputs, the reference's MQA
+# case (tests/test_kernels.py:94), GQA with a window and softcap, MHA
+# without a mask, ragged lengths
+SMALL_CASES = [
+    (2, 4, 2, 16, 16, 16, dict(causal=True), True),  # the smoke stablelm-12b served
+    (2, 4, 1, 32, 16, 16, dict(causal=True), True),  # the smoke granite-20b trained, MQA
+    (2, 4, 1, 128, 32, 32, dict(causal=True), False),  # the reference's MQA case
+    (1, 8, 2, 300, 16, 16, dict(causal=True, window=70, softcap=30.0), False),
+    (2, 4, 4, 200, 32, 32, dict(causal=False), True),
+    (1, 6, 3, 97, 32, 32, dict(causal=True, window=50), False),
+]
+SMALL_SHAPES = [  # (what, B, H, Kv, S, D, v_dim, kwargs)
+    ("smoke stablelm-12b served", 2, 4, 2, 16, 16, 16, dict(causal=True)),
+    ("smoke granite-20b trained, MQA", 2, 4, 1, 32, 16, 16, dict(causal=True)),
+    ("the reference's MQA case", 2, 4, 1, 128, 32, 32, dict(causal=True)),
+    ("card-bound, D 16", 4, 32, 8, 4096, 16, 16, dict(causal=True)),
+    ("card-bound, D 32", 4, 32, 8, 4096, 32, 32, dict(causal=True)),
+]
+CAPTURED = 2  # the first SMALL_SHAPES, where one call is split into host and card
 HEAD256_SHAPES = [
     ("serve shape", 4, 10, 1, 4096, 256, 256, dict(causal=True, window=2048, scale=0.0625)),
     ("gemma2-2b prefill", 2, 8, 4, 8192, 256, 256, dict(causal=True, window=4096, softcap=50.0, scale=0.0625)),
@@ -121,13 +162,22 @@ def _edit(src: str, old: str, new: str, count: int = 1) -> str:
     return src.replace(old, new)
 
 
-def variant_source(shipped: str, stages: int, padded: bool, head_chunk: int) -> str:
-    lines = [ln for ln in shipped.splitlines(keepends=True) if ln.startswith(_STAGES)]
-    if len(lines) != 1:
-        raise SystemExit(f"flash_headdim_probe: {_STAGES!r} starts {len(lines)} lines, not one")
-    src = shipped.replace(lines[0], f"{_STAGES}{stages};\n")
-    for old, new, count in _PADDED_PV if padded else []:
-        src = _edit(src, old, new, count)
+_STAGES = "static constexpr int STAGES = (D == 160 || D == 192) ? WIDE_STAGES : 2;"
+
+
+def variant_source(shipped: str, head_chunk: int = 0, pv_padded: bool = False, small_stages: int = 0,
+                   **knobs) -> str:
+    src = shipped
+    if pv_padded:  # the accumulator and P V over DP columns; the store still writes D
+        src = _edit(_edit(src, "issue_pv<D>(", "issue_pv<L::DP>(", 2), "D / 2", "L::DP / 2", 3)
+    if small_stages:
+        src = _edit(src, _STAGES, _STAGES.replace(": 2;", f": D <= 32 ? {small_stages} : 2;"))
+    for name, value in knobs.items():
+        start = _KNOBS[name]
+        lines = [ln for ln in src.splitlines(keepends=True) if ln.startswith(start)]
+        if len(lines) != 1:
+            raise SystemExit(f"flash_headdim_probe: {start!r} starts {len(lines)} lines, not one")
+        src = src.replace(lines[0], f"{start}{value};\n")
     return _edit(src, _ORDER, _CHUNKED.format(head_chunk)) if head_chunk else src
 
 
@@ -149,28 +199,37 @@ def build(sources: dict) -> tuple:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"flash_headdim_probe: nvcc failed for {name}:\n{log}")
-        emit({"build": name, "seconds": time.perf_counter() - t0,
-              "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln or "entry function" in ln]})
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "entry function" in ln]
+        emit({"build": name, "seconds": time.perf_counter() - t0, "ptxas": ptxas})
         lib = ctypes.CDLL(str(path))
-        lib.flash_attention.argtypes = package.flash_attention.argtypes
-        lib.flash_attention.restype = ctypes.c_int
-        libs[name] = lib
+        if name == "parent":  # another checkout's library: its launch entry only
+            libs[name] = _build.set_signatures(lib, {"flash_attention": fa._SIGNATURES["flash_attention"]})
+        else:
+            fa.check_register_split(_build.set_signatures(lib, fa._SIGNATURES))
+            libs[name] = lib
     return package, libs
 
 
-def launch(lib, q, k, v, causal=True, window=0, softcap=0.0, scale=None):
+def routes_of(root: pathlib.Path) -> tuple:
+    """The ``ROUTES`` tuple of the checkout at ``root`` (the C entry's
+    numbering), read from its source."""
+    src = (root / "src/repro_torch/kernels/flash_attention.py").read_text()
+    line = next(ln for ln in src.splitlines() if ln.startswith("ROUTES = "))
+    return ast.literal_eval(line.split("=", 1)[1].split("#")[0].strip())
+
+
+def launch(lib, q, k, v, causal=True, window=0, softcap=0.0, scale=None, route=WGMMA):
     B, H, Sq, D = q.shape
     Kv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides, B, H, Kv, Sq, Sk, D,
-        float(D ** -0.5 if scale is None else scale), float(softcap), int(causal), int(window), 1, WGMMA,
+        float(D ** -0.5 if scale is None else scale), float(softcap), int(causal), int(window), 1, route,
         torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
-        raise SystemExit(f"flash_headdim_probe: the wgmma route refused the launch (cudaError {err})")
+        raise SystemExit(f"flash_headdim_probe: route {route} refused the launch (cudaError {err})")
     return out
 
 
@@ -185,13 +244,15 @@ def operands(B, H, Kv, S, D, v_dim, views, seed):
     return (q, k, v) if views else tuple(x.contiguous() for x in (q, k, v))
 
 
-def check(libs: dict) -> None:
-    for B, H, Kv, S, D, v_dim, kw, views in CASES:
+def check(libs: dict, cases=CASES, routes=None) -> None:
+    routes = routes or {}
+    for B, H, Kv, S, D, v_dim, kw, views in cases:
         q, k, v = operands(B, H, Kv, S, D, v_dim, views, seed=S + D)
         want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
         row = {"case": [B, H, Kv, S, D, v_dim, kw, views]}
         for name, lib in libs.items():
-            got, again = launch(lib, q, k, v, **kw), launch(lib, q, k, v, **kw)
+            r = routes.get(name, WGMMA)
+            got, again = launch(lib, q, k, v, route=r, **kw), launch(lib, q, k, v, route=r, **kw)
             torch.cuda.synchronize()
             ok, err = cs._close(got, want, 2e-2)
             same = torch.equal(got, again)
@@ -203,8 +264,11 @@ def check(libs: dict) -> None:
         emit(row)
 
 
-def time_shapes(shapes, libs: dict, passes: int, yardsticks: bool) -> None:
+def time_shapes(shapes, libs: dict, passes: int, yardsticks: bool, routes=None) -> None:
+    """``libs`` by name, each launched on ``routes[name]`` (default the
+    ``"wgmma"`` route of this checkout's numbering)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    routes = routes or {}
     for what, B, H, Kv, S, D, v_dim, kw in shapes:
         q, k, v = operands(B, H, Kv, S, D, v_dim, True, seed=S + D + 1)
         names = list(libs)
@@ -212,7 +276,8 @@ def time_shapes(shapes, libs: dict, passes: int, yardsticks: bool) -> None:
         plain, library = [], []
         for _ in range(passes):
             for n in names + names[::-1]:
-                times[n].append(cs.cuda_ms(lambda: launch(libs[n], q, k, v, **kw), 10))
+                r = routes.get(n, WGMMA)
+                times[n].append(cs.cuda_ms(lambda: launch(libs[n], q, k, v, route=r, **kw), 10))
             if yardsticks:
                 plain.append(cs.cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 3))
                 library.append(cs.cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=kw.get("scale"),
@@ -227,12 +292,64 @@ def time_shapes(shapes, libs: dict, passes: int, yardsticks: bool) -> None:
         emit(row)
 
 
+def split_call(shapes) -> None:
+    """One call at each shape three ways: ``flash_attention_cuda`` (the
+    wrapper: the custom op, the route, the ctypes call), a bare ctypes
+    launch of the package's library, each the median of 20 CUDA-event
+    timings of 10 back-to-back calls; and the kernel's device time, the
+    sum of the ``flash_fwd`` kernels' CUDA time over 50 bare launches in
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    package = fa._lib()
+    for what, B, H, Kv, S, D, v_dim, kw in shapes:
+        q, k, v = operands(B, H, Kv, S, D, v_dim, True, seed=S + D + 1)
+
+        def wrapper():
+            for _ in range(10):
+                fa.flash_attention_cuda(q, k, v, bq=None, bk=None, **kw)
+
+        def bare():
+            for _ in range(10):
+                launch(package, q, k, v, **kw)
+
+        wrapper_ms, bare_ms = cs.cuda_ms(wrapper, 20) / 10, cs.cuda_ms(bare, 20) / 10
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                launch(package, q, k, v, **kw)
+            torch.cuda.synchronize()
+        kernel_us = sum(e.device_time_total for e in prof.key_averages() if "flash_fwd" in e.key)
+        emit({"split": what, "B_H_Kv_S_D": [B, H, Kv, S, D], "wrapper_ms": wrapper_ms, "bare_launch_ms": bare_ms,
+              "kernel_device_ms": kernel_us / 50 / 1e3 if kernel_us else None,
+              "profiled_kernels": [e.key for e in prof.key_averages() if "flash_fwd" in e.key]})
+
+
+def small(args, shipped: str) -> None:
+    """``--small``: head_dim 16 and 32, the variants against each other
+    and the ``"mma"`` route."""
+    sources = {name: variant_source(shipped, **knobs) for name, knobs in SMALL_VARIANTS.items()}
+    if not args.parent:
+        raise SystemExit('flash_headdim_probe: --small needs --parent DIR, a checkout with the "mma" route')
+    sources["parent"] = (pathlib.Path(args.parent) / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    mma_route = routes_of(pathlib.Path(args.parent)).index("mma")
+    t0 = time.perf_counter()
+    _, built = build(sources)
+    mma = built.pop("parent")
+    emit({"built_seconds": time.perf_counter() - t0})
+    check(built, SMALL_CASES)
+    check({"mma": mma}, SMALL_CASES, routes={"mma": mma_route})
+    time_shapes(SMALL_SHAPES, {"mma": mma, **built}, args.passes, yardsticks=True, routes={"mma": mma_route})
+    split_call(SMALL_SHAPES[:CAPTURED])
+
+
 def main() -> None:
     global _sink
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--passes", type=int, default=3)
-    ap.add_argument("--parent", default="", help="a checkout root whose flash kernel is timed at head_dim 256")
+    ap.add_argument("--parent", default="", help="a checkout root whose flash kernel is timed at head_dim 256 "
+                    "(with --small: whose \"mma\" route is timed)")
     ap.add_argument("--wide-only", action="store_true", help="time head_dim 160 and 192 only")
+    ap.add_argument("--small", action="store_true", help="head_dim 16 and 32 against the \"mma\" route instead")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "flash_headdim_probe.jsonl"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -241,7 +358,11 @@ def main() -> None:
     _sink = open(args.out, "w")
     emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": cs.nvidia_smi()})
     shipped = (_build.CSRC / "flash_attention.cu").read_text()
-    sources = {name: variant_source(shipped, *knobs) for name, knobs in VARIANTS.items()}
+    if args.small:
+        small(args, shipped)
+        _sink.close()
+        return
+    sources = {name: variant_source(shipped, **knobs) for name, knobs in VARIANTS.items()}
     if args.parent:
         sources["parent"] = (pathlib.Path(args.parent) / "src/repro_torch/csrc/flash_attention.cu").read_text()
     t0 = time.perf_counter()
@@ -251,8 +372,9 @@ def main() -> None:
     check(built)
     time_shapes(WIDE_SHAPES, {"package": package, **built}, args.passes, yardsticks=True)
     if not args.wide_only:
+        routes = {"parent": routes_of(pathlib.Path(args.parent)).index("wgmma")} if parent else {}
         time_shapes(HEAD256_SHAPES, {"package": package, **({"parent": parent} if parent else {})}, args.passes,
-                    yardsticks=False)
+                    yardsticks=False, routes=routes)
     _sink.close()
 
 
