@@ -32,6 +32,12 @@ import torch
 
 from .modelbank_torch import resolve_device
 
+try:  # telemetry is optional: the executors run identically without obs/
+    from ..obs.telemetry import active as _obs_active
+except ImportError:  # pragma: no cover - obs layer absent
+    def _obs_active():
+        return None
+
 __all__ = [
     "Executor",
     "FleetExecutor",
@@ -405,6 +411,11 @@ class CallableExecutor:
     warm-up: first-use set-up such as building a kernel is not round time).
     On a single host the "parallel" round runs sequentially and is costed as
     ``max(times)`` — the quantity the paper's parallel rounds expose.
+
+    With a telemetry sink (``repro_torch.obs``, or ``torch.profiler``
+    recording) each timed run records an ``executor.proc`` span on the
+    host, from before the start event to after the end event's
+    synchronization, with the seconds read as ``device_s``.
     """
 
     fns: Sequence[Callable[[int], None]]
@@ -420,18 +431,27 @@ class CallableExecutor:
         return len(self.fns)
 
     def _timed(self, i: int, di: int) -> float:
+        tel = _obs_active()
+        rec = tel is not None and tel.enabled
+        if rec:
+            t_span = tel.clock()
         if self.device.type != "cuda":
             t0 = _time.perf_counter()
             self.fns[i](di)
-            return _time.perf_counter() - t0
-        stream = torch.cuda.current_stream(self.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        self.fns[i](di)
-        end.record(stream)
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
+            seconds = _time.perf_counter() - t0
+        else:
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self.fns[i](di)
+            end.record(stream)
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        if rec:
+            tel.span_at("executor.proc", t_span, tel.clock(),
+                        proc=i, units=di, round=len(self.logs), device_s=seconds)
+        return seconds
 
     def run(self, d: Sequence[int]) -> List[float]:
         d = [int(v) for v in d]

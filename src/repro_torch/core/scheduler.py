@@ -46,9 +46,11 @@ backend each inner round is one stacked ``[q, p, k]`` partition and one
 stacked fold-in, with results bit-identical to sequential child
 ``autotune`` loops.
 
-With a ``repro_torch.obs`` sink installed the session records the
-reference's telemetry: ``scheduler.partition`` and ``scheduler.autotune``
-spans, ``scheduler.observe`` counters and ``scheduler.reprofile`` events.
+With a ``repro_torch.obs`` sink installed (or ``torch.profiler``
+recording) the session records the reference's telemetry:
+``scheduler.partition`` and ``scheduler.autotune`` spans,
+``scheduler.observe`` counters and ``scheduler.reprofile`` events; and the
+port's own ``scheduler.observe`` span and ``scheduler.repartition`` counter.
 ``autotune`` and ``observe`` repartition through the store, so their rounds
 record ``speedstore.partition`` spans (or ``hier.*`` spans under
 ``groups=``), not ``scheduler.partition``.
@@ -450,7 +452,21 @@ class Scheduler:
     def observe(self, times: Sequence[float]) -> bool:
         """Fold one round's per-group times in; returns True if the
         distribution changed (callers must re-split the next round's units).
-        EMA smoothing (``smooth``) de-noises wall-clock measurements."""
+        EMA smoothing (``smooth``) de-noises wall-clock measurements.
+
+        Records a ``scheduler.observe`` span around the whole call and a
+        ``scheduler.repartition`` counter when the distribution changed."""
+        tel = _obs_active()
+        if tel is None or not tel.enabled:
+            return self._observe(times)
+        t0 = tel.clock()
+        changed = self._observe(times)
+        if changed:
+            tel.counter("scheduler.repartition")
+        tel.span_at("scheduler.observe", t0, tel.clock(), repartitioned=changed)
+        return changed
+
+    def _observe(self, times: Sequence[float]) -> bool:
         if len(times) != self.num_groups:
             raise ValueError("times length != num_groups")
         if self.n_units is None:

@@ -8,8 +8,9 @@ The paper's central empirical claim is an observability claim: the cost of
 distributing the computation (partial FPM estimation + repartitioning) is
 orders of magnitude below the execution it optimizes.  This package lets
 you *watch* that claim on a live session.  It is the reference package's
-``obs`` copied as it is: its modules import only the standard library and
-each other, and record the reference's names at the reference's sites.
+``obs`` with the port's clock, profiler rule and sites added: its modules
+import only the standard library and each other (never torch), and record
+the reference's names at the reference's sites.
 
 Everything is off by default — the process-global sink is a no-op and every
 instrumentation site in the stack guards itself with a cheap ``enabled``
@@ -27,11 +28,30 @@ the card.  Turn it on by installing a sink::
     with obs.use(obs.Telemetry()) as tel:
         sched.autotune(executor, n, eps)
 
+or by profiling: with no sink installed, every site records into the
+process-global ``obs.profiled()`` sink while a ``torch.profiler`` session
+records (torch's own flag, looked up in ``sys.modules``), and into nothing
+otherwise.  No environment variable or argument turns it on; the profiled
+sink keeps every session's events until ``obs.profiled().clear()``::
+
+    with torch.profiler.profile(activities=[...]):
+        ...  # serve, iterate
+    spans = obs.profiled().spans("engine.generate")
+
 What gets recorded (the port's instrumented layers):
 
 * ``Scheduler`` — ``scheduler.partition`` / ``scheduler.autotune`` spans
   (iterations, convergence), ``scheduler.observe`` counters,
-  ``scheduler.reprofile`` events;
+  ``scheduler.reprofile`` events; the port's own: a ``scheduler.observe``
+  span around each ``observe`` (attribute ``repartitioned``) and a
+  ``scheduler.repartition`` counter when it changed the distribution;
+* ``CallableExecutor`` (the port's own) — an ``executor.proc`` span a timed
+  processor run, from before its start event is recorded to after its end
+  event is synchronized (attributes ``proc``, ``units``, ``round`` and
+  ``device_s``, the CUDA-event seconds the executor reads anyway);
+* ``ServeEngine`` (the port's own) — an ``engine.generate`` span a call:
+  the host time of making the cache and enqueuing prefill and decode
+  (attributes ``batch``, ``prompt_tokens`` a sequence, ``new_tokens``);
 * ``SpeedStore`` — ``speedstore.fold_in`` counters, the
   ``speedstore.fold_generation`` gauge, ``speedstore.partition`` spans; the
   host backends (``numpy``, ``scalar``) also gauge
@@ -46,13 +66,17 @@ What gets recorded (the port's instrumented layers):
   counters and gauges and ``registry.*`` warnings, as in the reference;
 * ``ReplicaDispatcher`` — ``serve.replica_busy`` spans on ``replica:{i}``
   tracks of the simulated serving timeline, and the
-  ``serve.split.{serve_host_s,sched_host_s,sched_over_serve}`` gauges of
-  each ``balance_fleet``.
+  ``serve.split.{serve_host_s,sched_host_s}`` gauges of each
+  ``balance_fleet`` (the reference's third, their ratio, is left out).
 
-Spans read the host clock.  A ``speedstore.partition`` span on the torch
-backend covers the device work, since the partition returns host lists;
-``fold_in`` may return before the card has finished, and records only its
-counter and gauge.
+Spans are host intervals on the clock of ``torch.profiler``'s trace
+(Unix-epoch seconds, ``time.time``), so they lie against the card's
+timeline; no site records, synchronizes or reads the device for telemetry,
+and none emits a ``record_function``, NVTX or other profiler event (the
+trace would count it as device work).  A ``speedstore.partition`` span on
+the torch backend covers the device work, since the partition returns host
+lists; ``fold_in`` may return before the card has finished, and records
+only its counter and gauge.
 
 Artifacts:
 
@@ -76,6 +100,7 @@ from .telemetry import (
     Telemetry,
     active,
     install,
+    profiled,
     uninstall,
     use,
 )
@@ -97,6 +122,7 @@ __all__ = [
     "NoopTelemetry",
     "NOOP",
     "active",
+    "profiled",
     "install",
     "uninstall",
     "use",

@@ -22,7 +22,11 @@ ignore but ``python -m repro_torch.obs.report`` reads back; the block keeps
 the reference package's key, so either package's report reads either
 package's trace.  Timestamps are whatever clock the
 :class:`~repro_torch.obs.telemetry.Telemetry` was built with, scaled to
-microseconds.
+microseconds: with the default clock, Unix-epoch microseconds, the clock of
+``torch.profiler``'s events.  A trace that ``torch.profiler`` exports
+stores its ``ts`` relative to its ``baseTimeNanoseconds``; subtract
+``baseTimeNanoseconds / 1000`` from each ``ts`` here and these events can be
+appended to that file's ``traceEvents``, laid on the card's timeline.
 """
 
 from __future__ import annotations

@@ -25,12 +25,33 @@ Design constraints (they shape every API choice here):
   ``try`` so the whole ``repro_torch.obs`` package can be absent (or stubbed by a
   test) without changing scheduler behaviour.
 
-* **Injectable clock.**  ``Telemetry(clock=...)`` makes traces deterministic
-  in tests and lets harnesses record on a simulated time axis.
+* **The device trace's clock.**  The default clock is ``time.time``:
+  Unix-epoch seconds, the base on which ``torch.profiler`` (kineto) stamps
+  its CPU and CUDA events (``start_ns()`` is Unix-epoch nanoseconds).  A
+  span's ``t0`` / ``t1`` times 1e9 lie on the profiler's timeline, so a gap
+  on the card can be put down to what the program's host was doing; float
+  seconds near 1.8e9 resolve to about 0.4 µs.  ``Telemetry(clock=...)``
+  still wins: it makes traces deterministic in tests and lets harnesses
+  record on a simulated time axis.
+
+* **Recorded while the profiler records.**  With no sink installed,
+  ``active()`` returns the process-global :func:`profiled` sink while a
+  ``torch.profiler`` session records, and the no-op otherwise; an installed
+  sink always wins.  The flag is torch's own
+  (``torch.autograd.profiler._is_profiler_enabled``), looked up in
+  ``sys.modules`` so that this package never imports torch.  The profiled
+  sink accumulates across profiler sessions until its ``clear()``.
+
+* **No profiler events.**  A span is never emitted as a
+  ``record_function``, NVTX range or any other profiler event: kineto puts
+  user annotations on the CUDA timeline too, where a reader of the trace
+  would count them as device work.  Spans reach the trace's clock through
+  their timestamps only.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
@@ -41,6 +62,7 @@ __all__ = [
     "NoopTelemetry",
     "NOOP",
     "active",
+    "profiled",
     "install",
     "uninstall",
     "use",
@@ -118,7 +140,7 @@ class Telemetry:
     def __init__(
         self,
         *,
-        clock: Callable[[], float] = time.perf_counter,
+        clock: Callable[[], float] = time.time,
         capacity: Optional[int] = None,
     ):
         self.clock = clock
@@ -183,7 +205,7 @@ class NoopTelemetry:
     unguarded call is safe."""
 
     enabled: bool = False
-    clock = staticmethod(time.perf_counter)
+    clock = staticmethod(time.time)
 
     def span(self, name: str, **attrs: Any) -> _NoopSpan:
         return _NOOP_SPAN
@@ -203,10 +225,24 @@ class NoopTelemetry:
 
 NOOP = NoopTelemetry()
 _ACTIVE: Any = NOOP
+_PROFILED = Telemetry()
+
+
+def profiled() -> Telemetry:
+    """The sink that records while ``torch.profiler`` records and no sink
+    is installed (see :func:`active`); it keeps every session's events
+    until ``profiled().clear()``."""
+    return _PROFILED
 
 
 def active() -> Any:
-    """The process-global sink every instrumentation site consults."""
+    """The process-global sink every instrumentation site consults: the
+    installed one; with none, :func:`profiled` while a ``torch.profiler``
+    session records; else the no-op."""
+    if _ACTIVE is NOOP:
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+            return _PROFILED
     return _ACTIVE
 
 

@@ -89,12 +89,20 @@ class ServeEngine:
         ``seq_budget``: a local layer keeps a ring of ``min(seq_budget,
         window)`` slots, a global layer's ``seq_budget`` slots wrap the same
         way (its oldest positions are overwritten), and the RG-LRU state
-        does not depend on the budget."""
+        does not depend on the budget.
+
+        Records an ``engine.generate`` span: the host time of the call (the
+        cache made, prefill and decode enqueued; it does not wait for the
+        card)."""
         if not greedy:
             raise NotImplementedError("only greedy decoding, as in the reference")
         B, S = tokens.shape
         if B != self.batch:
             raise ValueError(f"tokens {tuple(tokens.shape)} do not fit batch {self.batch}")
+        tel = _obs_active()
+        rec = tel is not None and tel.enabled
+        if rec:
+            t0 = tel.clock()
         tokens = tokens.to(self.device)
         with torch.inference_mode():
             logits, caches = prefill(self.params, self.cfg, tokens, self.new_cache())
@@ -106,7 +114,10 @@ class ServeEngine:
                 tok = torch.argmax(logits, -1)[:, None]
                 out.append(tok)
                 pos += 1
-            return torch.cat(out, dim=1)
+            generated = torch.cat(out, dim=1)
+        if rec:
+            tel.span_at("engine.generate", t0, tel.clock(), batch=B, prompt_tokens=S, new_tokens=max_new)
+        return generated
 
 
 @dataclass
@@ -349,6 +360,4 @@ class ReplicaDispatcher:
         sched_s = max(total - serve_s, 0.0)
         tel.gauge("serve.split.serve_host_s", serve_s)
         tel.gauge("serve.split.sched_host_s", sched_s)
-        if serve_s > 0:
-            tel.gauge("serve.split.sched_over_serve", sched_s / serve_s)
         return out

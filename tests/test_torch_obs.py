@@ -26,7 +26,15 @@ The invariants, on ``backend="numpy"`` and ``"torch"`` (``device="cpu"``):
   read ``"torch"``, and its fleet counts the restacks of its device carry
   (``fleet.restack`` counters, the ``fleet.restacks`` gauge) and its
   device solves (``fleet.device_dispatches``), which the host backends
-  leave at 0.
+  leave at 0; and beside the port's own records (``PORT_ONLY``: the
+  ``scheduler.observe`` span, ``scheduler.repartition``,
+  ``executor.proc``, ``engine.generate``), which the port must have, and
+  the reference's ``serve.split.sched_over_serve`` gauge, which it drops.
+
+The port's own sites (``CallableExecutor``, ``ServeEngine.generate``,
+``Scheduler.observe``) are held on the CPU with the same invariants, and
+under the profiler rule: with no sink installed, they record into
+``obs.profiled()`` exactly while ``torch.profiler`` records, on its clock.
 """
 
 import json
@@ -37,6 +45,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core as ref_core
 import repro.obs as ref_obs
@@ -50,6 +59,12 @@ from repro_torch.runtime.straggler import StragglerAction, StragglerDetector
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BACKENDS = ["numpy", "torch"]
+PORT_ONLY = ("scheduler.repartition", "executor.proc", "engine.generate")
+
+
+def _port_only(e):
+    """A record the port makes and the reference does not."""
+    return e.name in PORT_ONLY or (e.kind == "span" and e.name == "scheduler.observe")
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +275,7 @@ def test_disabled_sink_means_zero_obs_calls(backend):
     stub = _CountingDisabledSink()
     with obs.use(stub):
         _session(port_core, backend)
+        _sites(backend)
     assert stub.calls == 0
 
 
@@ -267,32 +283,40 @@ def test_disabled_sink_means_zero_obs_calls(backend):
 def test_absent_obs_package_bit_identical(backend, monkeypatch):
     """Every guarded ``_obs_active`` hook returning None (as the ImportError
     fallback does) leaves every result bit-identical."""
+    import repro_torch.core.executor as executor
     import repro_torch.core.hierarchy as hierarchy
     import repro_torch.core.scheduler as scheduler
     import repro_torch.core.speedstore as speedstore
+    import repro_torch.runtime.serve_loop as serve_loop
 
-    want = _session(port_core, backend)
-    for mod in (scheduler, speedstore, hierarchy, port_straggler):
+    want = _session(port_core, backend), _sites(backend)
+    for mod in (scheduler, speedstore, hierarchy, port_straggler, executor, serve_loop):
         monkeypatch.setattr(mod, "_obs_active", lambda: None)
-    assert _session(port_core, backend) == want
+    with obs.use(obs.Telemetry()) as tel:
+        assert (_session(port_core, backend), _sites(backend)) == want
+    assert not tel.events
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_telemetry_is_read_only(backend):
-    want = _session(port_core, backend)
+    want = _session(port_core, backend), _sites(backend)
     with obs.use(obs.Telemetry()):
-        got = _session(port_core, backend)
+        got = _session(port_core, backend), _sites(backend)
     assert got == want
 
 
 def _records(tel, backend):
     """(kind, name, value unless a span's duration, attributes) per event,
     rewritten to what the port's ``backend`` records when ``tel`` is the
-    reference's numpy session."""
+    reference's numpy session; the port's own records and the reference's
+    ``serve.split.sched_over_serve`` gauge set aside."""
+    ref = tel.__module__.startswith("repro.obs")
     out = []
     for e in tel.events:
+        if (e.name == "serve.split.sched_over_serve") if ref else _port_only(e):
+            continue
         attrs = dict(e.attrs)
-        if backend == "torch" and tel.__module__.startswith("repro.obs"):
+        if backend == "torch" and ref:
             if e.name == "speedstore.bisection_steps":
                 continue
             if attrs.get("backend") == "numpy":
@@ -317,7 +341,12 @@ def test_names_counts_and_attributes_match_the_reference(backend):
             "straggler.strike", "straggler.verdict", "straggler.reprofile",
             "straggler.quarantine"} <= names
     assert ("speedstore.bisection_steps" in names) == (backend == "numpy")
-    counts = dict(port_tel.counters)
+    # the port's own: a span around every observe, a counter a repartition
+    observes = port_tel.spans("scheduler.observe")
+    assert len(observes) == port_tel.counters["scheduler.observe"] > 0
+    assert port_tel.counters["scheduler.repartition"] == sum(e.attrs["repartitioned"] for e in observes) > 0
+    assert not ref_tel.spans("scheduler.observe") and "scheduler.repartition" not in ref_tel.counters
+    counts = {k: v for k, v in port_tel.counters.items() if k not in PORT_ONLY}
     if backend == "torch":
         assert counts == {k: v for k, v in ref_tel.counters.items()}
         assert port_tel.gauges == {k: v for k, v in ref_tel.gauges.items()
@@ -564,9 +593,137 @@ def test_dispatch_serve_telemetry_matches_the_reference(backend):
     serve = [(e.kind, e.name) for e in port_tel.events if e.name.startswith("serve.")]
     assert serve.count(("gauge", "serve.split.serve_host_s")) == 2
     assert serve.count(("gauge", "serve.split.sched_host_s")) == 2
+    # the ratio of the two is the reference's alone; this session reaches
+    # none of the port's own sites (the fleet observes, not Scheduler)
+    assert "serve.split.sched_over_serve" in {e.name for e in ref_tel.events}
+    assert "serve.split.sched_over_serve" not in port_tel.gauges
+    assert not any(_port_only(e) for e in port_tel.events)
     busy = port_tel.spans("serve.replica_busy")
     assert busy and {e.attrs["track"] for e in busy} <= {f"replica:{i}" for i in range(4)}
     stub = _CountingDisabledSink()
     with obs.use(stub):
         assert _dispatch_session(ReplicaDispatcher, backend) == want
     assert stub.calls == 0
+
+
+# ---------------------------------------------------------------------------
+# the port's own sites and the profiler rule
+# ---------------------------------------------------------------------------
+
+
+def _observe_after_a_slowdown(backend, slow=4.0):
+    """A scheduler balanced on three linear processors, then one
+    ``observe`` in which processor 0 runs ``slow`` times slower.  Returns
+    (repartitioned, the distribution after)."""
+    fns = [(lambda c: lambda x: c * x)(c) for c in (1.0, 2.0, 3.0)]
+    sched = port_core.Scheduler(backend=backend, device="cpu")
+    sched.autotune(port_core.SimulatedExecutor(time_fns=fns), 60, 0.05, min_units=1)
+    times = [fn(d) * (slow if i == 0 else 1.0) for i, (fn, d) in enumerate(zip(fns, sched.d))]
+    return sched.observe(times), list(sched.d)
+
+
+def _sites(backend):
+    """The port's own sites: two rounds of a ``CallableExecutor`` on the CPU
+    (each processor doubles its third of a buffer; the first round also runs
+    each untimed), a greedy ``generate`` of a tiny model, and an ``observe``
+    that repartitions.  Returns what they computed."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.runtime import ServeEngine
+
+    buf = torch.arange(12, dtype=torch.float64)
+
+    def proc(i):
+        def run(units):
+            buf[4 * i:4 * i + units].mul_(2.0)
+        return run
+
+    ex = port_core.CallableExecutor([proc(i) for i in range(3)], device="cpu")
+    for _ in range(2):
+        ex.run([4, 3, 2])
+    cfg = get_smoke_config("gemma2-2b")
+    model = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.arange(16).view(2, 8) % cfg.vocab_size
+    toks = ServeEngine(cfg, model, batch=2, seq_budget=16, device="cpu").generate(prompt, 3)
+    return buf.tolist(), toks.tolist(), _observe_after_a_slowdown(backend)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_observe_records_its_span_and_each_repartition(backend):
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        changed, _ = _observe_after_a_slowdown(backend)
+        kept, _ = _observe_after_a_slowdown(backend, slow=1.0)
+    assert changed and not kept
+    spans = tel.spans("scheduler.observe")
+    assert [e.attrs for e in spans] == [{"repartitioned": True}, {"repartitioned": False}]
+    assert tel.counters["scheduler.repartition"] == 1 and tel.counters["scheduler.observe"] == 2
+    # the repartition's partition lies inside the first observe's span
+    first = spans[0]
+    parts = [e for e in tel.spans("speedstore.partition") if first.t0 <= e.t0 <= e.t1 <= first.t1]
+    assert len(parts) == 1
+
+
+def test_executor_and_engine_record_their_spans():
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        _sites("numpy")
+    procs = tel.spans("executor.proc")
+    assert [(e.attrs["round"], e.attrs["proc"], e.attrs["units"]) for e in procs] == [
+        (r, i, u) for r in (0, 1) for i, u in enumerate((4, 3, 2))]
+    for e in procs:  # on the CPU the device time is the host time inside the span
+        assert 0 < e.attrs["device_s"] <= e.t1 - e.t0
+    (gen,) = tel.spans("engine.generate")
+    assert gen.attrs == {"batch": 2, "prompt_tokens": 8, "new_tokens": 3} and gen.t1 > gen.t0
+
+
+def test_spans_lie_on_the_profilers_clock(tmp_path):
+    """A ``record_function`` range, stamped by the profiler, lies between
+    two readings of the default clock taken around it (±1 ms), and so does
+    a torch trace's ``ts`` against ``to_chrome_trace``'s once the torch
+    trace's ``baseTimeNanoseconds`` is added back."""
+    tel = obs.Telemetry()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = tel.clock()
+        with torch.profiler.record_function("obs.clock_probe"):
+            torch.ones(64).sum()
+        t1 = tel.clock()
+    tel.span_at("probe", t0, t1)
+    (ev,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "obs.clock_probe"]
+    assert t0 - 1e-3 <= ev.start_ns() / 1e9 <= ev.end_ns() / 1e9 <= t1 + 1e-3
+    path = tmp_path / "torch.json"
+    prof.export_chrome_trace(str(path))
+    torch_trace = json.loads(path.read_text())
+    (tev,) = [e for e in torch_trace["traceEvents"] if e.get("name") == "obs.clock_probe"]
+    ts = float(tev["ts"]) + torch_trace.get("baseTimeNanoseconds", 0) / 1e3
+    (mine,) = [e for e in obs.to_chrome_trace(tel)["traceEvents"] if e["name"] == "probe"]
+    assert mine["ts"] - 1e3 <= ts <= mine["ts"] + mine["dur"] + 1e3
+
+
+def test_the_profiler_records_into_the_profiled_sink_only_while_it_records():
+    sink = obs.profiled()
+    sink.clear()
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    want = _sites("torch")
+    assert not sink.events and not sink.counters and obs.active() is obs.NOOP
+    with torch.profiler.profile(activities=cpu):
+        assert obs.active() is sink
+        got = _sites("torch")
+    assert got == want
+    names = {e.name for e in sink.spans()}
+    assert {"executor.proc", "engine.generate", "scheduler.observe", "scheduler.autotune",
+            "speedstore.partition"} <= names
+    assert sink.counters["scheduler.repartition"] == 1
+    n = len(sink.events)
+    assert obs.active() is obs.NOOP and _sites("torch") == want and len(sink.events) == n
+    # an installed sink wins over the profiled one
+    tel = obs.Telemetry()
+    with torch.profiler.profile(activities=cpu), obs.use(tel):
+        assert obs.active() is tel and _sites("torch") == want
+    assert len(sink.events) == n and len(tel.events) == n
+    # the profiled sink accumulates across sessions until cleared
+    with torch.profiler.profile(activities=cpu):
+        _sites("torch")
+    assert len(sink.events) == 2 * n and sink.counters["scheduler.repartition"] == 2
+    sink.clear()
+    assert not sink.events
